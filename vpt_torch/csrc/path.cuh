@@ -1,0 +1,710 @@
+// Per-path device code of the forward render kernel (csrc/wavefront.cu).
+//
+// Thread-scalar transcription of vpt's fused render kernel body
+// (vpt/kernels/wavefront.py:266-741) and of the primitives it inlines
+// (vpt/kernels/prims.py), for the homogeneous free-flight NEE estimator
+// (explicit_free / iterative_vpt_free), isotropic phase, no material-3
+// shells, samplers "random" and "ld". Everything is __host__ __device__:
+// nvcc builds it into the kernel, and the test build compiles the same
+// header with g++ through csrc/path_host.cpp.
+//
+// Parity with vpt at one seed rests on three rules:
+//  - the PCG stream is uint32 arithmetic (vpt: int32 with wraparound and
+//    logical shifts) and the uniform comes from a mantissa bitcast;
+//  - every iteration takes every draw vpt's body takes, in vpt's order,
+//    whether or not the branch that uses it runs (Pcg::skip advances the
+//    stream for the branches a thread does not take);
+//  - every f32 operation keeps vpt's order and rounding: no FMA
+//    contraction (nvcc --fmad=false, g++ -ffp-contract=off), constants
+//    folded in double on the host exactly where vpt folds them in python
+//    (VptParams carries them), and the same floors and epsilons.
+// Only selected values are computed: vpt evaluates every material branch
+// and selects, a thread evaluates the branch it selects, which gives the
+// same value.
+#pragma once
+
+#include <math.h>
+#include <stdint.h>
+#include <string.h>
+
+#ifdef __CUDACC__
+#define VPT_HD __host__ __device__ __forceinline__
+#else
+#define VPT_HD inline
+#endif
+
+#define VPT_MAX_SPHERES 16
+
+// Launch parameters, laid out word by word by
+// vpt_torch/kernels/wavefront.py Packed.words(). All fields are 4 bytes.
+struct VptParams {
+  int width, height, spp, max_bounces, max_iters;
+  int ld, jitter;
+  int n_spheres, n_emitters, n_mis;
+  int emitters[VPT_MAX_SPHERES];    // emitter sphere ids (-1 padded)
+  int mis_lights[VPT_MAX_SPHERES];  // r > 0 and radiance.x > 0
+  int mat[VPT_MAX_SPHERES];         // material codes
+  float cam_o[3], cam_d[3], cx[3], cy[3];
+  float inv_w, inv_h;               // 1/width, 1/height
+  float q;                          // 1 - continue_prob
+  float inv_cp;                     // 1 / continue_prob
+  float sigma_t, inv_sigma_t;
+  float tp_med;                     // (sigma_s / sigma_t) / cp
+  float med_c;                      // n_emitters * (sigma_s / sigma_t) / cp
+  float n_em_f;                     // n_emitters as f32
+  float nee_phase;                  // (1 / 4pi) * 2pi
+  float slack;                      // 1 - 1024 * FLT_EPSILON
+  float r[VPT_MAX_SPHERES];
+  float r2[VPT_MAX_SPHERES];        // r*r folded in double
+  float eps[VPT_MAX_SPHERES];       // 1e-4 + 16 * FLT_EPSILON * r, in double
+  float alpha[VPT_MAX_SPHERES];
+  float c[VPT_MAX_SPHERES][3];
+  float alb[VPT_MAX_SPHERES][3];
+  float rad[VPT_MAX_SPHERES][3];
+  float eta[VPT_MAX_SPHERES][3];
+  float kap[VPT_MAX_SPHERES][3];
+};
+
+namespace vpt {
+
+constexpr double kPi = 3.141592653589793;
+constexpr float BIG = 1e8f;
+constexpr float INV_PI = (float)(1.0 / kPi);
+constexpr float TWO_PI = (float)(2.0 * kPi);
+constexpr float ETA_T = 1.5f;                           // glass, ETA_I = 1
+constexpr float INV_RATIO2 = (float)((1.0 / 1.5) * (1.0 / 1.5));
+constexpr float LD_A1 = (float)0.8812714616335696;
+constexpr float LD_A2 = (float)0.7766393890897682;
+constexpr float LD_A3 = (float)0.6844301295853426;
+constexpr float LD_A4 = (float)0.6031687406857282;
+constexpr float LD_A5 = (float)0.5315553977157913;
+constexpr int MICROFACET = 1;
+constexpr int DIELECTRIC = 2;
+
+// ---- scalar helpers with jnp semantics ----------------------------------
+
+// jnp.maximum / jnp.minimum propagate NaN (fmaxf/fminf do not)
+VPT_HD float vmax(float a, float b) { return (a > b || a != a) ? a : b; }
+VPT_HD float vmin(float a, float b) { return (a < b || a != a) ? a : b; }
+VPT_HD float vclip(float x, float lo, float hi) { return vmin(vmax(x, lo), hi); }
+
+VPT_HD float vrsqrt(float x) {
+#ifdef __CUDA_ARCH__
+  return rsqrtf(x);
+#else
+  return 1.0f / sqrtf(x);
+#endif
+}
+
+VPT_HD float bits_to_float(uint32_t u) {
+#ifdef __CUDA_ARCH__
+  return __uint_as_float(u);
+#else
+  float f;
+  memcpy(&f, &u, sizeof f);
+  return f;
+#endif
+}
+
+struct V3 {
+  float x, y, z;
+};
+
+VPT_HD V3 mk(float x, float y, float z) {
+  V3 r;
+  r.x = x;
+  r.y = y;
+  r.z = z;
+  return r;
+}
+VPT_HD V3 neg3(V3 a) { return mk(-a.x, -a.y, -a.z); }
+VPT_HD V3 sub3(V3 a, V3 b) { return mk(a.x - b.x, a.y - b.y, a.z - b.z); }
+VPT_HD V3 add3(V3 a, V3 b) { return mk(a.x + b.x, a.y + b.y, a.z + b.z); }
+VPT_HD V3 scale3(V3 a, float k) { return mk(a.x * k, a.y * k, a.z * k); }
+VPT_HD V3 ray_at(V3 o, float t, V3 d) {  // o + t*d per component
+  return mk(o.x + t * d.x, o.y + t * d.y, o.z + t * d.z);
+}
+VPT_HD float dot3(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+VPT_HD float norm3(V3 a) { return sqrtf(vmax(dot3(a, a), 1e-20f)); }
+VPT_HD V3 normalize3(V3 a) {
+  float inv = vrsqrt(vmax(dot3(a, a), 1e-20f));
+  return mk(a.x * inv, a.y * inv, a.z * inv);
+}
+
+// ---- PCG (vpt/kernels/prims.py Pcg, pcg_seed, ld_*) ---------------------
+
+struct Pcg {
+  uint32_t s;
+  VPT_HD float next() {
+    s = s * 747796405u + 2891336453u;
+    uint32_t w = ((s >> ((s >> 28u) + 4u)) ^ s) * 277803737u;
+    uint32_t x = (w >> 22u) ^ w;
+    return bits_to_float((x >> 9u) | 0x3F800000u) - 1.0f;
+  }
+  // advance past n draws that a branch this thread skips would take
+  VPT_HD void skip(int n) {
+    for (int k = 0; k < n; ++k) s = s * 747796405u + 2891336453u;
+  }
+};
+
+VPT_HD uint32_t pcg_seed(uint32_t lane, uint32_t seed) {
+  uint32_t s = (lane * 2654435769u) ^ (seed * 2246822507u + 1u);
+  return s * 747796405u + 2891336453u;
+}
+
+VPT_HD float ld_strat(float a, float off, float s_f) {
+  float x = a * s_f + off;
+  return x - floorf(x);
+}
+
+// ---- frames -------------------------------------------------------------
+
+struct Onb {
+  V3 s, t;
+};
+
+VPT_HD Onb onb(V3 n) {  // branch-free coordinateSystem (mathUtilities.h:10-19)
+  bool cond = fabsf(n.x) > fabsf(n.y);
+  float inv_a = vrsqrt(vmax(n.x * n.x + n.z * n.z, 1e-20f));
+  float inv_b = vrsqrt(vmax(n.y * n.y + n.z * n.z, 1e-20f));
+  V3 t = cond ? mk(n.z * inv_a, 0.0f, -n.x * inv_a)
+              : mk(0.0f, n.z * inv_b, -n.y * inv_b);
+  Onb b;
+  b.s = mk(t.y * n.z - t.z * n.y, t.z * n.x - t.x * n.z, t.x * n.y - t.y * n.x);
+  b.t = t;
+  return b;
+}
+
+VPT_HD V3 to_local(V3 n, V3 w) {
+  Onb b = onb(n);
+  return normalize3(mk(dot3(w, b.s), dot3(w, b.t), dot3(w, n)));
+}
+
+VPT_HD V3 from_local(V3 n, V3 w) {
+  Onb b = onb(n);
+  return mk(b.s.x * w.x + b.t.x * w.y + n.x * w.z,
+            b.s.y * w.x + b.t.y * w.y + n.y * w.z,
+            b.s.z * w.x + b.t.z * w.y + n.z * w.z);
+}
+
+// ---- scene intersection -------------------------------------------------
+
+// nearest-root t with the reference's rescue rule (Sphere.h:27-37)
+VPT_HD float sphere_first_t(const VptParams& P, V3 o, V3 d, int s, bool& valid) {
+  V3 oc = mk(o.x - P.c[s][0], o.y - P.c[s][1], o.z - P.c[s][2]);
+  float b = dot3(oc, d);
+  float c0 = dot3(oc, oc) - P.r2[s];
+  float disc = P.r2[s] - (dot3(oc, oc) - b * b);
+  bool pos = disc > 0.0f;
+  float sq = sqrtf(pos ? disc : 1.0f) * (pos ? 1.0f : 0.0f);
+  float sgn = b >= 0.0f ? 1.0f : -1.0f;
+  float qq = -(b + sgn * sq);
+  float other = c0 / (qq != 0.0f ? qq : 1.0f);
+  float t1 = vmin(qq, other);
+  float t2 = vmax(qq, other);
+  float eps = P.eps[s];
+  float t = (t1 < 0.0f || fabsf(t1) < eps) ? t2 : t1;
+  valid = pos && t > 0.0f && fabsf(t) > eps;
+  return t;
+}
+
+// nearest sphere id (-1 on a miss); t_out is its t (0 on a miss)
+VPT_HD int nearest_id_t(const VptParams& P, V3 o, V3 d, float& t_out) {
+  float t_min = INFINITY;
+  int sid = -1;
+  for (int s = 0; s < P.n_spheres; ++s) {
+    bool valid;
+    float t = sphere_first_t(P, o, d, s, valid);
+    if (valid && t < t_min) {
+      t_min = t;
+      sid = s;
+    }
+  }
+  t_out = sid >= 0 ? t_min : 0.0f;
+  return sid;
+}
+
+struct Attr {  // per-lane sphere attributes; all zero on a miss
+  V3 c;
+  float alb[3], rad[3], eta[3], kap[3];
+  float alpha;
+  bool is_em, is_mic, is_die;
+};
+
+VPT_HD Attr attrs(const VptParams& P, int sid) {
+  Attr a;
+  if (sid < 0) {
+    a.c = mk(0.0f, 0.0f, 0.0f);
+    for (int i = 0; i < 3; ++i) a.alb[i] = a.rad[i] = a.eta[i] = a.kap[i] = 0.0f;
+    a.alpha = 0.0f;
+    a.is_em = a.is_mic = a.is_die = false;
+    return a;
+  }
+  a.c = mk(P.c[sid][0], P.c[sid][1], P.c[sid][2]);
+  for (int i = 0; i < 3; ++i) {
+    a.alb[i] = P.alb[sid][i];
+    a.rad[i] = P.rad[sid][i];
+    a.eta[i] = P.eta[sid][i];
+    a.kap[i] = P.kap[sid][i];
+  }
+  a.alpha = P.alpha[sid];
+  a.is_em = a.rad[0] > 0.0f || a.rad[1] > 0.0f || a.rad[2] > 0.0f;
+  a.is_mic = P.mat[sid] == MICROFACET;
+  a.is_die = P.mat[sid] == DIELECTRIC;
+  return a;
+}
+
+// pLight attenuation (vptShadeMethods.h:62-91), no shells: cast from the
+// light toward xs; visible -> 1/d^2 else 0
+VPT_HD float plight_le_scale(const VptParams& P, V3 lc, V3 xs, float& dist, V3& dl) {
+  V3 lx = sub3(xs, lc);
+  dist = norm3(lx);
+  float inv_d = 1.0f / dist;
+  dl = scale3(lx, inv_d);
+  float t;
+  int sid = nearest_id_t(P, lc, dl, t);
+  bool vis = (t > dist * P.slack) || sid < 0;
+  return vis ? inv_d * inv_d : 0.0f;
+}
+
+// ---- Beckmann / Fresnel -------------------------------------------------
+
+VPT_HD float ndf_beckmann(float cosine, float alpha) {
+  float c2 = cosine * cosine;
+  float inv_c2 = 1.0f / vmax(c2, 1e-4f);
+  float inv_a2 = 1.0f / vmax(alpha * alpha, 1e-8f);
+  float tan2 = vmax(1.0f - c2, 0.0f) * inv_c2;
+  float val = expf(-tan2 * inv_a2) * (inv_a2 * INV_PI) * (inv_c2 * inv_c2);
+  return cosine >= 0.0f ? val : 0.0f;
+}
+
+VPT_HD float g1(V3 n, V3 wv, V3 wh, float alpha) {
+  float cos = dot3(n, wv);
+  float sin = sqrtf(vmax(1.0f - cos * cos, 1e-12f));
+  float cos_g = cos != 0.0f ? cos : 1e-12f;
+  float a = cos_g / (vmax(alpha, 1e-6f) * (sin != 0.0f ? sin : 1e-12f * cos_g));
+  float rational = (3.535f * a + 2.181f * a * a) / (1.0f + 2.276f * a + 2.577f * a * a);
+  float g = a < 1.6f ? rational : 1.0f;
+  bool same = dot3(wv, wh) * cos_g > 0.0f;
+  return same ? g : 0.0f;
+}
+
+VPT_HD float fresnel_cond1(float cos, float sin2, float e, float k) {
+  float e2k2 = e * e - k * k - sin2;
+  float a2b2 = sqrtf(vmax(e2k2 * e2k2 + 4.0f * e * e * k * k, 1e-12f));
+  float a = sqrtf(vmax(0.5f * (a2b2 + e * e - k * k - sin2), 1e-12f));
+  float c2 = cos * cos;
+  float pn = a2b2 + c2 - 2.0f * a * cos;
+  float pd = a2b2 + c2 + 2.0f * a * cos;
+  float sin4 = sin2 * sin2;
+  float qn = a2b2 * c2 + sin4 - 2.0f * a * cos * sin2;
+  float qd = a2b2 * c2 + sin4 + 2.0f * a * cos * sin2;
+  return 0.5f * pn * (qn + qd) / (pd * qd);
+}
+
+VPT_HD void fresnel_cond(float cos, const Attr& at, float f[3]) {
+  float sin2 = vmax(1.0f - cos * cos, 1e-12f);
+  for (int i = 0; i < 3; ++i) f[i] = fresnel_cond1(cos, sin2, at.eta[i], at.kap[i]);
+}
+
+// Cook-Torrance in the local frame (n = +z)
+VPT_HD void fr_microfacet(const Attr& at, V3 wi_l, V3 wh_l, V3 wo_l, float fr[3]) {
+  V3 nz = mk(0.0f, 0.0f, 1.0f);
+  float den = 4.0f * vmax(fabsf(wi_l.z) * fabsf(wo_l.z), 1e-12f);
+  float f[3];
+  fresnel_cond(dot3(wi_l, wh_l), at, f);
+  float dg = ndf_beckmann(wh_l.z, at.alpha) * g1(nz, wi_l, wh_l, at.alpha) *
+             g1(nz, wo_l, wh_l, at.alpha) / den;
+  for (int i = 0; i < 3; ++i) fr[i] = f[i] * dg;
+}
+
+// Cook-Torrance in the global frame
+VPT_HD void fr_microfacet_global(const Attr& at, V3 wi, V3 wh, V3 wo, V3 n, float fr[3]) {
+  float den = 4.0f * vmax(fabsf(dot3(n, wi)) * fabsf(dot3(n, wo)), 1e-12f);
+  float f[3];
+  fresnel_cond(dot3(wi, wh), at, f);
+  float dg = ndf_beckmann(dot3(n, wh), at.alpha) * g1(n, wi, wh, at.alpha) *
+             g1(n, wo, wh, at.alpha) / den;
+  for (int i = 0; i < 3; ++i) fr[i] = f[i] * dg;
+}
+
+VPT_HD float fresnel_die(float cos_t, float cos_i) {
+  float par = (ETA_T * cos_i - cos_t) / (ETA_T * cos_i + cos_t);
+  float perp = (cos_i - ETA_T * cos_t) / (cos_i + ETA_T * cos_t);
+  return 0.5f * (par * par + perp * perp);
+}
+
+// reference refraction incl. the stray -1 (microFacetUtilities.h:123-141)
+VPT_HD V3 refract_quirk(V3 wo, V3 n) {
+  V3 wo_l = to_local(n, wo);
+  float cos_i = dot3(wo, n);
+  float s2 = vmax(1.0f - INV_RATIO2 * (1.0f - cos_i * cos_i), 1e-12f);
+  float cos_t = sqrtf(s2);
+  V3 wt_l = mk(wo_l.x * -1.5f, wo_l.y * -1.5f, cos_t - 1.0f);
+  return normalize3(from_local(n, wt_l));
+}
+
+// ---- samplers -----------------------------------------------------------
+
+VPT_HD V3 cone_dir(V3 wc, float cos_max, float u1, float u2) {
+  float ct = vclip((1.0f - u1) + u1 * cos_max, -1.0f, 1.0f);
+  float st = sqrtf(vmax(1.0f - ct * ct, 1e-12f));
+  float phi = TWO_PI * u2;
+  return normalize3(from_local(wc, mk(st * cosf(phi), st * sinf(phi), ct)));
+}
+
+VPT_HD V3 cosine_hemi(V3 n, float u1, float u2) {
+  float ct = sqrtf(vmax(1.0f - u1, 0.0f));
+  float st = sqrtf(vmax(u1, 0.0f));
+  float phi = TWO_PI * u2;
+  return normalize3(from_local(n, mk(st * cosf(phi), st * sinf(phi), ct)));
+}
+
+VPT_HD V3 uniform_sphere(float u1, float u2) {
+  float ct = 1.0f - 2.0f * u1;
+  float st = sqrtf(vmax(1.0f - ct * ct, 0.0f));
+  float phi = TWO_PI * u2;
+  return mk(st * cosf(phi), st * sinf(phi), ct);
+}
+
+VPT_HD V3 beckmann_wh(float alpha, float u1, float u2) {
+  float t2 = vmax(-(alpha * alpha) * logf(vmax(1.0f - u1, 1e-20f)), 1e-20f);
+  float ct = vrsqrt(1.0f + t2);
+  float st = sqrtf(t2) * ct;
+  float phi = TWO_PI * u2;
+  return mk(st * cosf(phi), st * sinf(phi), ct);
+}
+
+// bdsf (vptShadeMethods.h:16-59) with its three draws given
+VPT_HD void sample_bsdf(const Attr& at, V3 d, V3 n, float u1, float u2, float u_choice,
+                        float fs[3], V3& wi, float& pdf) {
+  V3 wo = neg3(d);
+  if (at.is_mic) {
+    V3 wh = from_local(n, beckmann_wh(at.alpha, u1, u2));
+    float wh_dot_wo = dot3(wh, wo);
+    wi = mk(2.0f * wh_dot_wo * wh.x - wo.x, 2.0f * wh_dot_wo * wh.y - wo.y,
+            2.0f * wh_dot_wo * wh.z - wo.z);
+    fr_microfacet_global(at, wi, wh, wo, n, fs);
+    pdf = ndf_beckmann(dot3(wh, n), at.alpha) * dot3(wh, n) /
+          (4.0f * vmax(fabsf(wh_dot_wo), 1e-12f));
+  } else if (at.is_die) {
+    V3 wt = refract_quirk(wo, n);
+    float fres = fresnel_die(dot3(n, wt), dot3(n, wo));
+    bool refl = u_choice < fres;
+    float ndotwo = dot3(n, wo);
+    V3 wr = normalize3(mk(2.0f * ndotwo * n.x - wo.x, 2.0f * ndotwo * n.y - wo.y,
+                          2.0f * ndotwo * n.z - wo.z));
+    wi = refl ? wr : wt;
+    float cos_d = dot3(n, wi);
+    float inv_cos = 1.0f / (cos_d != 0.0f ? cos_d : 1e-12f);
+    float s = refl ? inv_cos * fres : inv_cos * (1.0f - fres) * ETA_T * ETA_T;
+    fs[0] = fs[1] = fs[2] = s;
+    pdf = refl ? fres : 1.0f - fres;
+  } else {
+    wi = cosine_hemi(n, u1, u2);
+    pdf = dot3(n, wi) * INV_PI;
+    for (int i = 0; i < 3; ++i) fs[i] = at.alb[i] * INV_PI;
+  }
+}
+
+// light-strategy fr: lambert / 0 (dielectric) / local microfacet
+// (samplingFunctions.h:163-194); plight=true is pLight's variant, which has
+// no dielectric branch (vptShadeMethods.h:83-87)
+VPT_HD void eval_fr_nee(const Attr& at, V3 n, V3 wray, V3 wi, bool plight, float fr[3]) {
+  if (at.is_mic) {
+    V3 wi_l = to_local(n, wi);
+    V3 wo_l = to_local(n, neg3(wray));
+    V3 wh = normalize3(add3(wi_l, wo_l));
+    fr_microfacet(at, wi_l, wh, wo_l, fr);
+  } else if (at.is_die && !plight) {
+    fr[0] = fr[1] = fr[2] = 0.0f;
+  } else {
+    for (int i = 0; i < 3; ++i) fr[i] = at.alb[i] * INV_PI;
+  }
+}
+
+VPT_HD float bsdf_pdf_for_dir(const Attr& at, V3 n, V3 wo, V3 wi, float u_flip) {
+  if (at.is_mic) {
+    V3 wh = normalize3(add3(wi, wo));
+    return ndf_beckmann(dot3(wh, n), at.alpha) * dot3(wh, n) /
+           (4.0f * vmax(fabsf(dot3(wo, wh)), 1e-12f));
+  }
+  if (at.is_die) {
+    V3 wt = refract_quirk(wo, n);
+    float fres = fresnel_die(dot3(n, wt), dot3(n, wo));
+    return u_flip > fres ? 1.0f - fres : fres;
+  }
+  return dot3(n, wi) * INV_PI;
+}
+
+VPT_HD float power_h_invf(float f_inv, float g) {
+  float r = vclip(g, 0.0f, 1e12f) * f_inv;
+  return 1.0f / (1.0f + r * r);
+}
+
+VPT_HD float power_h_invg(float f, float g_inv) {
+  float r = vclip(f, 0.0f, 1e12f) * g_inv;
+  float r2 = r * r;
+  return f > 0.0f ? r2 / (r2 + 1.0f) : 0.0f;
+}
+
+// ---- estimator pieces (vpt/kernels/wavefront.py) ------------------------
+
+// MISv2 (misSamplingFunctions.h:96-170): takes 3 draws per MIS light, then 3
+VPT_HD void mis_v2(const VptParams& P, Pcg& rng, const Attr& at, V3 xs, V3 n, V3 d,
+                   float acc[3]) {
+  acc[0] = acc[1] = acc[2] = 0.0f;
+  V3 wo = neg3(d);
+  for (int j = 0; j < P.n_mis; ++j) {
+    int e = P.mis_lights[j];
+    V3 cxv = mk(P.c[e][0] - xs.x, P.c[e][1] - xs.y, P.c[e][2] - xs.z);
+    float normcx = norm3(cxv);
+    float inv_ncx = 1.0f / normcx;
+    V3 wc = scale3(cxv, inv_ncx);
+    float ratio = P.r[e] * inv_ncx;
+    float cos_max = sqrtf(vmax(1.0f - ratio * ratio, 1e-12f));
+    float u1 = rng.next();
+    float u2 = rng.next();
+    V3 wi = cone_dir(wc, cos_max, u1, u2);
+    float t_unused;
+    int sid = nearest_id_t(P, xs, wi, t_unused);
+    bool visible = sid >= 0 && sid == e;
+    float fr[3];
+    eval_fr_nee(at, n, d, wi, false, fr);
+    float fpdf_inv = TWO_PI * vmax(1.0f - cos_max, 1e-12f);
+    float tr = expf(-P.sigma_t * normcx);
+    float w_vis = visible ? tr * dot3(n, wi) * fpdf_inv : 0.0f;
+    float gpdf = bsdf_pdf_for_dir(at, n, wo, wi, rng.next());
+    float wf = power_h_invf(fpdf_inv, gpdf);
+    for (int i = 0; i < 3; ++i) acc[i] = acc[i] + P.rad[e][i] * fr[i] * w_vis * wf;
+  }
+  // BSDF strategy: sample the lane's lobe, one trace
+  float u1 = rng.next(), u2 = rng.next(), u_choice = rng.next();
+  float g[3], gpdf;
+  // the lobe's direction first (the trace needs it), its weight after
+  const V3 zero = mk(0.0f, 0.0f, 0.0f);
+  V3 wi_sel = zero, wi_l = zero, wi_d = zero, wh_loc = zero, wo_loc = zero,
+     wi_m_loc = zero;
+  float fres = 0.0f;
+  bool refl = false;
+  if (at.is_mic) {
+    wh_loc = beckmann_wh(at.alpha, u1, u2);
+    wo_loc = to_local(n, wo);
+    float whw = 2.0f * dot3(wh_loc, wo_loc);
+    wi_m_loc = normalize3(mk(whw * wh_loc.x - wo_loc.x, whw * wh_loc.y - wo_loc.y,
+                             whw * wh_loc.z - wo_loc.z));
+    wi_sel = normalize3(from_local(n, wi_m_loc));
+  } else if (at.is_die) {
+    V3 wt = refract_quirk(wo, n);
+    fres = fresnel_die(dot3(n, wt), dot3(n, wo));
+    refl = u_choice < fres;
+    float ndotwo = dot3(n, wo);
+    V3 wr = normalize3(mk(2.0f * ndotwo * n.x - wo.x, 2.0f * ndotwo * n.y - wo.y,
+                          2.0f * ndotwo * n.z - wo.z));
+    wi_d = refl ? wr : wt;
+    wi_sel = wi_d;
+  } else {
+    wi_l = cosine_hemi(n, u1, u2);
+    wi_sel = wi_l;
+  }
+  float t_unused;
+  int sid = nearest_id_t(P, xs, wi_sel, t_unused);
+  bool hit = sid >= 0;
+  Attr h = attrs(P, sid);
+  float hit_r = hit ? P.r[sid] : 0.0f;
+  if (at.is_mic) {
+    float fr_m[3];
+    fr_microfacet(at, wi_m_loc, wh_loc, wo_loc, fr_m);
+    float gpdf_m = ndf_beckmann(wh_loc.z, at.alpha) * wh_loc.z /
+                   (4.0f * vmax(fabsf(dot3(wo_loc, wh_loc)), 1e-12f));
+    float winv_m = wi_m_loc.z / vmax(gpdf_m, 1e-20f);
+    for (int i = 0; i < 3; ++i) g[i] = h.rad[i] * fr_m[i] * winv_m;
+    gpdf = gpdf_m;
+  } else if (at.is_die) {
+    float cos_d = fabsf(dot3(n, wi_d));
+    float scale_d = (refl ? 1.0f : ETA_T * ETA_T) / vmax(cos_d, 1e-12f);
+    for (int i = 0; i < 3; ++i) g[i] = h.rad[i] * scale_d;
+    gpdf = refl ? fres : 1.0f - fres;
+  } else {
+    float gpdf_l = dot3(n, wi_l) * INV_PI;
+    // (le*a/pi*cos_l) / (cos_l/pi) is exactly le*a, 0 when cos_l == 0
+    for (int i = 0; i < 3; ++i) g[i] = gpdf_l != 0.0f ? h.rad[i] * at.alb[i] : 0.0f;
+    gpdf = gpdf_l;
+  }
+  bool pos_all = g[0] > 0.0f && g[1] > 0.0f && g[2] > 0.0f;
+  bool gate = at.is_mic ? g[0] > 0.0f : pos_all;
+  V3 hcx = sub3(h.c, xs);
+  float n2 = vmax(dot3(hcx, hcx), 1e-20f);
+  float cmax = sqrtf(vmax(1.0f - hit_r * hit_r / n2, 1e-12f));
+  float fpdf_h_inv = TWO_PI * vmax(1.0f - cmax, 1e-12f);
+  float wg = (gate && hit) ? power_h_invg(gpdf, fpdf_h_inv) : 0.0f;
+  for (int i = 0; i < 3; ++i) acc[i] = acc[i] + g[i] * wg;
+}
+
+// freeSingleScattering (volumetricBasicFunctions.h:284-340) with the
+// missing-else point kill: point sources (lr == 0) contribute 0
+VPT_HD void medium_nee(const VptParams& P, V3 xt, V3 lc, const float lrad[3], float lr,
+                       int lid, float u1, float u2, float out[3]) {
+  V3 wc = sub3(lc, xt);
+  float inv_mag = vrsqrt(vmax(dot3(wc, wc), 1e-20f));
+  V3 wc_n = scale3(wc, inv_mag);
+  float ratio = lr * inv_mag;
+  float cos_max = sqrtf(vmax(1.0f - ratio * ratio, 1e-12f));
+  V3 wl = cone_dir(wc_n, cos_max, u1, u2);
+  float t;
+  int sid = nearest_id_t(P, xt, wl, t);
+  bool visible = sid >= 0 && sid == lid && lr > 0.0f;
+  float tr_l = expf(-P.sigma_t * t);
+  float w = visible ? tr_l * P.nee_phase * vmax(1.0f - cos_max, 1e-12f) : 0.0f;
+  for (int i = 0; i < 3; ++i) out[i] = lrad[i] * w;
+}
+
+// One pixel's spp samples (vpt/kernels/wavefront.py:698-737 for one lane).
+// The lane leaves its loop once samples == spp: vpt's tile keeps iterating
+// until every lane is done, but a finished lane is frozen (alive and need
+// stay false, so nothing more reaches L).
+VPT_HD void render_pixel(const VptParams& P, int pixel, int seed, float out[3]) {
+  const float px = (float)(pixel % P.width);
+  const float py = (float)(P.height - 1 - pixel / P.width);
+  const uint32_t lane = (uint32_t)pixel;
+  float off[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (P.ld) {  // Cranley-Patterson offsets from a decorrelated stream
+    Pcg r;
+    r.s = pcg_seed(lane ^ 0x2545F491u, (uint32_t)seed + 747796405u);
+    for (int k = 0; k < 5; ++k) off[k] = r.next();
+  }
+  Pcg rng;
+  rng.s = pcg_seed(lane, (uint32_t)seed);
+  const int n_em = P.n_emitters;
+  // draws the MIS step takes; skipped on lanes that do not shade
+  const int mis_draws = 3 * P.n_mis + 3;
+  const V3 cam_o = mk(P.cam_o[0], P.cam_o[1], P.cam_o[2]);
+
+  V3 o = mk(0.0f, 0.0f, 0.0f), d = mk(0.0f, 0.0f, 1.0f);
+  float tp[3] = {0.0f, 0.0f, 0.0f};
+  float L[3] = {0.0f, 0.0f, 0.0f};
+  bool alive = false;
+  int depth = 0, samples = 0;
+
+  for (int it = 0; it < P.max_iters && samples < P.spp; ++it) {
+    // ---- regenerate a dead lane: camera ray (draws u, v only when the
+    // "random" sampler jitters)
+    float u = 0.5f, v = 0.5f;
+    if (P.ld && P.jitter) {
+      float s_f = (float)samples;
+      u = ld_strat(LD_A1, off[0], s_f);
+      v = ld_strat(LD_A2, off[1], s_f);
+    } else if (P.jitter) {
+      u = rng.next();
+      v = rng.next();
+    }
+    if (!alive) {
+      float sx = (px + u - 0.5f) * P.inv_w - 0.5f;
+      float sy = (py + v - 0.5f) * P.inv_h - 0.5f;
+      d = normalize3(mk(P.cx[0] * sx + P.cy[0] * sy + P.cam_d[0],
+                        P.cx[1] * sx + P.cy[1] * sy + P.cam_d[1],
+                        P.cx[2] * sx + P.cy[2] * sy + P.cam_d[2]));
+      o = cam_o;
+      tp[0] = tp[1] = tp[2] = 1.0f;
+      alive = true;
+      depth = 0;
+    }
+
+    // ---- bounce
+    float u_rr = rng.next();
+    float u_pick = rng.next();
+    if (P.ld && depth == 0) {
+      float s_f = (float)samples;
+      u_rr = ld_strat(LD_A4, off[3], s_f);
+      u_pick = ld_strat(LD_A5, off[4], s_f);
+    }
+    // after regeneration every lane in this loop is alive; `live` is the
+    // Russian-roulette survival of this iteration
+    const bool live = u_rr >= P.q;
+    float t;
+    int sid = nearest_id_t(P, o, d, t);
+    bool hit = sid >= 0;
+    Attr at = attrs(P, sid);
+    float t_eff = hit ? t : BIG;
+    V3 xs = ray_at(o, t_eff, d);
+    V3 nrm = normalize3(sub3(xs, at.c));
+    // uniform emitter pick
+    int k = (int)(u_pick * P.n_em_f);
+    k = k < 0 ? 0 : k;
+    k = k > n_em - 1 ? n_em - 1 : k;
+    int lid = -1;
+    V3 lc = mk(0.0f, 0.0f, 0.0f);
+    float lrad[3] = {0.0f, 0.0f, 0.0f}, lr = 0.0f;
+    if (k >= 0) {
+      lid = P.emitters[k];
+      lc = mk(P.c[lid][0], P.c[lid][1], P.c[lid][2]);
+      for (int i = 0; i < 3; ++i) lrad[i] = P.rad[lid][i];
+      lr = P.r[lid];
+    }
+
+    float u_dist = rng.next();
+    if (P.ld && depth == 0) u_dist = ld_strat(LD_A3, off[2], (float)samples);
+    float d_s = -log1pf(-u_dist) * P.inv_sigma_t;
+    bool surface = d_s > t_eff && hit;
+    V3 xt = ray_at(o, d_s, d);
+
+    bool em_hit = surface && at.is_em;
+    if (live && em_hit && depth == 0)
+      for (int i = 0; i < 3; ++i) L[i] = L[i] + at.rad[i] * tp[i];
+    bool shade = live && surface && !em_hit;
+    bool medium = live && !surface;
+
+    if (shade) {  // surface NEE: pLight + MISv2
+      float dist_l;
+      V3 dl;
+      float le_scale = plight_le_scale(P, lc, xs, dist_l, dl);
+      V3 wi = neg3(dl);
+      float fr[3];
+      eval_fr_nee(at, nrm, d, wi, true, fr);
+      float cosw = dot3(nrm, wi);
+      float trs = expf(-P.sigma_t * dist_l);
+      float ldm[3];
+      mis_v2(P, rng, at, xs, nrm, d, ldm);
+      for (int i = 0; i < 3; ++i) {
+        float ldp = lrad[i] * le_scale * fr[i] * cosw;
+        float ld = ldp * (trs * P.n_em_f) + ldm[i];
+        L[i] = L[i] + ld * tp[i] * P.inv_cp;
+      }
+    } else {
+      rng.skip(mis_draws);
+    }
+    float b1 = rng.next(), b2 = rng.next(), b3 = rng.next();  // sample_bsdf
+    float u_p1 = rng.next(), u_p2 = rng.next();               // phase
+    float m1 = rng.next(), m2 = rng.next();                   // medium NEE cone
+
+    if (shade) {
+      float fs[3], pdf_b;
+      V3 wi_s;
+      sample_bsdf(at, d, nrm, b1, b2, b3, fs, wi_s, pdf_b);
+      float wscale = dot3(nrm, wi_s) * P.inv_cp / vmax(pdf_b, 1e-20f);
+      for (int i = 0; i < 3; ++i) tp[i] = tp[i] * fs[i] * wscale;
+      o = xs;
+      d = wi_s;
+    } else if (medium) {
+      // explicit free flight: transmittance/pdf cancel analytically (the
+      // PBRT simplification, vptShadeMethods.h:1248)
+      float ld_med[3];
+      medium_nee(P, xt, lc, lrad, lr, lid, m1, m2, ld_med);
+      for (int i = 0; i < 3; ++i) {
+        L[i] = L[i] + ld_med[i] * tp[i] * P.med_c;
+        tp[i] = tp[i] * P.tp_med;
+      }
+      o = xt;
+      d = uniform_sphere(u_p1, u_p2);
+    }
+    alive = (shade || medium) && depth + 1 < P.max_bounces;
+    if (alive)
+      depth = depth + 1;
+    else
+      samples = samples + 1;  // the path that started this sample ended
+  }
+  const float spp = (float)P.spp;
+  for (int i = 0; i < 3; ++i) out[i] = L[i] / spp;
+}
+
+}  // namespace vpt

@@ -1,0 +1,415 @@
+"""Plain torch versions of the per-path primitives of the render kernel.
+
+Counterpart of ``vpt/kernels/prims.py``, restricted to what the forward
+render of the homogeneous free-flight family uses. Every function works on
+lane tensors of any shape in lockstep, with the same masked selects and the
+same f32 operation order as vpt, so that at one seed it gives the same
+draws and (up to 1-ulp differences of the transcendentals) the same values.
+The CUDA kernel's per-path code (csrc/path.cuh) is the thread-scalar
+transcription of the same functions.
+
+Vectors are lists of three lane tensors. Scene-dependent helpers take `ps`,
+the packed scene from kernels/wavefront.pack_scene: python floats already
+rounded to f32, including the constants vpt folds in float64 at build time
+(r*r and the intersection epsilon per sphere).
+
+PCG runs in int64 masked to 32 bits: vpt's int32 arithmetic wraps and
+shifts logically, and `>>` on a torch int32 tensor is an arithmetic shift.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+BIG = 1e8
+EPS_T = 1e-4
+F32EPS = float(np.finfo(np.float32).eps)
+INV_4PI = 1.0 / (4.0 * math.pi)
+INV_PI = 1.0 / math.pi
+TWO_PI = 2.0 * math.pi
+GLASS_ETA_I, GLASS_ETA_T = 1.0, 1.5
+
+# R5 Kronecker sequence (vpt/kernels/prims.py LD_ALPHA): pixel u, pixel v,
+# depth-0 distance, depth-0 RR, depth-0 light pick
+LD_ALPHA = (0.8812714616335696, 0.7766393890897682, 0.6844301295853426,
+            0.6031687406857282, 0.5315553977157913)
+
+_M32 = 0xFFFFFFFF
+_PCG_MUL = 747796405
+_PCG_INC = 2891336453          # -1403630843 as uint32
+
+
+def f32(x: float) -> float:
+    """Round a python float to the nearest f32 value."""
+    return float(np.float32(x))
+
+
+class Pcg:
+    """Per-lane PCG-RXS-M-XS-32 stream (vpt/kernels/prims.py Pcg): uint32
+    state held in int64, uniform in [0, 1) from a mantissa bitcast."""
+
+    def __init__(self, state: torch.Tensor):
+        self.s = state
+
+    def __call__(self) -> torch.Tensor:
+        s = (self.s * _PCG_MUL + _PCG_INC) & _M32
+        self.s = s
+        w = (((s >> ((s >> 28) + 4)) ^ s) * 277803737) & _M32
+        x = (w >> 22) ^ w
+        mant = (x >> 9) | 0x3F800000
+        return mant.to(torch.int32).view(torch.float32) - 1.0
+
+
+def pcg_seed(lane: torch.Tensor, seed) -> torch.Tensor:
+    """Per-lane initial PCG state: hash(global seed, lane id) + one warmup
+    step. `lane` is an integer tensor, `seed` an int or integer tensor."""
+    lane = lane.to(torch.int64) & _M32
+    if isinstance(seed, torch.Tensor):
+        seed = seed.to(torch.int64)
+    s = ((lane * 2654435769) & _M32) ^ ((seed * 2246822507 + 1) & _M32)
+    return (s * _PCG_MUL + _PCG_INC) & _M32
+
+
+def ld_offsets(lane: torch.Tensor, seed):
+    """Per-pixel Cranley-Patterson rotation offsets (5 uniforms) from a PCG
+    stream decorrelated from the path stream."""
+    rng_off = Pcg(pcg_seed(lane.to(torch.int64) ^ 0x2545F491,
+                           seed + _PCG_MUL))
+    return rng_off(), rng_off(), rng_off(), rng_off(), rng_off()
+
+
+def ld_strat(a: float, off, s_f):
+    """Stratified uniform: frac(a * sample_index + offset)."""
+    x = f32(a) * s_f + off
+    return x - torch.floor(x)
+
+
+def dot3(a, b):
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def norm3(a):
+    return torch.sqrt(torch.clamp_min(dot3(a, a), 1e-20))
+
+
+def normalize3(a):
+    inv = torch.rsqrt(torch.clamp_min(dot3(a, a), 1e-20))
+    return [a[0] * inv, a[1] * inv, a[2] * inv]
+
+
+def sel3(m, a, b):
+    return [torch.where(m, a[i], b[i]) for i in range(3)]
+
+
+def scale3(a, k):
+    return [a[0] * k, a[1] * k, a[2] * k]
+
+
+def add3(a, b):
+    return [a[0] + b[0], a[1] + b[1], a[2] + b[2]]
+
+
+def onb(n):
+    """Branch-free coordinateSystem (mathUtilities.h:10-19)."""
+    cond = torch.abs(n[0]) > torch.abs(n[1])
+    inv_a = torch.rsqrt(torch.clamp_min(n[0] * n[0] + n[2] * n[2], 1e-20))
+    inv_b = torch.rsqrt(torch.clamp_min(n[1] * n[1] + n[2] * n[2], 1e-20))
+    z = torch.zeros_like(n[0])
+    t = [torch.where(cond, n[2] * inv_a, z),
+         torch.where(cond, z, n[2] * inv_b),
+         torch.where(cond, -n[0] * inv_a, -n[1] * inv_b)]
+    s = [t[1] * n[2] - t[2] * n[1],
+         t[2] * n[0] - t[0] * n[2],
+         t[0] * n[1] - t[1] * n[0]]
+    return s, t
+
+
+def to_local(n, w):
+    s, t = onb(n)
+    return normalize3([dot3(w, s), dot3(w, t), dot3(w, n)])
+
+
+def from_local(n, w):
+    s, t = onb(n)
+    return [s[i] * w[0] + t[i] * w[1] + n[i] * w[2] for i in range(3)]
+
+
+# --- scene intersection over the packed scene ------------------------------
+
+def sphere_first_t(ps, o, d, s):
+    """Per-sphere nearest-root t with the reference's rescue rule
+    (Sphere.h:27-37), stable quadratic."""
+    ctr = ps.c[s]
+    r2 = ps.r2[s]
+    oc = [o[0] - ctr[0], o[1] - ctr[1], o[2] - ctr[2]]
+    b = dot3(oc, d)
+    c0 = dot3(oc, oc) - r2
+    disc = r2 - (dot3(oc, oc) - b * b)
+    pos = disc > 0.0
+    sq = torch.sqrt(torch.where(pos, disc, 1.0)) * pos.to(torch.float32)
+    sgn = torch.where(b >= 0.0, 1.0, -1.0)
+    qq = -(b + sgn * sq)
+    other = c0 / torch.where(qq != 0.0, qq, 1.0)
+    t1 = torch.minimum(qq, other)
+    t2 = torch.maximum(qq, other)
+    eps = ps.eps[s]
+    t = torch.where((t1 < 0.0) | (torch.abs(t1) < eps), t2, t1)
+    valid = pos & (t > 0.0) & (torch.abs(t) > eps)
+    return t, valid
+
+
+def nearest_id_t(ps, o, d):
+    """Light trace: nearest id + t (0 on a miss)."""
+    t_min = torch.full_like(o[0], math.inf)
+    sid = torch.full(o[0].shape, -1, dtype=torch.int64, device=o[0].device)
+    for s in range(ps.S):
+        t, valid = sphere_first_t(ps, o, d, s)
+        closer = valid & (t < t_min)
+        t_min = torch.where(closer, t, t_min)
+        sid = torch.where(closer, s, sid)
+    hit = sid >= 0
+    return hit, torch.where(hit, t_min, 0.0), sid
+
+
+def attrs(ps, sid):
+    """Per-lane sphere attributes by id, zeros where sid == -1 (a miss) —
+    the values vpt's chained nearest-select leaves behind."""
+    tab = ps.attr_table(sid.device)
+    row = tab[torch.where(sid >= 0, sid, ps.S)]
+    at = {k: row[:, i].reshape(sid.shape) for i, k in enumerate(ps.ATTR_KEYS)}
+    at["is_em"] = at.pop("em_f") > 0.5
+    at["is_mic"] = at.pop("mic_f") > 0.5
+    at["is_die"] = at.pop("die_f") > 0.5
+    at["sid"] = sid
+    return at
+
+
+def nearest(ps, o, d):
+    """Scene intersect with attribute lookup. Returns (hit, t, attrs)."""
+    hit, t, sid = nearest_id_t(ps, o, d)
+    return hit, t, attrs(ps, sid)
+
+
+def plight_le_scale(ps, lc, xs):
+    """pLight's light-to-point attenuation (vptShadeMethods.h:62-91) for a
+    scene without material-3 shells: visible -> 1/d^2, else 0. Returns
+    (le_scale, dist, unit light->xs direction)."""
+    lx = [xs[0] - lc[0], xs[1] - lc[1], xs[2] - lc[2]]
+    dist = norm3(lx)
+    inv_d = 1.0 / dist
+    dl = scale3(lx, inv_d)
+    hit, t, _ = nearest_id_t(ps, lc, dl)
+    vis = (t > dist * ps.slack) | ~hit
+    return torch.where(vis, inv_d * inv_d, 0.0), dist, dl
+
+
+# --- Beckmann / Fresnel ----------------------------------------------------
+
+def ndf_beckmann(cosine, alpha):
+    c2 = cosine * cosine
+    inv_c2 = 1.0 / torch.clamp_min(c2, 1e-4)
+    inv_a2 = 1.0 / torch.clamp_min(alpha * alpha, 1e-8)
+    tan2 = torch.clamp_min(1.0 - c2, 0.0) * inv_c2
+    val = torch.exp(-tan2 * inv_a2) * (inv_a2 * INV_PI) * (inv_c2 * inv_c2)
+    return torch.where(cosine >= 0.0, val, 0.0)
+
+
+def g1(n, wv, wh, alpha):
+    cos = dot3(n, wv)
+    sin = torch.sqrt(torch.clamp_min(1.0 - cos * cos, 1e-12))
+    cos_g = torch.where(cos != 0.0, cos, 1e-12)
+    a = cos_g / (torch.clamp_min(alpha, 1e-6) *
+                 torch.where(sin != 0.0, sin, 1e-12 * cos_g))
+    rational = (3.535 * a + 2.181 * a * a) / (1.0 + 2.276 * a + 2.577 * a * a)
+    g = torch.where(a < 1.6, rational, 1.0)
+    same = dot3(wv, wh) * cos_g > 0.0
+    return torch.where(same, g, 0.0)
+
+
+def fresnel_cond(cos_wh, eta, kappa):
+    """Per-channel conductor Fresnel; eta/kappa per-lane tensors."""
+    cos = cos_wh
+    sin2 = torch.clamp_min(1.0 - cos * cos, 1e-12)
+    out = []
+    for e, k in zip(eta, kappa):
+        e2k2 = e * e - k * k - sin2
+        a2b2 = torch.sqrt(torch.clamp_min(e2k2 * e2k2 + 4.0 * e * e * k * k,
+                                          1e-12))
+        a = torch.sqrt(torch.clamp_min(0.5 * (a2b2 + e * e - k * k - sin2),
+                                       1e-12))
+        c2 = cos * cos
+        pn = a2b2 + c2 - 2.0 * a * cos
+        pd = a2b2 + c2 + 2.0 * a * cos
+        sin4 = sin2 * sin2
+        qn = a2b2 * c2 + sin4 - 2.0 * a * cos * sin2
+        qd = a2b2 * c2 + sin4 + 2.0 * a * cos * sin2
+        out.append(0.5 * pn * (qn + qd) / (pd * qd))
+    return out
+
+
+def _ior(at):
+    return (at["er"], at["eg"], at["eb"]), (at["kr"], at["kg"], at["kb"])
+
+
+def fr_microfacet(at, wi_l, wh_l, wo_l):
+    """Cook-Torrance in the LOCAL frame (n = +z)."""
+    nz = [torch.zeros_like(wi_l[0]), torch.zeros_like(wi_l[0]),
+          torch.ones_like(wi_l[0])]
+    den = 4.0 * torch.clamp_min(torch.abs(wi_l[2]) * torch.abs(wo_l[2]), 1e-12)
+    f = fresnel_cond(dot3(wi_l, wh_l), *_ior(at))
+    dg = ndf_beckmann(wh_l[2], at["alpha"]) * g1(nz, wi_l, wh_l, at["alpha"]) \
+        * g1(nz, wo_l, wh_l, at["alpha"]) / den
+    return [f[0] * dg, f[1] * dg, f[2] * dg]
+
+
+def fr_microfacet_global(at, wi, wh, wo, n):
+    """Cook-Torrance in the GLOBAL frame."""
+    den = 4.0 * torch.clamp_min(torch.abs(dot3(n, wi)) * torch.abs(dot3(n, wo)),
+                                1e-12)
+    f = fresnel_cond(dot3(wi, wh), *_ior(at))
+    dg = ndf_beckmann(dot3(n, wh), at["alpha"]) * g1(n, wi, wh, at["alpha"]) \
+        * g1(n, wo, wh, at["alpha"]) / den
+    return [f[0] * dg, f[1] * dg, f[2] * dg]
+
+
+def fresnel_die(cos_t, cos_i):
+    par = (GLASS_ETA_T * cos_i - GLASS_ETA_I * cos_t) / (
+        GLASS_ETA_T * cos_i + GLASS_ETA_I * cos_t)
+    perp = (GLASS_ETA_I * cos_i - GLASS_ETA_T * cos_t) / (
+        GLASS_ETA_I * cos_i + GLASS_ETA_T * cos_t)
+    return 0.5 * (par * par + perp * perp)
+
+
+def refract_quirk(wo, n):
+    """Reference refraction incl. the stray -1 (microFacetUtilities.h:123-141)."""
+    wo_l = to_local(n, wo)
+    cos_i = dot3(wo, n)
+    inv_ratio = GLASS_ETA_I / GLASS_ETA_T
+    # inv_ratio * inv_ratio folds in float64 first, as in vpt
+    s2 = torch.clamp_min(
+        1.0 - f32(inv_ratio * inv_ratio) * (1.0 - cos_i * cos_i), 1e-12)
+    cos_t = torch.sqrt(s2)
+    ratio = -(GLASS_ETA_T / GLASS_ETA_I)
+    wt_l = [wo_l[0] * ratio, wo_l[1] * ratio, cos_t - 1.0]
+    return normalize3(from_local(n, wt_l)), cos_t
+
+
+# --- samplers --------------------------------------------------------------
+
+def cone_dir(wc, cos_max, u1, u2):
+    ct = torch.clamp((1.0 - u1) + u1 * cos_max, -1.0, 1.0)
+    st = torch.sqrt(torch.clamp_min(1.0 - ct * ct, 1e-12))
+    phi = TWO_PI * u2
+    local = [st * torch.cos(phi), st * torch.sin(phi), ct]
+    return normalize3(from_local(wc, local))
+
+
+def cosine_hemi(n, u1, u2):
+    ct = torch.sqrt(torch.clamp_min(1.0 - u1, 0.0))
+    st = torch.sqrt(torch.clamp_min(u1, 0.0))
+    phi = TWO_PI * u2
+    return normalize3(from_local(n, [st * torch.cos(phi), st * torch.sin(phi),
+                                     ct]))
+
+
+def uniform_sphere(u1, u2):
+    ct = 1.0 - 2.0 * u1
+    st = torch.sqrt(torch.clamp_min(1.0 - ct * ct, 0.0))
+    phi = TWO_PI * u2
+    return [st * torch.cos(phi), st * torch.sin(phi), ct]
+
+
+def beckmann_wh(alpha, u1, u2):
+    t2 = torch.clamp_min(
+        -(alpha * alpha) * torch.log(torch.clamp_min(1.0 - u1, 1e-20)), 1e-20)
+    ct = torch.rsqrt(1.0 + t2)
+    st = torch.sqrt(t2) * ct
+    phi = TWO_PI * u2
+    return [st * torch.cos(phi), st * torch.sin(phi), ct]
+
+
+def sample_bsdf(rng, at, d, n):
+    """bdsf (vptShadeMethods.h:16-59): (fs, wi, pdf). Takes three draws."""
+    wo = [-d[0], -d[1], -d[2]]
+    u1, u2, u_choice = rng(), rng(), rng()
+    # lambert
+    wi_l = cosine_hemi(n, u1, u2)
+    cos_l = dot3(n, wi_l)
+    pdf_l = cos_l * INV_PI
+    fs_l = [at["ar"] * INV_PI, at["ag"] * INV_PI, at["ab"] * INV_PI]
+    # dielectric
+    wt, _ = refract_quirk(wo, n)
+    fres = fresnel_die(dot3(n, wt), dot3(n, wo))
+    refl = u_choice < fres
+    ndotwo = dot3(n, wo)
+    wr = normalize3([2.0 * ndotwo * n[i] - wo[i] for i in range(3)])
+    wi_d = sel3(refl, wr, wt)
+    cos_d = dot3(n, wi_d)
+    inv_cos = 1.0 / torch.where(cos_d != 0.0, cos_d, 1e-12)
+    fs_d_s = torch.where(refl, inv_cos * fres,
+                         inv_cos * (1.0 - fres) * GLASS_ETA_T * GLASS_ETA_T)
+    pdf_d = torch.where(refl, fres, 1.0 - fres)
+    # microfacet
+    wh = from_local(n, beckmann_wh(at["alpha"], u1, u2))
+    wh_dot_wo = dot3(wh, wo)
+    wi_m = [2.0 * wh_dot_wo * wh[i] - wo[i] for i in range(3)]
+    fs_m = fr_microfacet_global(at, wi_m, wh, wo, n)
+    pdf_m = ndf_beckmann(dot3(wh, n), at["alpha"]) * dot3(wh, n) / (
+        4.0 * torch.clamp_min(torch.abs(wh_dot_wo), 1e-12))
+    is_m, is_d = at["is_mic"], at["is_die"]
+    fs = sel3(is_m, fs_m, sel3(is_d, [fs_d_s] * 3, fs_l))
+    wi = sel3(is_m, wi_m, sel3(is_d, wi_d, wi_l))
+    pdf = torch.where(is_m, pdf_m, torch.where(is_d, pdf_d, pdf_l))
+    return fs, wi, pdf
+
+
+def eval_fr_nee(at, n, wray, wi):
+    """Light-strategy fr: lambert / 0 (dielectric) / local microfacet
+    (samplingFunctions.h:163-194)."""
+    wi_l = to_local(n, wi)
+    wo_l = to_local(n, [-wray[0], -wray[1], -wray[2]])
+    wh = normalize3(add3(wi_l, wo_l))
+    fr_m = fr_microfacet(at, wi_l, wh, wo_l)
+    fr_lam = [at["ar"] * INV_PI, at["ag"] * INV_PI, at["ab"] * INV_PI]
+    zero = torch.zeros_like(fr_lam[0])
+    return [torch.where(at["is_mic"], fr_m[i],
+                        torch.where(at["is_die"], zero, fr_lam[i]))
+            for i in range(3)]
+
+
+def eval_fr_nee_plight(at, n, wray, wi):
+    """pLight's fr: microfacet local / lambert (no dielectric branch,
+    vptShadeMethods.h:83-87)."""
+    wi_l = to_local(n, wi)
+    wo_l = to_local(n, [-wray[0], -wray[1], -wray[2]])
+    wh = normalize3(add3(wi_l, wo_l))
+    fr_m = fr_microfacet(at, wi_l, wh, wo_l)
+    fr_lam = [at["ar"] * INV_PI, at["ag"] * INV_PI, at["ab"] * INV_PI]
+    return sel3(at["is_mic"], fr_m, fr_lam)
+
+
+def bsdf_pdf_for_dir(at, n, wo, wi, u_flip):
+    pdf_l = dot3(n, wi) * INV_PI
+    wt, _ = refract_quirk(wo, n)
+    fres = fresnel_die(dot3(n, wt), dot3(n, wo))
+    pdf_d = torch.where(u_flip > fres, 1.0 - fres, fres)
+    wh = normalize3(add3(wi, wo))
+    pdf_m = ndf_beckmann(dot3(wh, n), at["alpha"]) * dot3(wh, n) / (
+        4.0 * torch.clamp_min(torch.abs(dot3(wo, wh)), 1e-12))
+    return torch.where(at["is_mic"], pdf_m,
+                       torch.where(at["is_die"], pdf_d, pdf_l))
+
+
+def power_h_invf(f_inv, g):
+    """power_h(1/f_inv, g) = 1/(1 + (g*f_inv)^2); f_inv > 0."""
+    r = torch.clamp(g, 0.0, 1e12) * f_inv
+    return 1.0 / (1.0 + r * r)
+
+
+def power_h_invg(f, g_inv):
+    """power_h(f, 1/g_inv) = (f*g_inv)^2 / ((f*g_inv)^2 + 1); g > 0."""
+    r = torch.clamp(f, 0.0, 1e12) * g_inv
+    r2 = r * r
+    return torch.where(f > 0.0, r2 / (r2 + 1.0), 0.0)

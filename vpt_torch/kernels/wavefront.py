@@ -1,0 +1,541 @@
+"""Forward render kernel: one CUDA thread per pixel, plus its plain version.
+
+Counterpart of ``vpt/kernels/wavefront.py``. vpt renders a frame with one
+Pallas TPU kernel (``build_tile_renderer``, a persistent wavefront over
+(R, 128) lane tiles); here the same estimator runs as
+
+  - ``render_tile``: the hand-written CUDA kernel (csrc/wavefront.cu over the
+    per-path code in csrc/path.cuh), one thread per pixel, launched on a
+    CUDA tensor; on a CPU tensor it runs the plain version;
+  - ``render_tile_plain``: a line-by-line torch counterpart of the vpt
+    kernel body on (N,) lane tensors in lockstep — the same masked
+    selects, the same draw order and the same tile-wide loop condition.
+    It runs on any device; the tests hold it against vpt and the kernel
+    against it.
+
+Draw-order contract (what makes per-pixel parity with vpt possible): every
+iteration takes every draw the vpt body takes, in the same order, whether
+or not its branch is taken — camera jitter (u, v; "random" sampler with
+jitter only), u_rr, u_pick, u_dist, for each MIS light two cone draws and
+the pdf flip draw, the MIS BSDF draws (u1, u2, u_choice), the continuation
+BSDF draws (u1, u2, u_choice), the phase draws (u_p1, u_p2) and the two
+medium-NEE cone draws. The "ld" sampler's offsets come from a second PCG
+stream drawn once before the loop.
+
+Supported here: the free-flight NEE integrators (KERNEL_INTEGRATORS),
+homogeneous isotropic media, no material-3 shells, both samplers, jitter on
+or off. The other variants of vpt's kernel are ROADMAP Queue 1 item 3.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..scene.camera import Camera, screen_basis
+from ..scene.scene import (DIELECTRIC, MICROFACET, VOLUME_BOUNDARY, Scene)
+from . import prims as pr
+from .prims import BIG, F32EPS, INV_4PI, TWO_PI, f32
+
+__all__ = ["MAX_SPHERES", "KERNEL_INTEGRATORS", "Packed", "pack_scene",
+           "render_tile_plain", "render_tile", "render_kernel", "LAUNCHES"]
+
+MAX_SPHERES = 16        # VPT_MAX_SPHERES in csrc/path.cuh
+
+# integrator name -> (nee, distance, physical): the subset of vpt's
+# PALLAS_INTEGRATORS that this kernel covers
+KERNEL_INTEGRATORS = {
+    "explicit_free": (True, "free", False),
+    "iterative_vpt_free": (True, "free", False),
+}
+
+# launches of the CUDA kernel in this process (render_tile adds one per
+# launch); read and reset by callers that must show the kernel ran
+LAUNCHES = 0
+
+_G_EPS = 1e-3   # |g| at or below this is isotropic, as in vpt
+
+
+@dataclasses.dataclass(frozen=True)
+class Packed:
+    """Everything one render launch reads: the scene, the camera basis and
+    the estimator constants, as python floats already rounded to f32.
+    Constants that vpt folds in float64 when it bakes its kernel (r*r and
+    the intersection epsilon per sphere, the camera basis, 1/sigma_t, ...)
+    are folded the same way here, so both kernels see the same f32 values.
+    `words()` lays the same values out as csrc/path.cuh's VptParams."""
+
+    S: int
+    r: tuple
+    r2: tuple
+    eps: tuple
+    c: tuple            # (S, 3)
+    alb: tuple          # (S, 3)
+    rad: tuple          # (S, 3)
+    eta: tuple          # (S, 3)
+    kap: tuple          # (S, 3)
+    alpha: tuple
+    mat: tuple
+    emitters: tuple
+    mis_lights: tuple
+    sigma_a: float
+    sigma_s: float
+    # frame and estimator
+    width: int
+    height: int
+    spp: int
+    max_bounces: int
+    max_iters: int
+    ld: bool
+    jitter: bool
+    cam_o: tuple
+    cam_d: tuple
+    cx: tuple
+    cy: tuple
+    inv_w: float
+    inv_h: float
+    q: float            # 1 - continue_prob
+    inv_cp: float
+    sigma_t: float
+    inv_sigma_t: float
+    tp_med: float       # albedo_ratio / cp
+    med_c: float        # n_em * albedo_ratio / cp
+    n_em_f: float
+    nee_phase: float    # INV_4PI * TWO_PI
+    slack: float        # pLight visibility slack 1 - 1024 eps
+
+    ATTR_KEYS = ("cx", "cy", "cz", "ar", "ag", "ab", "rr", "rg", "rb",
+                 "er", "eg", "eb", "kr", "kg", "kb", "alpha",
+                 "em_f", "mic_f", "die_f")
+
+    @property
+    def npix(self) -> int:
+        return self.width * self.height
+
+    def attr_table(self, device) -> torch.Tensor:
+        """(S+1, len(ATTR_KEYS)) per-sphere attributes; row S (a miss) is
+        all zeros."""
+        rows = [list(self.c[s]) + list(self.alb[s]) + list(self.rad[s])
+                + list(self.eta[s]) + list(self.kap[s]) + [self.alpha[s]]
+                + [1.0 if any(v > 0 for v in self.rad[s]) else 0.0,
+                   1.0 if self.mat[s] == MICROFACET else 0.0,
+                   1.0 if self.mat[s] == DIELECTRIC else 0.0]
+                for s in range(self.S)]
+        rows.append([0.0] * len(self.ATTR_KEYS))
+        return torch.tensor(rows, dtype=torch.float32, device=device)
+
+    def words(self) -> np.ndarray:
+        """The VptParams struct of csrc/path.cuh as 32-bit words (ints and
+        f32 bit patterns), in field order."""
+        M = MAX_SPHERES
+        buf = bytearray()
+
+        def i32(*vals):
+            buf.extend(np.asarray(vals, np.int32).tobytes())
+
+        def fl(*vals):
+            buf.extend(np.asarray(vals, np.float32).tobytes())
+
+        def pad_i(vals):
+            i32(*(list(vals) + [-1] * (M - len(vals))))
+
+        def pad_f(vals, k=1):
+            flat = np.zeros((M, k), np.float32)
+            flat[:len(vals)] = np.asarray(vals, np.float32).reshape(-1, k)
+            fl(*flat.reshape(-1))
+
+        i32(self.width, self.height, self.spp, self.max_bounces,
+            self.max_iters, int(self.ld), int(self.jitter), self.S,
+            len(self.emitters), len(self.mis_lights))
+        pad_i(self.emitters)
+        pad_i(self.mis_lights)
+        pad_i(self.mat)
+        fl(*self.cam_o, *self.cam_d, *self.cx, *self.cy)
+        fl(self.inv_w, self.inv_h, self.q, self.inv_cp, self.sigma_t,
+           self.inv_sigma_t, self.tp_med, self.med_c, self.n_em_f,
+           self.nee_phase, self.slack)
+        pad_f(self.r)
+        pad_f(self.r2)
+        pad_f(self.eps)
+        pad_f(self.alpha)
+        for tab in (self.c, self.alb, self.rad, self.eta, self.kap):
+            pad_f(tab, 3)
+        return np.frombuffer(bytes(buf), np.int32).copy()
+
+
+def _f32_tuple(a) -> tuple:
+    return tuple(float(v) for v in np.asarray(a, np.float32).reshape(-1))
+
+
+def pack_scene(scene: Scene, camera: Camera, width: int, height: int,
+               spp: int, *, continue_prob: float = 0.6,
+               max_bounces: int = 32, sampler: str = "random",
+               jitter: bool = True) -> Packed:
+    """Freeze a scene, camera and frame into the launch parameters
+    (replaces vpt's ``_scene_consts``, which bakes them into the kernel
+    source; here one build of the kernel serves every scene)."""
+    if sampler not in ("random", "ld"):
+        raise ValueError(f"unknown sampler {sampler!r}")
+    g = float(torch.as_tensor(scene.medium.g))
+    if abs(g) > _G_EPS:
+        raise NotImplementedError(
+            "Henyey-Greenstein g != 0 in the render kernel is ROADMAP "
+            "Queue 1 item 3")
+    S = scene.count
+    if S > MAX_SPHERES:
+        raise ValueError(f"{S} spheres; the render kernel takes at most "
+                         f"{MAX_SPHERES}")
+
+    def f64(t):
+        return torch.as_tensor(t).detach().cpu().to(torch.float64).numpy()
+
+    mat = tuple(int(m) for m in scene.material.detach().cpu().numpy())
+    if VOLUME_BOUNDARY in mat:
+        raise NotImplementedError(
+            "material-3 volumetric shells in the render kernel are ROADMAP "
+            "Queue 1 item 3")
+    r = f64(scene.radius)
+    sigma_a = float(f64(scene.medium.sigma_a))
+    sigma_s = float(f64(scene.medium.sigma_s))
+    # float64 folds, as vpt's build_tile_renderer does them
+    sigma_t = sigma_a + sigma_s
+    albedo_ratio = sigma_s / sigma_t if sigma_t > 0 else 0.0
+    cp = float(continue_prob)
+    inv_cp = 1.0 / cp
+    n_em = len(scene.emitter_idx)
+    cx, cy = screen_basis(camera, width, height)
+
+    def rows3(t):
+        return tuple(_f32_tuple(row) for row in f64(t).reshape(-1, 3))
+
+    return Packed(
+        S=S, r=_f32_tuple(r), r2=_f32_tuple(r * r),
+        eps=_f32_tuple(pr.EPS_T + 16.0 * F32EPS * r),
+        c=rows3(scene.center), alb=rows3(scene.albedo),
+        rad=rows3(scene.radiance), eta=rows3(scene.eta),
+        kap=rows3(scene.kappa), alpha=_f32_tuple(f64(scene.alpha)),
+        mat=mat, emitters=tuple(scene.emitter_idx),
+        mis_lights=tuple(scene.mis_light_idx),
+        sigma_a=f32(sigma_a), sigma_s=f32(sigma_s),
+        width=int(width), height=int(height), spp=int(spp),
+        max_bounces=int(max_bounces),
+        max_iters=int(spp) * int(max_bounces) + 64,
+        ld=sampler == "ld", jitter=bool(jitter),
+        cam_o=_f32_tuple(f64(camera.origin)),
+        cam_d=_f32_tuple(f64(camera.direction)),
+        cx=_f32_tuple(cx), cy=_f32_tuple(cy),
+        inv_w=f32(1.0 / width), inv_h=f32(1.0 / height),
+        q=f32(1.0 - cp), inv_cp=f32(inv_cp), sigma_t=f32(sigma_t),
+        inv_sigma_t=f32(1.0 / sigma_t),
+        tp_med=f32(albedo_ratio * inv_cp),
+        med_c=f32(float(n_em) * albedo_ratio * inv_cp),
+        n_em_f=f32(n_em), nee_phase=f32(INV_4PI * TWO_PI),
+        slack=f32(1.0 - 1024.0 * F32EPS),
+    )
+
+
+# ---------------------------------------------------------------------------
+# plain version: vpt/kernels/wavefront.py:230-741 on (N,) lanes
+# ---------------------------------------------------------------------------
+
+def _const3(vals, like):
+    return [torch.full_like(like, v) for v in vals]
+
+
+def render_tile_plain(pk: Packed, seed: torch.Tensor) -> torch.Tensor:
+    """Plain torch render of the whole frame on seed.device. seed: int32
+    (1,). Returns (npix, 3) float32 radiance / spp, pixel id = row*W + col,
+    top row first."""
+    dev = seed.device
+    W, H, spp = pk.width, pk.height, pk.spp
+    N = pk.npix
+    n_em = len(pk.emitters)
+    lane = torch.arange(N, dtype=torch.int64, device=dev)
+    px = (lane % W).to(torch.float32)
+    py = (H - 1 - lane // W).to(torch.float32)
+    seed_i = seed.to(torch.int64).reshape(())
+    if pk.ld:
+        A1, A2, A3, A4, A5 = pr.LD_ALPHA
+        off_u, off_v, off_w, off_r, off_p = pr.ld_offsets(lane, seed_i)
+        strat = pr.ld_strat
+    z = torch.zeros(N, dtype=torch.float32, device=dev)
+    em_tab = torch.tensor(
+        [list(pk.c[e]) + list(pk.rad[e]) + [pk.r[e]] for e in pk.emitters]
+        + [[0.0] * 7], dtype=torch.float32, device=dev)
+    em_ids = torch.tensor(list(pk.emitters) + [-1], dtype=torch.int64,
+                          device=dev)
+
+    def camera_ray(rng, samples):
+        if pk.ld and pk.jitter:
+            s_f = samples.to(torch.float32)
+            u = strat(A1, off_u, s_f)
+            v = strat(A2, off_v, s_f)
+        elif pk.jitter:
+            u, v = rng(), rng()
+        else:
+            u = torch.full_like(z, 0.5)
+            v = torch.full_like(z, 0.5)
+        sx = (px + u - 0.5) * pk.inv_w - 0.5
+        sy = (py + v - 0.5) * pk.inv_h - 0.5
+        d = [pk.cx[i] * sx + pk.cy[i] * sy + pk.cam_d[i] for i in range(3)]
+        return pr.normalize3(d)
+
+    def light_attrs(u_pick):
+        """Uniform emitter pick; per-lane light constants by index."""
+        k = torch.clamp((u_pick * float(n_em)).to(torch.int64), 0, n_em - 1)
+        k = torch.where(k >= 0, k, n_em)     # no emitters: the zero row
+        row = em_tab[k]
+        return ([row[:, 0], row[:, 1], row[:, 2]],
+                [row[:, 3], row[:, 4], row[:, 5]], row[:, 6], em_ids[k])
+
+    def plight_term(at, xs, n, d, lc, lrad):
+        le_scale, dist, dl = pr.plight_le_scale(pk, lc, xs)
+        le = [lrad[i] * le_scale for i in range(3)]
+        wi = [-dl[0], -dl[1], -dl[2]]
+        fr = pr.eval_fr_nee_plight(at, n, d, wi)
+        cosw = pr.dot3(n, wi)
+        return [le[i] * fr[i] * cosw for i in range(3)], dist
+
+    def mis_v2(rng, at, xs, n, d):
+        """MISv2 (misSamplingFunctions.h:96-170) over the spherical
+        emitters."""
+        acc = [torch.zeros_like(z) for _ in range(3)]
+        wo = [-d[0], -d[1], -d[2]]
+        for e in pk.mis_lights:
+            ec = pk.c[e]; er = pk.r[e]; erad = pk.rad[e]
+            cxv = [ec[i] - xs[i] for i in range(3)]
+            normcx = pr.norm3(cxv)
+            inv_ncx = 1.0 / normcx
+            wc = pr.scale3(cxv, inv_ncx)
+            ratio = er * inv_ncx
+            cos_max = torch.sqrt(torch.clamp_min(1.0 - ratio * ratio, 1e-12))
+            u1 = rng()
+            u2 = rng()
+            wi = pr.cone_dir(wc, cos_max, u1, u2)
+            hit, _, sid = pr.nearest_id_t(pk, xs, wi)
+            visible = hit & (sid == e)
+            fr = pr.eval_fr_nee(at, n, d, wi)
+            fpdf_inv = TWO_PI * torch.clamp_min(1.0 - cos_max, 1e-12)
+            tr = torch.exp(-pk.sigma_t * normcx)
+            w_vis = torch.where(visible, tr * pr.dot3(n, wi) * fpdf_inv, 0.0)
+            gpdf = pr.bsdf_pdf_for_dir(at, n, wo, wi, rng())
+            wf = pr.power_h_invf(fpdf_inv, gpdf)
+            for i in range(3):
+                acc[i] = acc[i] + erad[i] * fr[i] * w_vis * wf
+        # BSDF strategy: sample all lobes, one trace
+        u1, u2, u_choice = rng(), rng(), rng()
+        wi_l = pr.cosine_hemi(n, u1, u2)
+        wt, _ = pr.refract_quirk(wo, n)
+        fres = pr.fresnel_die(pr.dot3(n, wt), pr.dot3(n, wo))
+        refl = u_choice < fres
+        ndotwo = pr.dot3(n, wo)
+        wr = pr.normalize3([2.0 * ndotwo * n[i] - wo[i] for i in range(3)])
+        wi_d = pr.sel3(refl, wr, wt)
+        wh_loc = pr.beckmann_wh(at["alpha"], u1, u2)
+        wo_loc = pr.to_local(n, wo)
+        whw = 2.0 * pr.dot3(wh_loc, wo_loc)
+        wi_m_loc = pr.normalize3([whw * wh_loc[i] - wo_loc[i]
+                                  for i in range(3)])
+        wi_m = pr.normalize3(pr.from_local(n, wi_m_loc))
+        wi_sel = pr.sel3(at["is_mic"], wi_m,
+                         pr.sel3(at["is_die"], wi_d, wi_l))
+        hit, _, sid = pr.nearest_id_t(pk, xs, wi_sel)
+        hat = pr.attrs(pk, sid)
+        le = [hat["rr"], hat["rg"], hat["rb"]]
+        hit_r = torch.tensor(list(pk.r) + [0.0], dtype=torch.float32,
+                             device=dev)[torch.where(sid >= 0, sid, pk.S)]
+        hc = [hat["cx"], hat["cy"], hat["cz"]]
+        cos_l = pr.dot3(n, wi_l)
+        gpdf_l = cos_l * pr.INV_PI
+        g_l = [torch.where(gpdf_l != 0.0,
+                           le[i] * (at["ar"], at["ag"], at["ab"])[i], 0.0)
+               for i in range(3)]
+        cos_d = torch.abs(pr.dot3(n, wi_d))
+        scale_d = torch.where(refl, 1.0, pr.GLASS_ETA_T * pr.GLASS_ETA_T) \
+            / torch.clamp_min(cos_d, 1e-12)
+        g_d = [le[i] * scale_d for i in range(3)]
+        gpdf_d = torch.where(refl, fres, 1.0 - fres)
+        fr_m = pr.fr_microfacet(at, wi_m_loc, wh_loc, wo_loc)
+        gpdf_m = pr.ndf_beckmann(wh_loc[2], at["alpha"]) * wh_loc[2] / (
+            4.0 * torch.clamp_min(torch.abs(pr.dot3(wo_loc, wh_loc)), 1e-12))
+        winv_m = wi_m_loc[2] / torch.clamp_min(gpdf_m, 1e-20)
+        g_m = [le[i] * fr_m[i] * winv_m for i in range(3)]
+        g = pr.sel3(at["is_mic"], g_m, pr.sel3(at["is_die"], g_d, g_l))
+        gpdf = torch.where(at["is_mic"], gpdf_m,
+                           torch.where(at["is_die"], gpdf_d, gpdf_l))
+        pos_all = (g[0] > 0.0) & (g[1] > 0.0) & (g[2] > 0.0)
+        gate = (at["is_mic"] & (g[0] > 0.0)) | (~at["is_mic"] & pos_all)
+        hcx = [hc[i] - xs[i] for i in range(3)]
+        n2 = torch.clamp_min(pr.dot3(hcx, hcx), 1e-20)
+        cmax = torch.sqrt(torch.clamp_min(1.0 - hit_r * hit_r / n2, 1e-12))
+        fpdf_h_inv = TWO_PI * torch.clamp_min(1.0 - cmax, 1e-12)
+        wg = torch.where(gate & hit, pr.power_h_invg(gpdf, fpdf_h_inv), 0.0)
+        for i in range(3):
+            acc[i] = acc[i] + g[i] * wg
+        return acc
+
+    def medium_nee(rng, xt, lc, lrad, lr, lid):
+        """freeSingleScattering (volumetricBasicFunctions.h:284-340) with
+        the missing-else point kill: point sources contribute 0."""
+        wc = [lc[i] - xt[i] for i in range(3)]
+        inv_mag = torch.rsqrt(torch.clamp_min(pr.dot3(wc, wc), 1e-20))
+        wc_n = pr.scale3(wc, inv_mag)
+        ratio = lr * inv_mag
+        cos_max = torch.sqrt(torch.clamp_min(1.0 - ratio * ratio, 1e-12))
+        u1 = rng()
+        u2 = rng()
+        wl = pr.cone_dir(wc_n, cos_max, u1, u2)
+        hit, t, sid = pr.nearest_id_t(pk, xt, wl)
+        visible = hit & (sid == lid) & (lr > 0.0)
+        tr_l = torch.exp(-pk.sigma_t * t)
+        w = torch.where(visible,
+                        tr_l * pk.nee_phase
+                        * torch.clamp_min(1.0 - cos_max, 1e-12), 0.0)
+        return [lrad[i] * w for i in range(3)]
+
+    def bounce(rng, o, d, tp, L, alive, depth, samples):
+        u_rr = rng()
+        u_pick = rng()
+        if pk.ld:
+            s_f = samples.to(torch.float32)
+            d0 = depth == 0
+            u_rr = torch.where(d0, strat(A4, off_r, s_f), u_rr)
+            u_pick = torch.where(d0, strat(A5, off_p, s_f), u_pick)
+        alive = alive & (u_rr >= pk.q)
+        hit, t, at = pr.nearest(pk, o, d)
+        t_eff = torch.where(hit, t, BIG)
+        xs = [o[i] + t_eff * d[i] for i in range(3)]
+        nrm = pr.normalize3([xs[0] - at["cx"], xs[1] - at["cy"],
+                             xs[2] - at["cz"]])
+        lc, lrad, lr, lid = light_attrs(u_pick)
+
+        u_dist = rng()
+        if pk.ld:
+            u_dist = torch.where(
+                depth == 0, strat(A3, off_w, samples.to(torch.float32)),
+                u_dist)
+        d_s = -torch.log1p(-u_dist) * pk.inv_sigma_t
+        surface = (d_s > t_eff) & hit
+        xt = [o[i] + d_s * d[i] for i in range(3)]
+
+        em_hit = surface & at["is_em"]
+        credit = alive & em_hit & (depth == 0)
+        rad = [at["rr"], at["rg"], at["rb"]]
+        for i in range(3):
+            L[i] = L[i] + torch.where(credit, rad[i] * tp[i], 0.0)
+        shade = alive & surface & ~em_hit
+
+        ldp, dist_l = plight_term(at, xs, nrm, d, lc, lrad)
+        trs = torch.exp(-pk.sigma_t * dist_l)
+        ldm = mis_v2(rng, at, xs, nrm, d)
+        for i in range(3):
+            ld = ldp[i] * (trs * pk.n_em_f) + ldm[i]
+            L[i] = L[i] + torch.where(shade, ld * tp[i] * pk.inv_cp, 0.0)
+
+        fs, wi_s, pdf_b = pr.sample_bsdf(rng, at, d, nrm)
+        cosine = pr.dot3(nrm, wi_s)
+        wscale = cosine * pk.inv_cp / torch.clamp_min(pdf_b, 1e-20)
+        tp_surface = [tp[i] * fs[i] * wscale for i in range(3)]
+
+        medium = alive & ~surface
+        u_p1 = rng()
+        u_p2 = rng()
+        wi_m = pr.uniform_sphere(u_p1, u_p2)
+        # explicit free flight: transmittance/pdf cancel analytically (the
+        # PBRT simplification, vptShadeMethods.h:1248)
+        ld_med = medium_nee(rng, xt, lc, lrad, lr, lid)
+        for i in range(3):
+            L[i] = L[i] + torch.where(medium, ld_med[i] * tp[i] * pk.med_c,
+                                      0.0)
+        tp_medium = [tp[i] * pk.tp_med for i in range(3)]
+
+        o = pr.sel3(shade, xs, pr.sel3(medium, xt, o))
+        d = pr.sel3(shade, wi_s, pr.sel3(medium, wi_m, d))
+        tp = pr.sel3(shade, tp_surface, pr.sel3(medium, tp_medium, tp))
+        alive2 = (shade | medium) & (depth + 1 < pk.max_bounces)
+        depth = torch.where(alive2, depth + 1, depth)
+        return o, d, tp, L, alive2, depth
+
+    rng = pr.Pcg(pr.pcg_seed(lane, seed_i))
+    o = [z, z, z]
+    d = [z, z, z + 1.0]
+    tp = [z, z, z]
+    L = [z, z, z]
+    alive = torch.zeros(N, dtype=torch.bool, device=dev)
+    depth = torch.zeros(N, dtype=torch.int64, device=dev)
+    samples = torch.zeros(N, dtype=torch.int64, device=dev)
+    cam_o = _const3(pk.cam_o, z)
+    one = torch.ones_like(z)
+    it = 0
+    while it < pk.max_iters and bool((samples < spp).any()):
+        need = ~alive & (samples < spp)
+        nd = camera_ray(rng, samples)
+        o = pr.sel3(need, cam_o, o)
+        d = pr.sel3(need, nd, d)
+        tp = pr.sel3(need, [one, one, one], tp)
+        alive = alive | need
+        depth = torch.where(need, 0, depth)
+        was_alive = alive
+        o, d, tp, L, alive, depth = bounce(rng, o, d, tp, L, alive, depth,
+                                           samples)
+        samples = samples + (was_alive & ~alive).to(torch.int64)
+        it += 1
+    return torch.stack(L, dim=-1) / float(spp)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrapper
+# ---------------------------------------------------------------------------
+
+def render_tile(pk: Packed, seed: torch.Tensor) -> torch.Tensor:
+    """Render the frame on seed.device. seed: int32 (1,) contiguous.
+
+    On a CUDA tensor this launches the hand-written kernel
+    (csrc/wavefront.cu) on the current stream, without synchronising; on a
+    CPU tensor it runs render_tile_plain. Returns (npix, 3) float32
+    radiance / spp."""
+    global LAUNCHES
+    if seed.dtype != torch.int32 or tuple(seed.shape) != (1,) \
+            or not seed.is_contiguous():
+        raise ValueError("seed must be a contiguous int32 tensor of shape (1,)")
+    if seed.device.type == "cpu":
+        return render_tile_plain(pk, seed)
+    if seed.device.type != "cuda":
+        raise ValueError(f"no render kernel for device {seed.device}")
+    from . import _build
+
+    lib = _build.load()
+    words = np.ascontiguousarray(pk.words())
+    if words.size != lib.vpt_params_words():
+        raise RuntimeError(
+            f"VptParams layout mismatch: python packs {words.size} words, "
+            f"the kernel expects {lib.vpt_params_words()}")
+    out = torch.empty((pk.npix, 3), dtype=torch.float32, device=seed.device)
+    with torch.cuda.device(seed.device):
+        stream = torch.cuda.current_stream(seed.device).cuda_stream
+        err = lib.vpt_wavefront_fwd(words.ctypes.data, seed.data_ptr(),
+                                    out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"vpt_wavefront_fwd launch failed: "
+                           f"{_build.error_string(err)} ({err})")
+    LAUNCHES += 1
+    return out
+
+
+def render_kernel(scene: Scene, camera: Camera, cfg,
+                  device="cuda") -> torch.Tensor:
+    """Render with the forward kernel (≙ vpt's render_pallas); returns
+    (H, W, 3) on `device`."""
+    if cfg.integrator not in KERNEL_INTEGRATORS:
+        raise NotImplementedError(
+            f"integrator {cfg.integrator!r}: the render kernel has "
+            f"{sorted(KERNEL_INTEGRATORS)} so far; vpt's other fused-kernel "
+            "integrators are ROADMAP Queue 1 item 3, its engine integrators "
+            "Queue 1 item 9")
+    pk = pack_scene(scene, camera, cfg.width, cfg.height, cfg.spp,
+                    continue_prob=cfg.continue_prob,
+                    max_bounces=cfg.max_bounces, sampler=cfg.sampler,
+                    jitter=cfg.jitter)
+    seed_t = torch.tensor([cfg.seed], dtype=torch.int32, device=device)
+    return render_tile(pk, seed_t).reshape(cfg.height, cfg.width, 3)
