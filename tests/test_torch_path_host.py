@@ -1,14 +1,18 @@
-"""The CUDA kernel's per-path code, built for the host, against the plain
-version.
+"""The CUDA kernels' per-path code, built for the host, against the plain
+versions.
 
-csrc/path.cuh is __host__ __device__. Here g++ compiles it through the
-test-only shim csrc/path_host.cpp (a loop over pixels in place of the CUDA
-grid), with FMA contraction off as nvcc builds the kernel (--fmad=false),
-and its image is held against render_tile_plain at the same seed with the
-criterion of the other parity tests: quantile(|a-b| / max(1, |ref|max),
-0.99) < 1e-4 (libm's and torch's transcendentals differ by an ulp on some
-inputs). This catches a fault in the kernel's path code where there is no
-card; the card itself is checked by chip_smoke.py and tests/test_torch_cuda.py.
+csrc/path.cuh and csrc/diff_path.cuh are __host__ __device__. Here g++
+compiles them through the test-only shim csrc/path_host.cpp (a loop over
+pixels in place of the CUDA grid), with FMA contraction off as nvcc builds
+the kernels (--fmad=false). Images are held against the plain versions at
+the same seed with the criterion of the other parity tests:
+quantile(|a-b| / max(1, |ref|max), 0.99) < 1e-4 (libm's and torch's
+transcendentals differ by an ulp on some inputs). K3's per-pixel gradient
+vectors are held against diff_bwd_plain's per-lane rows by the same
+criterion, per entry column: quantile over lanes of the largest
+|a-b| / max(1, |column|max) below 1e-4. This catches a fault in the
+kernels' path code where there is no card; the card itself is checked by
+chip_smoke.py and tests/test_torch_cuda.py.
 """
 import ctypes
 import hashlib
@@ -21,6 +25,7 @@ import pytest
 import torch
 
 import vpt_torch
+from vpt_torch.kernels import diff as df
 from vpt_torch.kernels import wavefront as wf
 from vpt_torch.scene.io import scene_from_dict, scene_to_dict
 
@@ -34,7 +39,8 @@ def host_lib():
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("g++ not found: the host build of csrc/path.cuh needs it")
-    srcs = [os.path.join(CSRC, f) for f in ("path_host.cpp", "path.cuh")]
+    srcs = [os.path.join(CSRC, f)
+            for f in ("path_host.cpp", "path.cuh", "diff_path.cuh")]
     h = hashlib.sha256(" ".join(FLAGS).encode())
     for p in srcs:
         with open(p, "rb") as f:
@@ -54,6 +60,15 @@ def host_lib():
     so.vpt_render_host.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                    ctypes.c_void_p]
     so.vpt_render_host.restype = None
+    so.vpt_diff_params_words.argtypes = []
+    so.vpt_diff_params_words.restype = ctypes.c_int
+    so.vpt_diff_fwd_host.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.c_int, ctypes.c_void_p]
+    so.vpt_diff_fwd_host.restype = None
+    so.vpt_diff_bwd_host.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.c_int, ctypes.c_void_p,
+                                     ctypes.c_void_p]
+    so.vpt_diff_bwd_host.restype = None
     return so
 
 
@@ -88,3 +103,42 @@ def test_host_build_matches_plain(host_lib, case):
     assert np.isfinite(out).all() and (out >= 0).all()
     rel = np.abs(out - ref) / max(1.0, float(np.abs(ref).max()))
     assert np.quantile(rel, 0.99) < 1e-4, np.quantile(rel, 0.99)
+
+
+# the pair on the main-path scene (both samplers, jitter on and off), the
+# glass variant and an open scene
+DIFF_CASES = [("cornell_vpt", "random", True), ("cornell_vpt", "ld", True),
+              ("cornell_vpt", "ld", False), ("cornell_glass", "random", True),
+              ("one_primitive_infinite", "ld", True)]
+
+
+@pytest.mark.parametrize("case", DIFF_CASES,
+                         ids=["-".join(map(str, c)) for c in DIFF_CASES])
+def test_host_build_of_diff_pair_matches_plain(host_lib, case):
+    name, sampler, jitter = case
+    scene = _scene(name)
+    dp = df.pack_diff(scene, vpt_torch.default_camera(), W, H, SPP,
+                      max_bounces=MB, sampler=sampler, jitter=jitter)
+    words = np.ascontiguousarray(dp.words())
+    assert words.size == host_lib.vpt_diff_params_words()   # struct layout
+    pvec = df._flatten(df.pack_params(scene), scene.count).contiguous()
+    seed = torch.tensor([SEED], dtype=torch.int32)
+    out = np.full((W * H, 3), np.nan, np.float32)
+    host_lib.vpt_diff_fwd_host(words.ctypes.data, pvec.data_ptr(), SEED,
+                               out.ctypes.data)
+    ref = df.diff_fwd_plain(dp, pvec, seed).numpy()
+    assert np.isfinite(out).all() and (out >= 0).all()
+    rel = np.abs(out - ref) / max(1.0, float(np.abs(ref).max()))
+    assert np.quantile(rel, 0.99) < 1e-4, np.quantile(rel, 0.99)
+
+    gbar = np.random.default_rng(0).standard_normal((W * H, 3)).astype(
+        np.float32)
+    G = np.full((W * H, dp.P), np.nan, np.float32)
+    host_lib.vpt_diff_bwd_host(words.ctypes.data, pvec.data_ptr(), SEED,
+                               gbar.ctypes.data, G.ctypes.data)
+    Gp = df.diff_bwd_plain(dp, pvec, seed, torch.from_numpy(gbar),
+                           per_lane=True).numpy()
+    assert np.isfinite(G).all()
+    rel = (np.abs(G - Gp) / np.maximum(1.0, np.abs(Gp).max(0))).max(1)
+    assert np.quantile(rel, 0.99) < 1e-4, np.quantile(rel, 0.99)
+    assert np.array_equal(G == 0.0, Gp == 0.0)

@@ -1,10 +1,11 @@
 """Build the CUDA kernels at first use and bind them with ctypes.
 
-`nvcc` compiles every csrc/*.cu (with the csrc/*.cuh headers) into one
-shared library with a plain C interface, in build/vpt_torch/ beside the
-package. The library is named by a hash of the sources and flags, so it is
-rebuilt only when they change. A missing nvcc or a failed build raises with
-the compiler's output: there is no fallback to the plain versions.
+One `nvcc -c` per csrc/*.cu (with the csrc/*.cuh headers), all started
+together, then one link into a shared library with a plain C interface, in
+build/vpt_torch/ beside the package. The library is named by a hash of the
+sources and flags, so it is rebuilt only when they change. A missing nvcc
+or a failed build raises with the compiler's output: there is no fallback
+to the plain versions.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vpt_torch"
 # no --use_fast_math, no FMA contraction: the kernel keeps vpt's f32
 # rounding (csrc/path.cuh)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
+              "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 
 def _nvcc() -> str:
@@ -41,7 +43,7 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in _sources() + sorted(_CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -56,15 +58,37 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {res.returncode}:\n"
-                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log = []
+    try:
+        for cmd, _, proc in jobs:
+            stdout, stderr = proc.communicate()
+            _check(proc.returncode, cmd, stdout, stderr)
+            log.append(stdout + stderr)
+        tmp = out.with_name(f"{tag}.tmp.so")
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        _check(res.returncode, cmd, res.stdout, res.stderr)
+    finally:
+        for _, obj, proc in jobs:
+            proc.wait()
+            obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("".join(log))
     os.replace(tmp, out)        # atomic: concurrent builds agree
     return out
+
+
+def _check(code: int, cmd: list, stdout: str, stderr: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"nvcc failed with exit code {code}:\n"
+                           f"{' '.join(cmd)}\n{stdout}\n{stderr}")
 
 
 def build_log() -> str:
@@ -80,6 +104,15 @@ def load() -> ctypes.CDLL:
     lib.vpt_wavefront_fwd.restype = ctypes.c_int
     lib.vpt_params_words.argtypes = []
     lib.vpt_params_words.restype = ctypes.c_int
+    # the differentiable pair (csrc/diff.cu)
+    lib.vpt_diff_fwd.argtypes = [ctypes.c_void_p] * 5
+    lib.vpt_diff_fwd.restype = ctypes.c_int
+    lib.vpt_diff_bwd.argtypes = [ctypes.c_void_p] * 7
+    lib.vpt_diff_bwd.restype = ctypes.c_int
+    lib.vpt_diff_params_words.argtypes = []
+    lib.vpt_diff_params_words.restype = ctypes.c_int
+    lib.vpt_diff_block_threads.argtypes = []
+    lib.vpt_diff_block_threads.restype = ctypes.c_int
     lib.vpt_error_string.argtypes = [ctypes.c_int]
     lib.vpt_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,759 @@
+"""Differentiable render pair: forward kernel K2, single-replay backward K3.
+
+Counterpart of ``vpt/kernels/diff.py``. vpt builds both passes from one
+Pallas kernel body (``make_kernel(grads=False|True)``) behind a custom VJP;
+here the same estimator runs as
+
+  - ``diff_fwd`` / ``diff_bwd``: the hand-written CUDA kernels
+    (csrc/diff.cu over the per-path code in csrc/diff_path.cuh), one thread
+    per pixel, launched on CUDA tensors; on CPU tensors they run the plain
+    versions;
+  - ``diff_fwd_plain`` / ``diff_bwd_plain``: one line-by-line torch
+    counterpart of vpt's body on (N,) lanes in lockstep, with a `grads`
+    flag as vpt's body has;
+  - ``_DiffRender``: the torch.autograd.Function that binds them, and
+    ``make_diff_renderer``, which returns render(params, seed) -> (npix, 3).
+
+Differentiable parameters (vpt's pack_params): sigma_a, sigma_s, albedo
+(S, 3) and radiance (S, 3), flattened to P = 2 + 6S entries. The gradient
+estimator is vpt's: sampled distances and events are detached, albedo and
+radiance are pathwise (exact per seed), and the sigma dependence of the
+free-flight sampling density enters through score-function terms. The
+backward replays the forward's paths from the same PCG streams: emission
+terms are immediate, log-throughput and score terms accumulate as deferred
+(A, B) pairs folded in at path death (vpt/kernels/diff.py docstring).
+
+Arithmetic follows vpt's diff body, not its forward kernel: sigma_t,
+1/sigma_t and (sigma_s/sigma_t)/cp are f32 operations on the parameter
+vector, the camera divides by the frame size, and the NEE sums associate as
+diff.py writes them. The draw order is K1's (kernels/wavefront.py).
+
+Scope: nee=True, distance="free", physical=False, homogeneous medium with
+g == 0, no material-3 shell, samplers "random" and "ld". Everything else
+raises NotImplementedError naming its ROADMAP item.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch.autograd.function import once_differentiable
+
+from ..scene.camera import Camera
+from ..scene.scene import LAMBERT, MICROFACET, Scene
+from . import prims as pr
+from .prims import BIG, INV_PI, TWO_PI, f32
+from .wavefront import _G_EPS, Packed, pack_scene
+
+__all__ = ["pack_params", "unpack_params", "DiffPacked", "pack_diff",
+           "diff_fwd_plain", "diff_bwd_plain", "diff_fwd", "diff_bwd",
+           "make_diff_renderer", "LAUNCHES_FWD", "LAUNCHES_BWD"]
+
+# kernel launches in this process (diff_fwd / diff_bwd add one per launch)
+LAUNCHES_FWD = 0
+LAUNCHES_BWD = 0
+
+def _todo(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} in the differentiable pair is ROADMAP Queue 1 item {item}")
+
+
+def pack_params(scene: Scene, with_g: bool = False, with_field: bool = False,
+                with_grid: bool = False, with_blobs: bool = False) -> dict:
+    """Differentiable parameters of a scene: a dict of float32 tensors
+    sigma_a (), sigma_s (), albedo (S, 3), radiance (S, 3)."""
+    if with_g:
+        raise _todo("a traced HG g (with_g)", "4")
+    if with_field:
+        raise _todo("a traced fog falloff (with_field)", "6")
+    if with_blobs:
+        raise _todo("traced blob parameters (with_blobs)", "6")
+    if with_grid:
+        raise _todo("traced voxel values (with_grid)", "7")
+
+    def t(x):
+        return torch.as_tensor(x).detach().to(torch.float32).clone()
+
+    return {"sigma_a": t(scene.medium.sigma_a),
+            "sigma_s": t(scene.medium.sigma_s),
+            "albedo": t(scene.albedo), "radiance": t(scene.radiance)}
+
+
+def _flatten(params: dict, S: int) -> torch.Tensor:
+    """params -> packed (2 + 6S,) vector, differentiable (torch.cat)."""
+    extra = sorted(set(params) - {"sigma_a", "sigma_s", "albedo", "radiance"})
+    if extra:
+        raise _todo(f"parameters {extra}", "4, 6 and 7")
+    return torch.cat([
+        params["sigma_a"].reshape(1), params["sigma_s"].reshape(1),
+        params["albedo"].reshape(3 * S), params["radiance"].reshape(3 * S),
+    ]).to(torch.float32)
+
+
+def unpack_params(vec: torch.Tensor, S: int) -> dict:
+    """Packed (2 + 6S,) vector -> params dict (views of vec)."""
+    if vec.shape[0] != 2 + 6 * S:
+        raise _todo(f"a packed vector of {vec.shape[0]} entries for "
+                    f"{S} spheres (g, fog and blob slots)", "4 and 6")
+    return {"sigma_a": vec[0], "sigma_s": vec[1],
+            "albedo": vec[2:2 + 3 * S].reshape(S, 3),
+            "radiance": vec[2 + 3 * S:2 + 6 * S].reshape(S, 3)}
+
+
+@dataclasses.dataclass(frozen=True)
+class DiffPacked:
+    """What one K2/K3 launch reads besides the parameter vector: the
+    render kernel's Packed scene, camera and estimator constants, plus the
+    pair's own. `words()` lays them out as csrc/diff_path.cuh's
+    DiffParams."""
+
+    pk: Packed
+    cp: float           # continue_prob as f32: (sigma_s/sigma_t) / cp
+    inv_spp: float      # f32(1/spp), the cotangent's scale
+    alb_ids: tuple      # spheres with an albedo gradient
+    lam_ids: tuple      # spheres with deferred lambert-albedo terms
+
+    @property
+    def P(self) -> int:
+        return 2 + 6 * self.pk.S
+
+    @property
+    def npix(self) -> int:
+        return self.pk.npix
+
+    def words(self) -> np.ndarray:
+        fl = np.asarray([self.cp, self.inv_spp], np.float32).view(np.int32)
+        mask = lambda ids: sum(1 << s for s in ids)   # noqa: E731
+        ints = np.asarray([self.P, mask(self.alb_ids), mask(self.lam_ids)],
+                          np.int32)
+        return np.concatenate([self.pk.words(), fl, ints])
+
+
+def pack_diff(scene: Scene, camera: Camera, width: int, height: int,
+              spp: int, *, continue_prob: float = 0.6, max_bounces: int = 32,
+              sampler: str = "random", jitter: bool = True) -> DiffPacked:
+    """Freeze scene, camera and frame for the pair. The geometry, the
+    emitter structure and the materials are baked, as in vpt; sigma,
+    albedo and radiance come from the parameter vector at each call."""
+    if abs(float(torch.as_tensor(scene.medium.g))) > _G_EPS:
+        raise _todo("a baked HG g != 0", "4 (with diff_g)")
+    pk = pack_scene(scene, camera, width, height, spp,
+                    continue_prob=continue_prob, max_bounces=max_bounces,
+                    sampler=sampler, jitter=jitter)
+    is_em = [any(v > 0 for v in pk.rad[s]) for s in range(pk.S)]
+    # vpt: the albedo gradient lives on non-microfacet non-emitters (pLight's
+    # lambert fr also covers glass); the deferred lambert terms on lamberts
+    alb_ids = tuple(s for s in range(pk.S)
+                    if pk.mat[s] != MICROFACET and not is_em[s])
+    lam_ids = tuple(s for s in range(pk.S)
+                    if pk.mat[s] == LAMBERT and not is_em[s])
+    return DiffPacked(pk=pk, cp=f32(continue_prob), inv_spp=f32(1.0 / spp),
+                      alb_ids=alb_ids, lam_ids=lam_ids)
+
+
+# ---------------------------------------------------------------------------
+# plain version: vpt/kernels/diff.py:290-1251 on (N,) lanes
+# ---------------------------------------------------------------------------
+
+def _wdot(wt, v):
+    return wt[0] * v[0] + wt[1] * v[1] + wt[2] * v[2]
+
+
+def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
+               gbar: torch.Tensor | None = None, stats: dict | None = None):
+    """The pair's lockstep body. gbar None: the image (npix, 3) / spp.
+    gbar (npix, 3): the per-lane gradient contributions (npix, P), whose
+    column sum is the packed gradient of sum(image * gbar)."""
+    grads = gbar is not None
+    pk = dp.pk
+    dev = pvec.device
+    S, W, H, spp = pk.S, pk.width, pk.height, pk.spp
+    N = pk.npix
+    n_em = len(pk.emitters)
+    pv = pvec.detach()
+    alb = pv[2:2 + 3 * S].reshape(S, 3)
+    rad = pv[2 + 3 * S:2 + 6 * S].reshape(S, 3)
+
+    def scalar(v):
+        # a device tensor: torch's CUDA ops divide by a host scalar as a
+        # multiply by its reciprocal, which rounds differently
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    sa, ss = pv[0], pv[1]
+    sigma_t = sa + ss
+    inv_st = 1.0 / sigma_t
+    albedo_ratio = ss * inv_st
+    ar_cp = albedo_ratio / scalar(dp.cp)
+    inv_ss = 1.0 / ss
+    inv_ps = float(n_em)
+    inv_cp = pk.inv_cp
+
+    lane = torch.arange(N, dtype=torch.int64, device=dev)
+    px = (lane % W).to(torch.float32)
+    py = (H - 1 - lane // W).to(torch.float32)
+    seed_i = seed.to(torch.int64).reshape(())
+    z = torch.zeros(N, dtype=torch.float32, device=dev)
+    if grads:
+        wt = [gbar[:, i] * dp.inv_spp for i in range(3)]
+    if pk.ld:
+        A1, A2, A3, A4, A5 = pr.LD_ALPHA
+        off_u, off_v, off_w, off_r, off_p = pr.ld_offsets(lane, seed_i)
+        strat = pr.ld_strat
+    w_f, h_f = scalar(float(W)), scalar(float(H))
+    em = list(pk.emitters)
+    em_c = torch.tensor([list(pk.c[e]) for e in em] + [[0.0] * 3],
+                        dtype=torch.float32, device=dev)
+    em_r = torch.tensor([pk.r[e] for e in em] + [0.0], dtype=torch.float32,
+                        device=dev)
+    em_ids = torch.tensor(em + [-1], dtype=torch.int64, device=dev)
+    em_rad = torch.cat([rad[em], rad.new_zeros(1, 3)])
+    r_tab = torch.tensor(pk.r, dtype=torch.float32, device=dev)
+    c_tab = torch.tensor(pk.c, dtype=torch.float32, device=dev)
+
+    def camera_ray(rng, samples):
+        if pk.ld and pk.jitter:
+            s_f = samples.to(torch.float32)
+            u = strat(A1, off_u, s_f)
+            v = strat(A2, off_v, s_f)
+        elif pk.jitter:
+            u, v = rng(), rng()
+        else:
+            u = torch.full_like(z, 0.5)
+            v = torch.full_like(z, 0.5)
+        sx = (px + u - 0.5) / w_f - 0.5
+        sy = (py + v - 0.5) / h_f - 0.5
+        d = [pk.cx[i] * sx + pk.cy[i] * sy + pk.cam_d[i] for i in range(3)]
+        return pr.normalize3(d)
+
+    def light_attrs(u_pick):
+        k = torch.clamp((u_pick * float(n_em)).to(torch.int64), 0, n_em - 1)
+        k = torch.where(k >= 0, k, n_em)     # no emitters: the zero row
+        lc, lrad = em_c[k], em_rad[k]
+        return ([lc[:, 0], lc[:, 1], lc[:, 2]],
+                [lrad[:, 0], lrad[:, 1], lrad[:, 2]], em_r[k], em_ids[k])
+
+    def plight_term(at, xs, n, d, lc, lrad):
+        """pLight and its partials: (ldp, d/dlrad, d/dalb, distance)."""
+        le_scale, dist, dl = pr.plight_le_scale(pk, lc, xs)
+        wi = [-dl[0], -dl[1], -dl[2]]
+        fr = pr.eval_fr_nee_plight(at, n, d, wi)
+        cosw = pr.dot3(n, wi)
+        coef = [le_scale * fr[i] * cosw for i in range(3)]
+        ldp = [lrad[i] * coef[i] for i in range(3)]
+        if not grads:
+            return ldp, None, None, dist
+        not_mic = ~at["is_mic"]
+        lam = [torch.where(not_mic, lrad[i] * le_scale * cosw * INV_PI, 0.0)
+               for i in range(3)]
+        return ldp, coef, lam, dist
+
+    def mis_v2(rng, at, xs, n, d):
+        """MISv2 and its partials (vpt/kernels/diff.py mis_v2)."""
+        acc = [z, z, z]
+        wo = [-d[0], -d[1], -d[2]]
+        dsig = [z, z, z]
+        drad = {}
+        dalb = [z, z, z]
+        is_lam = ~at["is_mic"] & ~at["is_die"]
+        for e in pk.mis_lights:
+            ec = pk.c[e]
+            er = pk.r[e]
+            cxv = [ec[i] - xs[i] for i in range(3)]
+            normcx = pr.norm3(cxv)
+            inv_ncx = 1.0 / normcx
+            wc = pr.scale3(cxv, inv_ncx)
+            ratio = er * inv_ncx
+            cos_max = torch.sqrt(torch.clamp_min(1.0 - ratio * ratio, 1e-12))
+            u1 = rng()
+            u2 = rng()
+            wi = pr.cone_dir(wc, cos_max, u1, u2)
+            hit, _, sid = pr.nearest_id_t(pk, xs, wi)
+            visible = hit & (sid == e)
+            fr = pr.eval_fr_nee(at, n, d, wi)
+            fpdf_inv = TWO_PI * torch.clamp_min(1.0 - cos_max, 1e-12)
+            att = normcx
+            tr = torch.exp(-sigma_t * att)
+            w_vis = torch.where(visible, tr * pr.dot3(n, wi) * fpdf_inv, 0.0)
+            gpdf = pr.bsdf_pdf_for_dir(at, n, wo, wi, rng())
+            wf = pr.power_h_invf(fpdf_inv, gpdf)
+            re = rad[e]
+            term = [re[i] * fr[i] * w_vis * wf for i in range(3)]
+            for i in range(3):
+                acc[i] = acc[i] + term[i]
+            if grads:
+                for i in range(3):
+                    dsig[i] = dsig[i] + term[i] * (-att)
+                    dalb[i] = dalb[i] + torch.where(
+                        is_lam, re[i] * w_vis * wf * INV_PI, 0.0)
+                drad[e] = [fr[i] * w_vis * wf for i in range(3)]
+        # BSDF strategy
+        u1, u2, u_choice = rng(), rng(), rng()
+        wi_l = pr.cosine_hemi(n, u1, u2)
+        wt_, _ = pr.refract_quirk(wo, n)
+        fres = pr.fresnel_die(pr.dot3(n, wt_), pr.dot3(n, wo))
+        refl = u_choice < fres
+        ndotwo = pr.dot3(n, wo)
+        wr = pr.normalize3([2.0 * ndotwo * n[i] - wo[i] for i in range(3)])
+        wi_d = pr.sel3(refl, wr, wt_)
+        wh_loc = pr.beckmann_wh(at["alpha"], u1, u2)
+        wo_loc = pr.to_local(n, wo)
+        whw = 2.0 * pr.dot3(wh_loc, wo_loc)
+        wi_m_loc = pr.normalize3([whw * wh_loc[i] - wo_loc[i]
+                                  for i in range(3)])
+        wi_m = pr.normalize3(pr.from_local(n, wi_m_loc))
+        wi_sel = pr.sel3(at["is_mic"], wi_m, pr.sel3(at["is_die"], wi_d, wi_l))
+        hit, _, sid2 = pr.nearest_id_t(pk, xs, wi_sel)
+        le_row = pr.per_sphere(rad, sid2)
+        le = [le_row[:, 0], le_row[:, 1], le_row[:, 2]]
+        hit_r = pr.per_sphere(r_tab, sid2)
+        hc_row = pr.per_sphere(c_tab, sid2)
+        hc = [hc_row[:, 0], hc_row[:, 1], hc_row[:, 2]]
+        cos_l = pr.dot3(n, wi_l)
+        gpdf_l = cos_l * INV_PI
+        nz_l = gpdf_l != 0.0
+        coef_l = [torch.where(nz_l, (at["ar"], at["ag"], at["ab"])[i], 0.0)
+                  for i in range(3)]
+        g_l = [le[i] * coef_l[i] for i in range(3)]
+        cos_d = torch.abs(pr.dot3(n, wi_d))
+        scale_d = torch.where(refl, 1.0, pr.GLASS_ETA_T * pr.GLASS_ETA_T) \
+            / torch.clamp_min(cos_d, 1e-12)
+        g_d = [le[i] * scale_d for i in range(3)]
+        gpdf_d = torch.where(refl, fres, 1.0 - fres)
+        fr_m = pr.fr_microfacet(at, wi_m_loc, wh_loc, wo_loc)
+        gpdf_m = pr.ndf_beckmann(wh_loc[2], at["alpha"]) * wh_loc[2] / (
+            4.0 * torch.clamp_min(torch.abs(pr.dot3(wo_loc, wh_loc)), 1e-12))
+        winv_m = wi_m_loc[2] / torch.clamp_min(gpdf_m, 1e-20)
+        coef_m = [fr_m[i] * winv_m for i in range(3)]
+        g_m = [le[i] * coef_m[i] for i in range(3)]
+        g = pr.sel3(at["is_mic"], g_m, pr.sel3(at["is_die"], g_d, g_l))
+        gpdf = torch.where(at["is_mic"], gpdf_m,
+                           torch.where(at["is_die"], gpdf_d, gpdf_l))
+        pos_all = (g[0] > 0.0) & (g[1] > 0.0) & (g[2] > 0.0)
+        gate = (at["is_mic"] & (g[0] > 0.0)) | (~at["is_mic"] & pos_all)
+        hcx = [hc[i] - xs[i] for i in range(3)]
+        n2 = torch.clamp_min(pr.dot3(hcx, hcx), 1e-20)
+        cmax = torch.sqrt(torch.clamp_min(1.0 - hit_r * hit_r / n2, 1e-12))
+        fpdf_h_inv = TWO_PI * torch.clamp_min(1.0 - cmax, 1e-12)
+        wg = torch.where(gate & hit, pr.power_h_invg(gpdf, fpdf_h_inv), 0.0)
+        for i in range(3):
+            acc[i] = acc[i] + g[i] * wg
+        if not grads:
+            return acc, None
+        sel = pr.sel3(at["is_mic"], coef_m,
+                      pr.sel3(at["is_die"], [scale_d] * 3, coef_l))
+        dle = [sel[i] * wg for i in range(3)]
+        for i in range(3):
+            dalb[i] = dalb[i] + torch.where(is_lam & nz_l, le[i] * wg, 0.0)
+        return acc, {"dsig": dsig, "drad": drad, "dalb": dalb, "dle": dle,
+                     "sid2": sid2}
+
+    def medium_nee(rng, xt, lc, lrad, lr, lid):
+        """freeSingleScattering; returns (radiance, weight, distance)."""
+        wc = [lc[i] - xt[i] for i in range(3)]
+        inv_mag = torch.rsqrt(torch.clamp_min(pr.dot3(wc, wc), 1e-20))
+        wc_n = pr.scale3(wc, inv_mag)
+        ratio = lr * inv_mag
+        cos_max = torch.sqrt(torch.clamp_min(1.0 - ratio * ratio, 1e-12))
+        u1 = rng()
+        u2 = rng()
+        wl = pr.cone_dir(wc_n, cos_max, u1, u2)
+        hit, t, sid = pr.nearest_id_t(pk, xt, wl)
+        visible = hit & (sid == lid) & (lr > 0.0)
+        att = t
+        w = torch.where(visible,
+                        torch.exp(-sigma_t * att) * pk.nee_phase
+                        * torch.clamp_min(1.0 - cos_max, 1e-12), 0.0)
+        return [lrad[i] * w for i in range(3)], w, att
+
+    acc = {}
+    if grads:
+        for k in ("g_st", "g_ssx", "A_st", "B_st", "A_ssx", "B_ssx"):
+            acc[k] = z
+        for e in em:
+            for i in range(3):
+                acc[("rad", e, i)] = z
+        for s in dp.alb_ids:
+            for i in range(3):
+                acc[("alb", s, i)] = z
+        for s in dp.lam_ids:
+            for i in range(3):
+                acc[("A_alb", s, i)] = z
+                acc[("B_alb", s, i)] = z
+
+    rng = pr.Pcg(pr.pcg_seed(lane, seed_i))
+    o = [z, z, z]
+    d = [z, z, z + 1.0]
+    tp = [z, z, z]
+    L = [z, z, z]
+    Lps = [z, z, z]
+    alive = torch.zeros(N, dtype=torch.bool, device=dev)
+    depth = torch.zeros(N, dtype=torch.int64, device=dev)
+    samples = torch.zeros(N, dtype=torch.int64, device=dev)
+    cam_o = [torch.full_like(z, v) for v in pk.cam_o]
+    one = torch.ones_like(z)
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    it = 0
+    while it < pk.max_iters and bool((samples < spp).any()):
+        need = ~alive & (samples < spp)
+        if stats is not None:
+            counts[0] += (samples < spp).sum()
+        nd = camera_ray(rng, samples)
+        o = pr.sel3(need, cam_o, o)
+        d = pr.sel3(need, nd, d)
+        tp = pr.sel3(need, [one, one, one], tp)
+        alive = alive | need
+        depth = torch.where(need, 0, depth)
+        was_alive = alive
+
+        # ---- bounce (the forward kernel's draw order)
+        u_rr = rng()
+        u_pick = rng()
+        u_dist = rng()
+        if pk.ld:
+            s_f = samples.to(torch.float32)
+            d0 = depth == 0
+            u_rr = torch.where(d0, strat(A4, off_r, s_f), u_rr)
+            u_pick = torch.where(d0, strat(A5, off_p, s_f), u_pick)
+            u_dist = torch.where(d0, strat(A3, off_w, s_f), u_dist)
+        alive = alive & (u_rr >= pk.q)
+        hit, t, at = pr.nearest(pk, o, d, alb, rad)
+        t_eff = torch.where(hit, t, BIG)
+        xs = [o[i] + t_eff * d[i] for i in range(3)]
+        nrm = pr.normalize3([xs[0] - at["cx"], xs[1] - at["cy"],
+                             xs[2] - at["cz"]])
+        lc, lrad, lr, lid = light_attrs(u_pick)
+
+        d_s = -torch.log1p(-u_dist) * inv_st
+        surface = (d_s > t_eff) & hit
+        xt = [o[i] + d_s * d[i] for i in range(3)]
+        medium = alive & ~surface
+        shade_pre = alive & surface
+
+        if grads:
+            # free-flight score vs the L-prefix before this bounce
+            k_sc = torch.where(shade_pre, -t_eff,
+                               torch.where(medium, inv_st - d_s, 0.0))
+            wL0 = _wdot(wt, Lps)
+            acc["A_st"] = acc["A_st"] + k_sc
+            acc["B_st"] = acc["B_st"] + k_sc * wL0
+
+        em_hit = surface & at["is_em"]
+        credit = alive & em_hit & (depth == 0)
+        radh = [at["rr"], at["rg"], at["rb"]]
+        for i in range(3):
+            add = torch.where(credit, radh[i] * tp[i], 0.0)
+            L[i] = L[i] + add
+            Lps[i] = Lps[i] + add
+        if grads:
+            for e in em:
+                m = credit & (at["sid"] == e)
+                for i in range(3):
+                    acc[("rad", e, i)] = acc[("rad", e, i)] + torch.where(
+                        m, wt[i] * tp[i], 0.0)
+        shade = alive & surface & ~em_hit
+
+        ldp, ldp_coef, ldp_lam, dist_ls = plight_term(at, xs, nrm, d, lc,
+                                                      lrad)
+        att_pl = dist_ls
+        trs = torch.exp(-sigma_t * att_pl)
+        ldm, misp = mis_v2(rng, at, xs, nrm, d)
+        for i in range(3):
+            add = torch.where(
+                shade, (ldp[i] * trs * inv_ps + ldm[i]) * tp[i] * inv_cp, 0.0)
+            L[i] = L[i] + add
+            Lps[i] = Lps[i] + add
+        if grads:
+            gs = z
+            for i in range(3):
+                gs = gs + wt[i] * (ldp[i] * trs * (-att_pl) * inv_ps
+                                   + misp["dsig"][i]) * tp[i] * inv_cp
+            acc["g_st"] = acc["g_st"] + torch.where(shade, gs, 0.0)
+            for e in em:
+                m = shade & (lid == e)
+                for i in range(3):
+                    g = torch.where(m, wt[i] * ldp_coef[i] * trs * inv_ps
+                                    * tp[i] * inv_cp, 0.0)
+                    if e in misp["drad"]:
+                        g = g + torch.where(
+                            shade, wt[i] * misp["drad"][e][i] * tp[i] * inv_cp,
+                            0.0)
+                    g = g + torch.where(
+                        shade & (misp["sid2"] == e),
+                        wt[i] * misp["dle"][i] * tp[i] * inv_cp, 0.0)
+                    acc[("rad", e, i)] = acc[("rad", e, i)] + g
+            for s in dp.alb_ids:
+                m = shade & (at["sid"] == s)
+                for i in range(3):
+                    acc[("alb", s, i)] = acc[("alb", s, i)] + torch.where(
+                        m, wt[i] * (ldp_lam[i] * trs * inv_ps
+                                    + misp["dalb"][i]) * tp[i] * inv_cp, 0.0)
+
+        fs, wi_s, pdf_b = pr.sample_bsdf(rng, at, d, nrm)
+        cosine = pr.dot3(nrm, wi_s)
+        wscale = cosine * inv_cp / torch.clamp_min(pdf_b, 1e-20)
+        tp_surface = [tp[i] * fs[i] * wscale for i in range(3)]
+
+        u_p1, u_p2 = rng(), rng()
+        wi_m = pr.uniform_sphere(u_p1, u_p2)
+        med_scale = ar_cp
+        med_dsig = -inv_st
+        ld_med, w_med, att_nee = medium_nee(rng, xt, lc, lrad, lr, lid)
+        adds = [torch.where(medium, ld_med[i] * inv_ps * tp[i] * med_scale,
+                            0.0) for i in range(3)]
+        for i in range(3):
+            L[i] = L[i] + adds[i]
+            Lps[i] = Lps[i] + adds[i]
+        if grads:
+            gs = z
+            gx = z
+            for i in range(3):
+                gs = gs + wt[i] * adds[i] * (-att_nee + med_dsig)
+                gx = gx + wt[i] * adds[i]
+            acc["g_st"] = acc["g_st"] + gs
+            acc["g_ssx"] = acc["g_ssx"] + gx * inv_ss
+            for e in em:
+                m = medium & (lid == e)
+                for i in range(3):
+                    acc[("rad", e, i)] = acc[("rad", e, i)] + torch.where(
+                        m, wt[i] * w_med * inv_ps * tp[i] * med_scale, 0.0)
+        tp_medium = [tp[i] * med_scale for i in range(3)]
+
+        if grads:
+            # deferred log-throughput factors vs the L-prefix after this
+            # bounce's emissions
+            wL1 = _wdot(wt, Lps)
+            k_med_st = torch.where(medium, med_dsig, 0.0)
+            k_med_ssx = torch.where(medium, inv_ss, 0.0)
+            acc["A_st"] = acc["A_st"] + k_med_st
+            acc["B_st"] = acc["B_st"] + k_med_st * wL1
+            acc["A_ssx"] = acc["A_ssx"] + k_med_ssx
+            acc["B_ssx"] = acc["B_ssx"] + k_med_ssx * wL1
+            for s in dp.lam_ids:
+                m = shade & (at["sid"] == s)
+                for i in range(3):
+                    a_si = alb[s, i]
+                    inv_a = torch.where(a_si > 0.0, 1.0 / a_si, 0.0)
+                    k = torch.where(m, wt[i] * inv_a, 0.0)
+                    acc[("A_alb", s, i)] = acc[("A_alb", s, i)] + k
+                    acc[("B_alb", s, i)] = acc[("B_alb", s, i)] + k * Lps[i]
+
+        if stats is not None:
+            counts[1] += shade.sum()
+            counts[2] += medium.sum()
+        o = pr.sel3(shade, xs, pr.sel3(medium, xt, o))
+        d = pr.sel3(shade, wi_s, pr.sel3(medium, wi_m, d))
+        tp = pr.sel3(shade, tp_surface, pr.sel3(medium, tp_medium, tp))
+        alive2 = (shade | medium) & (depth + 1 < pk.max_bounces)
+        depth = torch.where(alive2, depth + 1, depth)
+        finished = was_alive & ~alive2
+        samples = samples + finished.to(torch.int64)
+        if grads:
+            # fold the deferred pairs: A * L_total - B at path death
+            WL = _wdot(wt, Lps)
+            for g, a, b in (("g_st", "A_st", "B_st"),
+                            ("g_ssx", "A_ssx", "B_ssx")):
+                acc[g] = acc[g] + torch.where(
+                    finished, acc[a] * WL - acc[b], 0.0)
+                acc[a] = torch.where(finished, 0.0, acc[a])
+                acc[b] = torch.where(finished, 0.0, acc[b])
+            for s in dp.lam_ids:
+                for i in range(3):
+                    a = acc[("A_alb", s, i)]
+                    b = acc[("B_alb", s, i)]
+                    acc[("alb", s, i)] = acc[("alb", s, i)] + torch.where(
+                        finished, a * Lps[i] - b, 0.0)
+                    acc[("A_alb", s, i)] = torch.where(finished, 0.0, a)
+                    acc[("B_alb", s, i)] = torch.where(finished, 0.0, b)
+            Lps = [torch.where(finished, 0.0, Lps[i]) for i in range(3)]
+        alive = alive2
+        it += 1
+
+    if stats is not None:
+        for k, v in zip(("thread_iters", "shade", "medium"), counts.tolist()):
+            stats[k] = stats.get(k, 0) + v
+    if not grads:
+        return torch.stack(L, dim=-1) / scalar(float(spp))
+    # lanes cut by the iteration cap fold with their partial prefix
+    wt_sum = _wdot(wt, Lps)
+    g_st = acc["g_st"] + acc["A_st"] * wt_sum - acc["B_st"]
+    g_ssx = acc["g_ssx"] + acc["A_ssx"] * wt_sum - acc["B_ssx"]
+    for s in dp.lam_ids:
+        for i in range(3):
+            acc[("alb", s, i)] = acc[("alb", s, i)] + (
+                acc[("A_alb", s, i)] * Lps[i] - acc[("B_alb", s, i)])
+    G = torch.zeros((N, dp.P), dtype=torch.float32, device=dev)
+    G[:, 0] = g_st
+    G[:, 1] = g_st + g_ssx
+    for s in dp.alb_ids:
+        for i in range(3):
+            G[:, 2 + 3 * s + i] = acc[("alb", s, i)]
+    for e in em:
+        for i in range(3):
+            G[:, 2 + 3 * S + 3 * e + i] = acc[("rad", e, i)]
+    return G
+
+
+def diff_fwd_plain(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
+                   stats: dict | None = None) -> torch.Tensor:
+    """Plain torch K2 on pvec.device: (npix, 3) float32 radiance / spp.
+    `stats`, if given, gains the lockstep loop's thread-iterations and its
+    shading and medium events."""
+    with torch.no_grad():
+        return _diff_body(dp, pvec, seed, stats=stats)
+
+
+def diff_bwd_plain(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
+                   gbar: torch.Tensor, per_lane: bool = False,
+                   stats: dict | None = None) -> torch.Tensor:
+    """Plain torch K3: the packed gradient (P,) of sum(image * gbar), or,
+    with per_lane=True, each pixel's contribution (npix, P) before the
+    sum."""
+    with torch.no_grad():
+        G = _diff_body(dp, pvec, seed, gbar.to(torch.float32), stats=stats)
+    return G if per_lane else G.sum(0)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_inputs(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor):
+    if pvec.dtype != torch.float32 or tuple(pvec.shape) != (dp.P,) \
+            or not pvec.is_contiguous():
+        raise ValueError(f"pvec must be a contiguous float32 tensor of shape "
+                         f"({dp.P},)")
+    if seed.dtype != torch.int32 or tuple(seed.shape) != (1,) \
+            or not seed.is_contiguous():
+        raise ValueError("seed must be a contiguous int32 tensor of shape (1,)")
+    if pvec.device != seed.device:
+        raise ValueError(f"pvec on {pvec.device}, seed on {seed.device}")
+    if seed.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no diff kernel for device {seed.device}")
+
+
+def _launch(name: str, dp: DiffPacked, dev: torch.device, *ptrs) -> None:
+    from . import _build
+
+    lib = _build.load()
+    words = np.ascontiguousarray(dp.words())
+    if words.size != lib.vpt_diff_params_words():
+        raise RuntimeError(
+            f"DiffParams layout mismatch: python packs {words.size} words, "
+            f"the kernel expects {lib.vpt_diff_params_words()}")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, name)(words.ctypes.data, *ptrs, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{_build.error_string(err)} ({err})")
+
+
+def diff_fwd(dp: DiffPacked, pvec: torch.Tensor,
+             seed: torch.Tensor) -> torch.Tensor:
+    """K2 on pvec.device: (npix, 3) float32 radiance / spp. A CUDA tensor
+    launches csrc/diff.cu on the current stream without synchronising; a
+    CPU tensor runs diff_fwd_plain."""
+    global LAUNCHES_FWD
+    _check_inputs(dp, pvec, seed)
+    if pvec.device.type == "cpu":
+        return diff_fwd_plain(dp, pvec, seed)
+    out = torch.empty((dp.npix, 3), dtype=torch.float32, device=pvec.device)
+    _launch("vpt_diff_fwd", dp, pvec.device, pvec.data_ptr(),
+            seed.data_ptr(), out.data_ptr())
+    LAUNCHES_FWD += 1
+    return out
+
+
+def diff_bwd(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
+             gbar: torch.Tensor, per_lane: bool = False) -> torch.Tensor:
+    """K3 on pvec.device: the packed gradient (P,) of sum(image * gbar).
+    The kernel writes one deterministic partial P-vector per block; they
+    are summed here. per_lane=True returns each pixel's own vector (npix,
+    P) instead, as diff_bwd_plain does (for checks: the kernel then also
+    writes them out). A CPU tensor runs diff_bwd_plain."""
+    global LAUNCHES_BWD
+    _check_inputs(dp, pvec, seed)
+    gbar = gbar.contiguous()        # mean()'s cotangent is an expanded view
+    if gbar.dtype != torch.float32 or tuple(gbar.shape) != (dp.npix, 3) \
+            or gbar.device != pvec.device:
+        raise ValueError(f"gbar must be float32 ({dp.npix}, 3) on "
+                         f"{pvec.device}")
+    if pvec.device.type == "cpu":
+        return diff_bwd_plain(dp, pvec, seed, gbar, per_lane=per_lane)
+    from . import _build
+
+    threads = _build.load().vpt_diff_block_threads()
+    partials = torch.empty((-(-dp.npix // threads), dp.P),
+                           dtype=torch.float32, device=pvec.device)
+    lanes = (torch.empty((dp.npix, dp.P), dtype=torch.float32,
+                         device=pvec.device) if per_lane else None)
+    _launch("vpt_diff_bwd", dp, pvec.device, pvec.data_ptr(),
+            seed.data_ptr(), gbar.data_ptr(), partials.data_ptr(),
+            lanes.data_ptr() if per_lane else None)
+    LAUNCHES_BWD += 1
+    return lanes if per_lane else partials.sum(0)
+
+
+class _DiffRender(torch.autograd.Function):
+    """image = K2(pvec, seed); d(image . gbar)/d(pvec) = K3(pvec, seed,
+    gbar), a replay of the same paths (vpt's custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, pvec, seed, dp):
+        ctx.save_for_backward(pvec, seed)
+        ctx.dp = dp
+        return diff_fwd(dp, pvec, seed)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gbar):
+        pvec, seed = ctx.saved_tensors
+        return diff_bwd(ctx.dp, pvec, seed, gbar), None, None
+
+
+def make_diff_renderer(scene: Scene, camera: Camera, width: int, height: int,
+                       spp: int, *, nee: bool = True, distance: str = "free",
+                       continue_prob: float = 0.6, max_bounces: int = 32,
+                       jitter: bool = True, sampler: str = "random",
+                       physical: bool = False, diff_g: bool = False,
+                       diff_field: bool = False, diff_blobs: bool = False,
+                       diff_grid: bool = False, device="cuda"):
+    """Build render(params, seed) -> (npix, 3) on `device`, differentiable
+    with respect to params (pack_params) through torch autograd. "cuda"
+    runs K2/K3 or raises; "cpu" runs their plain versions."""
+    if diff_g:
+        raise _todo("a traced HG g (diff_g)", "4, after the medium set")
+    if diff_field or diff_blobs:
+        raise _todo("traced density-field parameters (diff_field, "
+                    "diff_blobs)", "6")
+    if diff_grid:
+        raise _todo("voxel-grid gradients (diff_grid)", "7")
+    if distance != "free":
+        raise _todo(f"distance={distance!r}", "4 (follow-up)")
+    if physical or not nee:
+        raise _todo("the physical and implicit estimators", "4 (follow-up)")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("make_diff_renderer(device='cuda'): "
+                           "torch.cuda.is_available() is False")
+    dp = pack_diff(scene, camera, width, height, spp,
+                   continue_prob=continue_prob, max_bounces=max_bounces,
+                   sampler=sampler, jitter=jitter)
+    S = dp.pk.S
+
+    def render(params: dict, seed) -> torch.Tensor:
+        pvec = _flatten(params, S).to(dev)
+        if isinstance(seed, torch.Tensor):
+            seed_t = seed.to(device=dev, dtype=torch.int32).reshape(1)
+        else:
+            seed_t = torch.tensor([int(seed)], dtype=torch.int32, device=dev)
+        return _DiffRender.apply(pvec, seed_t, dp)
+
+    def make_shard(n_tiles: int):
+        raise _todo("the shard-range variant of the pair (make_shard)", "8")
+
+    render.make_shard = make_shard
+    render.npix = dp.npix
+    render.packed = dp
+    return render

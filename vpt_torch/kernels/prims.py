@@ -173,12 +173,26 @@ def nearest_id_t(ps, o, d):
     return hit, torch.where(hit, t_min, 0.0), sid
 
 
-def attrs(ps, sid):
+def per_sphere(tab, sid):
+    """Rows of an (S, k) tensor by sphere id, zeros where sid == -1."""
+    ext = torch.cat([tab, tab.new_zeros((1,) + tuple(tab.shape[1:]))])
+    return ext[torch.where(sid >= 0, sid, tab.shape[0])]
+
+
+def attrs(ps, sid, alb=None, rad=None):
     """Per-lane sphere attributes by id, zeros where sid == -1 (a miss) —
-    the values vpt's chained nearest-select leaves behind."""
+    the values vpt's chained nearest-select leaves behind. `alb`/`rad`,
+    (S, 3) tensors, replace the packed albedo and radiance (vpt's
+    ``nearest(sc, o, d, alb, rad)`` with traced tables); the emitter flag
+    stays the scene's, as in vpt."""
     tab = ps.attr_table(sid.device)
     row = tab[torch.where(sid >= 0, sid, ps.S)]
     at = {k: row[:, i].reshape(sid.shape) for i, k in enumerate(ps.ATTR_KEYS)}
+    for keys, table in ((("ar", "ag", "ab"), alb), (("rr", "rg", "rb"), rad)):
+        if table is not None:
+            rows = per_sphere(table, sid)
+            for i, k in enumerate(keys):
+                at[k] = rows[..., i]
     at["is_em"] = at.pop("em_f") > 0.5
     at["is_mic"] = at.pop("mic_f") > 0.5
     at["is_die"] = at.pop("die_f") > 0.5
@@ -186,10 +200,10 @@ def attrs(ps, sid):
     return at
 
 
-def nearest(ps, o, d):
+def nearest(ps, o, d, alb=None, rad=None):
     """Scene intersect with attribute lookup. Returns (hit, t, attrs)."""
     hit, t, sid = nearest_id_t(ps, o, d)
-    return hit, t, attrs(ps, sid)
+    return hit, t, attrs(ps, sid, alb, rad)
 
 
 def plight_le_scale(ps, lc, xs):

@@ -243,10 +243,13 @@ def _const3(vals, like):
     return [torch.full_like(like, v) for v in vals]
 
 
-def render_tile_plain(pk: Packed, seed: torch.Tensor) -> torch.Tensor:
+def render_tile_plain(pk: Packed, seed: torch.Tensor,
+                      stats: dict | None = None) -> torch.Tensor:
     """Plain torch render of the whole frame on seed.device. seed: int32
     (1,). Returns (npix, 3) float32 radiance / spp, pixel id = row*W + col,
-    top row first."""
+    top row first. `stats`, if given, gains the work the frame took: the
+    thread-iterations (lanes still short of spp, summed over iterations)
+    and the surface-shading and medium-scattering events."""
     dev = seed.device
     W, H, spp = pk.width, pk.height, pk.spp
     N = pk.npix
@@ -450,6 +453,9 @@ def render_tile_plain(pk: Packed, seed: torch.Tensor) -> torch.Tensor:
                                       0.0)
         tp_medium = [tp[i] * pk.tp_med for i in range(3)]
 
+        if stats is not None:
+            counts[1] += shade.sum()
+            counts[2] += medium.sum()
         o = pr.sel3(shade, xs, pr.sel3(medium, xt, o))
         d = pr.sel3(shade, wi_s, pr.sel3(medium, wi_m, d))
         tp = pr.sel3(shade, tp_surface, pr.sel3(medium, tp_medium, tp))
@@ -467,9 +473,12 @@ def render_tile_plain(pk: Packed, seed: torch.Tensor) -> torch.Tensor:
     samples = torch.zeros(N, dtype=torch.int64, device=dev)
     cam_o = _const3(pk.cam_o, z)
     one = torch.ones_like(z)
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)
     it = 0
     while it < pk.max_iters and bool((samples < spp).any()):
         need = ~alive & (samples < spp)
+        if stats is not None:
+            counts[0] += (samples < spp).sum()
         nd = camera_ray(rng, samples)
         o = pr.sel3(need, cam_o, o)
         d = pr.sel3(need, nd, d)
@@ -481,6 +490,9 @@ def render_tile_plain(pk: Packed, seed: torch.Tensor) -> torch.Tensor:
                                            samples)
         samples = samples + (was_alive & ~alive).to(torch.int64)
         it += 1
+    if stats is not None:
+        for k, v in zip(("thread_iters", "shade", "medium"), counts.tolist()):
+            stats[k] = stats.get(k, 0) + v
     return torch.stack(L, dim=-1) / float(spp)
 
 
