@@ -18,10 +18,20 @@ plain torch version on the card:
      loss.backward(); K2 against its plain version there, K3 against its
      plain version at 4 spp; times;
   8. the trainer: three vpt_torch.dist.fit_kernel steps on a 1024x1024
-     target, as examples/recover_sigma.py runs at 256x256.
+     target, as examples/recover_sigma.py runs at 256x256;
+  9. K4, the dual kernel, against its plain version on a small frame: K = 7
+     (sphere 8 + camera, both samplers, seeds 3 and 11), K = 10 and K = 0;
+ 10. the geom main path, vpt's bench.py:191-193 workload: cornell_vpt,
+     sphere 8 + camera (K = 7), sampler "random", max_bounces 32,
+     1024x1024x64 through make_geom_renderer(...)(theta, seed); camera
+     paths/s; K4 against its plain version at 2 spp and, at K = 0, at the
+     full size; K = 0 timed beside K1;
+ 11. the geometric trainers: three fit_geom steps at 1024x1024, then
+     examples/localize_light.py's chip configuration through fit_geom_fd
+     (an area light 8 units off in y, 80 CRN-FD steps at 64x48).
 
-Each main path (phases 4, 7 and 8) runs with every launch count set to 0
-just before it and read just after. The line before the last is the
+Each main path (phases 4, 7, 8, 10 and 11) runs with every launch count
+set to 0 just before it and read just after. The line before the last is the
 per-kernel JSON record, the last line the device record. Any failed phase
 raises and the script exits non-zero; without a CUDA device it exits
 non-zero before printing any result.
@@ -41,6 +51,7 @@ import torch
 import vpt_torch
 from vpt_torch.kernels import _build
 from vpt_torch.kernels import diff as df
+from vpt_torch.kernels import geom as gm
 from vpt_torch.kernels import wavefront as wf
 
 # pixel-by-pixel agreement: the 99th percentile of |a-b| / max(1, |ref|max)
@@ -62,6 +73,7 @@ GVEC_TOL = 1e-5
 
 MAIN_CFG = dict(width=1024, height=1024, spp=64, sampler="ld", max_bounces=32)
 CHECK_SPP = 4           # K3 against its plain version at the main frame
+GEOM_CHECK_SPP = 2      # K4 (K = 7) against its plain version at the main frame
 
 # the card's peaks (NVIDIA H100 SXM data sheet, at its 700 W limit): f32
 # outside the tensor cores and HBM3 bandwidth
@@ -103,11 +115,31 @@ def reset_counts() -> None:
     wf.LAUNCHES = 0
     df.LAUNCHES_FWD = 0
     df.LAUNCHES_BWD = 0
+    gm.LAUNCHES = 0
 
 
 def counts() -> dict:
     return {"wavefront_fwd": wf.LAUNCHES, "diff_fwd": df.LAUNCHES_FWD,
-            "diff_bwd": df.LAUNCHES_BWD}
+            "diff_bwd": df.LAUNCHES_BWD, "geom_fwd": gm.LAUNCHES}
+
+
+def plane_check(k: torch.Tensor, p: torch.Tensor, K: int) -> tuple:
+    """K4's planes against the plain version's: image planes by q99_rel,
+    tangent planes by q99 of |a-b| over the plane's scale (a plane that is
+    0 in the plain version must be 0). Returns (worst q99, max abs error,
+    the share of bit-equal pixels per plane)."""
+    worst, shares = 0.0, []
+    for j in range(k.shape[0]):
+        if j % (1 + K) == 0:
+            q = q99_rel(k[j], p[j])
+        else:
+            scale = float(p[j].abs().max())
+            q = (float(torch.quantile((k[j] - p[j]).abs().double().cpu(),
+                                      0.99)) / scale if scale > 0.0
+                 else float(k[j].abs().max()))
+        worst = max(worst, q)
+        shares.append(round(float((k[j] == p[j]).float().mean()), 4))
+    return worst, float((k - p).abs().max()), shares
 
 
 # ---- the least time the card could take for a kernel's work --------------
@@ -143,6 +175,34 @@ def ops_lower_bound(kernel: str, stats: dict, dp: df.DiffPacked) -> float:
                 + stats["medium"] * 42 + samples * (11 + 9 * A)
                 + pk.npix * 3)
     return float(ops)
+
+
+# K4 (csrc/geom_path.cuh) runs the path work above in dual numbers: every
+# operation on a dual value also does at least one operation per tangent
+# (add 1, multiply 1 or 3, divide 3, sqrt / rsqrt / exp / abs 1), and only a
+# few per event stay plain (draws, the free-flight distance, the light
+# pick, the camera's sx and sy, the cosine and phase samplers' local
+# frames). So, counting K2's operations as above and at most PLAIN_OPS of
+# them as plain, ops(K4) >= (1 + K) * (ops - plain) + plain: a lower bound.
+PLAIN_OPS = {"thread_iters": 10, "samples": 10, "shade": 40, "medium": 15}
+
+
+def geom_ops_lower_bound(stats: dict, gp: gm.GeomPacked) -> float:
+    pk = gp.pk
+    dp = df.DiffPacked(pk=pk, cp=gp.cp, inv_spp=0.0, alb_ids=(), lam_ids=())
+    ops = ops_lower_bound("diff_fwd", stats, dp)
+    plain = (stats["thread_iters"] * PLAIN_OPS["thread_iters"]
+             + pk.npix * pk.spp * PLAIN_OPS["samples"]
+             + stats["shade"] * PLAIN_OPS["shade"]
+             + stats["medium"] * PLAIN_OPS["medium"])
+    return (1 + gp.K) * (ops - plain) + plain
+
+
+def geom_bound(stats: dict, gp: gm.GeomPacked) -> tuple[float, str]:
+    t_ops = geom_ops_lower_bound(stats, gp) / PEAK_F32 * 1e3
+    # theta and the seed in, 3 (1 + K) planes of per-pixel sums out
+    t_bytes = (48.0 + 4.0 + 4.0 * gp.planes * gp.npix) / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def bytes_moved(kernel: str, dp: df.DiffPacked) -> float:
@@ -438,6 +498,160 @@ def main() -> int:
           f" -> {float(fitted['sigma_s']):.6g} (truth "
           f"{float(scene.medium.sigma_s):.6g}) on {card}", flush=True)
 
+    # ---- phase 9: K4 against its plain version, small frame
+    for K_kw, sampler, seed in (
+            (dict(), "random", 3), (dict(), "random", 11), (dict(), "ld", 3),
+            (dict(), "ld", 11), (dict(dir_grads=True), "random", 3),
+            (dict(primal_only=True), "random", 3)):
+        gp = gm.pack_geom(scene, camera, 64, 32, 8, sphere=8, max_bounces=8,
+                          sampler=sampler, **K_kw)
+        th = gm.flatten_theta(gm.pack_theta(scene, camera, 8)).to(dev)
+        s = torch.tensor([seed], dtype=torch.int32, device=dev)
+        k = gm.geom_fwd(gp, th, s)
+        p = gm.geom_fwd_plain(gp, th, s)
+        torch.cuda.synchronize()
+        q, err, shares = plane_check(k, p, gp.K)
+        print(f"phase 9 K4 check 64x32x8 K={gp.K} {sampler} seed {seed}: "
+              f"worst plane q99 {q:.3e}, max abs {err:.3e}; bit-equal share "
+              f"per plane {shares}", flush=True)
+        if not bool(torch.isfinite(k).all()) or not q < Q99_TOL:
+            raise AssertionError(f"K4 (K={gp.K}) disagrees with its plain "
+                                 f"version: worst plane q99 {q}")
+
+    # ---- phase 10: the geom main path (bench.py:191-193), K = 7
+    G_CFG = dict(width=cfg.width, height=cfg.height, spp=cfg.spp,
+                 max_bounces=cfg.max_bounces)
+    grender = gm.make_geom_renderer(scene, camera, sphere=8, cam_grads=True,
+                                    device="cuda", **G_CFG)
+    theta = {k: v.to(dev) for k, v in gm.pack_theta(scene, camera,
+                                                     8).items()}
+    reset_counts()
+    (gimg, gtang), gfirst_ms = cuda_ms(lambda: grender(theta, cfg.seed))
+    launched_geom = counts()
+    if launched_geom["geom_fwd"] != 1 or grender.K != 7:
+        raise AssertionError(f"the geom main path launched {launched_geom}")
+    if tuple(gimg.shape) != (cfg.width * cfg.height, 3) or \
+            tuple(gtang.shape) != (7, cfg.width * cfg.height, 3):
+        raise AssertionError(f"geom shapes {gimg.shape}, {gtang.shape}")
+    if not (bool(torch.isfinite(gimg).all())
+            and bool(torch.isfinite(gtang).all())):
+        raise AssertionError("a geom plane is not finite")
+    gmeans = [round(float(v), 6) for v in gtang.mean(dim=(1, 2))]
+    k4_ms, k4_times = median_ms(lambda: grender(theta, cfg.seed))
+    gp = grender.packed
+    thv = gm.flatten_theta(theta)
+    k4k_ms, k4k_times = median_ms(lambda: gm.geom_fwd(gp, thv, seed_t))
+    print(f"phase 10 geom main path {cfg.width}x{cfg.height}x{cfg.spp} "
+          f"random K=7: launches {launched_geom}, image mean "
+          f"{float(gimg.mean()):.6f}, tangent means {gmeans}; render call "
+          f"{gfirst_ms:.3f} ms first, {k4_ms:.3f} ms warm (median of "
+          f"{k4_times}), {n_paths / (k4_ms / 1e3):.6e} camera paths/s; the "
+          f"kernel alone {k4k_ms:.3f} ms (median of {k4k_times}) on {card}",
+          flush=True)
+    # the primal_only mode (K = 0) at the full size: against its plain
+    # version (whose counters give the frame's work, the same at any K),
+    # and timed beside K1 with the same sampler
+    gp0 = gm.pack_geom(scene, camera, sphere=8, primal_only=True, **G_CFG)
+    k0_out = gm.geom_fwd(gp0, thv, seed_t)
+    geom_stats = {}
+    k0_plain, k0_plain_ms = cuda_ms(lambda: gm.geom_fwd_plain(
+        gp0, thv, seed_t, stats=geom_stats))
+    q_k0, err_k0, share_k0 = plane_check(k0_out, k0_plain, 0)
+    del k0_plain
+    k0_ms, k0_times = median_ms(lambda: gm.geom_fwd(gp0, thv, seed_t))
+    pk_r = wf.pack_scene(scene, camera, cfg.width, cfg.height, cfg.spp,
+                         max_bounces=cfg.max_bounces, sampler="random")
+    k1r_ms, k1r_times = median_ms(lambda: wf.render_tile(pk_r, seed_t))
+    print(f"phase 10 K=0 (primal_only) {k0_ms:.3f} ms (median of "
+          f"{k0_times}), K1 random {k1r_ms:.3f} ms (median of {k1r_times}); "
+          f"K=0 vs plain q99 {q_k0:.3e}, max abs {err_k0:.3e}, bit-equal "
+          f"{share_k0}, plain {k0_plain_ms:.3f} ms; work {geom_stats}",
+          flush=True)
+    if not q_k0 < Q99_TOL:
+        raise AssertionError(f"K4 (K=0) disagrees with its plain version at "
+                             f"the main frame: q99 {q_k0}")
+    # K = 7 against its plain version at the main frame, GEOM_CHECK_SPP
+    gp2 = gm.pack_geom(scene, camera, cfg.width, cfg.height, GEOM_CHECK_SPP,
+                       sphere=8, max_bounces=cfg.max_bounces)
+    k7_2_ms, k7_2_times = median_ms(lambda: gm.geom_fwd(gp2, thv, seed_t))
+    k7_2 = gm.geom_fwd(gp2, thv, seed_t)
+    k7_2p, k7_plain_ms = cuda_ms(lambda: gm.geom_fwd_plain(gp2, thv, seed_t))
+    q_k7, err_k7, share_k7 = plane_check(k7_2, k7_2p, 7)
+    del k7_2, k7_2p
+    print(f"phase 10 K4 check {cfg.width}x{cfg.height}x{GEOM_CHECK_SPP} K=7: "
+          f"kernel {k7_2_ms:.3f} ms (median of {k7_2_times}), plain "
+          f"{k7_plain_ms:.3f} ms; worst plane q99 {q_k7:.3e}, max abs "
+          f"{err_k7:.3e}, bit-equal share per plane {share_k7}", flush=True)
+    if not q_k7 < Q99_TOL:
+        raise AssertionError(f"K4 (K=7) disagrees with its plain version at "
+                             f"the main frame: worst plane q99 {q_k7}")
+    k4_bound, k4_by = geom_bound(geom_stats, gp)
+    k0_bound, k0_by = geom_bound(geom_stats, gp0)
+    print(f"phase 10 bounds: K=7 {k4_bound:.3f} ms ({k4_by}), K=0 "
+          f"{k0_bound:.3f} ms ({k0_by})", flush=True)
+
+    # ---- phase 11: the geometric trainers
+    y_off = 8.0
+    center = scene.center.clone()
+    center[8, 1] += y_off
+    wrong_light = dataclasses.replace(scene, center=center)
+    gsteps = []
+
+    def observe_geom(updated, initial):
+        torch.cuda.synchronize()
+        gsteps.append((time.perf_counter(), gm.LAUNCHES,
+                       float(updated["center"][1].detach())))
+        return updated
+
+    reset_counts()
+    t0 = time.perf_counter()
+    gtheta, glosses = vpt_torch.dist.fit_geom(
+        wrong_light, camera, target, sphere=8, steps=3, spp=16,
+        max_bounces=16, param_filter=observe_geom, device="cuda")
+    launched_fit = counts()
+    prev = (t0, 0)
+    for i, ((t, n4, y), l) in enumerate(zip(gsteps, glosses)):
+        print(f"phase 11 fit_geom step {i}: loss {l:.6g}, light y {y:.6g}, "
+              f"{t - prev[0]:.3f} s, K4 +{n4 - prev[1]}", flush=True)
+        if n4 - prev[1] != 2 or not np.isfinite([l, y]).all():
+            raise AssertionError(f"fit_geom step {i}: {n4 - prev[1]} K4 "
+                                 f"launches, loss {l}, y {y}")
+        prev = (t, n4)
+    if len(gsteps) != 3:
+        raise AssertionError("fit_geom did not take 3 steps")
+
+    # examples/localize_light.py's chip configuration on the port
+    glow = vpt_torch.make_scene(
+        [(2.0, (0.0, 0.0, -50.0), (0, 0, 0), (60.0, 50.0, 40.0), 0,
+          (0, 0, 0), (0, 0, 0), 0.0)], sigma_a=0.002, sigma_s=0.015)
+    pk_t = wf.pack_scene(glow, camera, 64, 48, 128, max_bounces=16)
+    glow_target = wf.render_tile(
+        pk_t, torch.tensor([99], dtype=torch.int32, device=dev)).reshape(
+            48, 64, 3)
+    true_y = float(glow.center[0, 1])
+    c0 = glow.center.clone()
+    c0[0, 1] = true_y + y_off
+    glow_wrong = dataclasses.replace(glow, center=c0)
+    reset_counts()
+    t0 = time.perf_counter()
+    ftheta, flosses = vpt_torch.dist.fit_geom_fd(
+        glow_wrong, camera, glow_target, sphere=0, cam_grads=False, steps=80,
+        spp=64, learning_rate=vpt_torch.dist.exponential_decay(0.8, 12, 0.75),
+        max_bounces=16, seed=3, device="cuda")
+    torch.cuda.synchronize()
+    fd_s = time.perf_counter() - t0
+    launched_fd = counts()
+    got_y = float(ftheta["center"][1])
+    resid = abs(got_y - true_y)
+    print(f"phase 11 fit_geom_fd (examples/localize_light.py, 64x48, spp 64, "
+          f"80 steps): light y start {true_y + y_off:.3f} true {true_y:.3f} "
+          f"recovered {got_y:.6f}, residual {resid:.6f}; loss {flosses[0]:.6g}"
+          f" -> {flosses[-1]:.6g}; {fd_s:.3f} s, launches {launched_fd} on "
+          f"{card}", flush=True)
+    if launched_fd["geom_fwd"] != 80 * 12 or not resid < 1.0:
+        raise AssertionError(f"fit_geom_fd: residual {resid} (limit 1.0), "
+                             f"launches {launched_fd}")
+
     common = {"route": "cuda", "library_ms": None, "card": card}
     records += [
         {"name": "diff_fwd", **common, "source": "vpt_torch/csrc/diff.cu",
@@ -456,6 +670,19 @@ def main() -> int:
          "ms": k3_ms, "plain_ms": k3_plain_ms,
          "checked_spp": CHECK_SPP, "ms_at_checked_spp": k3_4_ms,
          "bound_ms": k3_bound, "bound_by": k3_by},
+        {"name": "geom_fwd", **common, "source": "vpt_torch/csrc/geom.cu",
+         "replaces": "vpt/kernels/geom.py:609",
+         "launches": launched_geom["geom_fwd"],
+         "launches_fit_geom": launched_fit["geom_fwd"],
+         "launches_fit_geom_fd": launched_fd["geom_fwd"],
+         "max_abs_err": err_k7, "worst_plane_q99": q_k7,
+         "ms": k4k_ms, "plain_ms": k7_plain_ms, "main_path_ms": k4_ms,
+         "checked_spp": GEOM_CHECK_SPP, "ms_at_checked_spp": k7_2_ms,
+         "bound_ms": k4_bound, "bound_by": k4_by,
+         "paths_per_sec": n_paths / (k4_ms / 1e3),
+         "k0_ms": k0_ms, "k0_plain_ms": k0_plain_ms, "k0_bound_ms": k0_bound,
+         "k0_max_abs_err": err_k0, "k1_random_ms": k1r_ms,
+         "fit_geom_fd_residual": resid},
     ]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 """The CUDA kernels on the card (marked `cuda`; skipped without one): the
-render kernel K1 and the differentiable pair K2/K3.
+render kernel K1, the differentiable pair K2/K3 and the dual kernel K4.
 
 Run on a machine with an NVIDIA GPU (--noconftest: tests/conftest.py
 imports jax, which the port's machines need not have):
@@ -14,6 +14,7 @@ import numpy as np
 
 import vpt_torch
 from vpt_torch.kernels import diff as df
+from vpt_torch.kernels import geom as gm
 from vpt_torch.kernels import wavefront as wf
 from vpt_torch.scene.io import scene_from_dict, scene_to_dict
 
@@ -129,3 +130,51 @@ def test_diff_renderer_backward_goes_through_the_kernels(cuda):
         (dp.npix, 3), 1.0 / (3 * dp.npix), device=cuda), per_lane=True)
     got = df._flatten({k: v.grad for k, v in params.items()}, 10)
     assert bool(((got - gp.sum(0)).abs() <= 1e-5 * gp.abs().sum(0)).all())
+
+
+@pytest.mark.parametrize("kw,sampler", [
+    (dict(sphere=8, primal_only=True), "random"), (dict(sphere=8), "random"),
+    (dict(sphere=8), "ld")], ids=["K0-random", "K7-random", "K7-ld"])
+def test_geom_kernel_matches_plain_on_card(cuda, kw, sampler):
+    """K4's planes against its plain version: the image planes by the q99
+    criterion, each tangent plane by q99 of |a-b| below 1e-4 of its scale
+    (zero planes exactly zero)."""
+    sc, cam = vpt_torch.cornell_vpt(), vpt_torch.default_camera()
+    gp = gm.pack_geom(sc, cam, 64, 32, 8, max_bounces=8, sampler=sampler,
+                      **kw)
+    theta = gm.flatten_theta(gm.pack_theta(sc, cam, 8)).to(cuda)
+    seed = torch.tensor([3], dtype=torch.int32, device=cuda)
+    before = gm.LAUNCHES
+    k = gm.geom_fwd(gp, theta, seed)
+    assert gm.LAUNCHES == before + 1
+    p = gm.geom_fwd_plain(gp, theta, seed)
+    torch.cuda.synchronize()
+    assert torch.isfinite(k).all()
+    for j in range(gp.planes):
+        if j % (1 + gp.K) == 0:
+            assert _q99(k[j], p[j]) < 1e-4, j
+        else:
+            scale = float(p[j].abs().max())
+            if scale == 0.0:
+                assert bool((k[j] == 0.0).all()), j
+                continue
+            q = torch.quantile((k[j] - p[j]).abs().double(), 0.99)
+            assert float(q) < 1e-4 * scale, j
+
+
+def test_geom_renderer_goes_through_the_kernel(cuda):
+    sc, cam = vpt_torch.cornell_vpt(), vpt_torch.default_camera()
+    render = gm.make_geom_renderer(sc, cam, 48, 32, 4, sphere=8,
+                                   max_bounces=6, device="cuda")
+    theta = {k: v.to(cuda).requires_grad_()
+             for k, v in gm.pack_theta(sc, cam, 8).items()}
+    before = gm.LAUNCHES
+    img, tang = render(theta, 7)
+    render.grad_render(theta, 7).mean().backward()
+    torch.cuda.synchronize()
+    assert gm.LAUNCHES == before + 2
+    assert img.shape == (48 * 32, 3) and tang.shape == (7, 48 * 32, 3)
+    assert torch.isfinite(img).all() and torch.isfinite(tang).all()
+    got = gm.flatten_theta({k: v.grad for k, v in theta.items()})
+    want = tang.sum((1, 2)) / (3 * 48 * 32)
+    assert torch.allclose(got[:7], want, rtol=1e-5, atol=1e-9)

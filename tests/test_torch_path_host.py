@@ -1,7 +1,8 @@
 """The CUDA kernels' per-path code, built for the host, against the plain
 versions.
 
-csrc/path.cuh and csrc/diff_path.cuh are __host__ __device__. Here g++
+csrc/path.cuh, csrc/diff_path.cuh and csrc/geom_path.cuh are
+__host__ __device__. Here g++
 compiles them through the test-only shim csrc/path_host.cpp (a loop over
 pixels in place of the CUDA grid), with FMA contraction off as nvcc builds
 the kernels (--fmad=false). Images are held against the plain versions at
@@ -10,9 +11,11 @@ quantile(|a-b| / max(1, |ref|max), 0.99) < 1e-4 (libm's and torch's
 transcendentals differ by an ulp on some inputs). K3's per-pixel gradient
 vectors are held against diff_bwd_plain's per-lane rows by the same
 criterion, per entry column: quantile over lanes of the largest
-|a-b| / max(1, |column|max) below 1e-4. This catches a fault in the
-kernels' path code where there is no card; the card itself is checked by
-chip_smoke.py and tests/test_torch_cuda.py.
+|a-b| / max(1, |column|max) below 1e-4. K4's planes (geom_pixel<K>) are
+held against geom_fwd_plain's: the image planes by the image criterion,
+each tangent plane by q99 of |a-b| below 1e-4 of the plane's scale. This
+catches a fault in the kernels' path code where there is no card; the card
+itself is checked by chip_smoke.py and tests/test_torch_cuda.py.
 """
 import ctypes
 import hashlib
@@ -26,6 +29,7 @@ import torch
 
 import vpt_torch
 from vpt_torch.kernels import diff as df
+from vpt_torch.kernels import geom as gm
 from vpt_torch.kernels import wavefront as wf
 from vpt_torch.scene.io import scene_from_dict, scene_to_dict
 
@@ -40,7 +44,8 @@ def host_lib():
     if cxx is None:
         pytest.skip("g++ not found: the host build of csrc/path.cuh needs it")
     srcs = [os.path.join(CSRC, f)
-            for f in ("path_host.cpp", "path.cuh", "diff_path.cuh")]
+            for f in ("path_host.cpp", "path.cuh", "diff_path.cuh",
+                      "geom_path.cuh")]
     h = hashlib.sha256(" ".join(FLAGS).encode())
     for p in srcs:
         with open(p, "rb") as f:
@@ -69,6 +74,11 @@ def host_lib():
                                      ctypes.c_int, ctypes.c_void_p,
                                      ctypes.c_void_p]
     so.vpt_diff_bwd_host.restype = None
+    so.vpt_geom_params_words.argtypes = []
+    so.vpt_geom_params_words.restype = ctypes.c_int
+    so.vpt_geom_fwd_host.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.c_int, ctypes.c_void_p]
+    so.vpt_geom_fwd_host.restype = ctypes.c_int
     return so
 
 
@@ -142,3 +152,43 @@ def test_host_build_of_diff_pair_matches_plain(host_lib, case):
     rel = (np.abs(G - Gp) / np.maximum(1.0, np.abs(Gp).max(0))).max(1)
     assert np.quantile(rel, 0.99) < 1e-4, np.quantile(rel, 0.99)
     assert np.array_equal(G == 0.0, Gp == 0.0)
+
+
+# K4 at every tangent count the host build is tested for, both samplers:
+# (K, sphere, cam_grads, dir_grads, primal_only)
+GEOM_CASES = [(0, 8, False, False, True), (3, 8, False, False, False),
+              (4, None, True, False, False), (7, 8, True, False, False),
+              (10, 9, True, True, False)]
+
+
+@pytest.mark.parametrize("sampler", ["random", "ld"])
+@pytest.mark.parametrize("case", GEOM_CASES, ids=[f"K{c[0]}" for c in
+                                                  GEOM_CASES])
+def test_host_build_of_geom_matches_plain(host_lib, case, sampler):
+    K, sphere, cam, dirg, primal = case
+    gp = gm.pack_geom(vpt_torch.cornell_vpt(), vpt_torch.default_camera(),
+                      12, 8, 2, sphere=sphere, cam_grads=cam,
+                      dir_grads=dirg, primal_only=primal, max_bounces=5,
+                      sampler=sampler)
+    assert gp.K == K
+    words = np.ascontiguousarray(gp.words())
+    assert words.size == host_lib.vpt_geom_params_words()   # struct layout
+    theta = gm.flatten_theta(gm.pack_theta(
+        vpt_torch.cornell_vpt(), vpt_torch.default_camera(),
+        sphere)).contiguous()
+    out = np.full((gp.planes, gp.npix), np.nan, np.float32)
+    assert host_lib.vpt_geom_fwd_host(words.ctypes.data, theta.data_ptr(),
+                                      SEED, out.ctypes.data) == 0
+    ref = gm.geom_fwd_plain(gp, theta,
+                            torch.tensor([SEED], dtype=torch.int32)).numpy()
+    assert np.isfinite(out).all()
+    for j in range(gp.planes):
+        if j % (1 + K) == 0:        # an image plane
+            scale = max(1.0, float(np.abs(ref[j]).max()))
+        else:       # a tangent plane; some are exactly 0 (a red light)
+            scale = float(np.abs(ref[j]).max())
+            if scale == 0.0:
+                assert np.all(out[j] == 0.0), j
+                continue
+        q = float(np.quantile(np.abs(out[j] - ref[j]), 0.99)) / scale
+        assert q < 1e-4, (j, q)

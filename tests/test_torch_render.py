@@ -148,6 +148,7 @@ def test_unsupported_raises_not_implemented(case):
 def test_port_imports_no_jax():
     code = ("import sys, vpt_torch, vpt_torch.cli, vpt_torch.kernels._build, "
             "vpt_torch.kernels.wavefront, vpt_torch.kernels.diff, "
+            "vpt_torch.kernels.dual, vpt_torch.kernels.geom, "
             "vpt_torch.dist, vpt_torch.dist.train_fast, vpt_torch.io.ppm, "
             "vpt_torch.core.vecmath; "
             "assert 'jax' not in sys.modules, 'jax imported'; "

@@ -5,9 +5,11 @@ NVIDIA H100: the same module layout and public names, plain torch around
 hand-written CUDA kernels (csrc/). It imports no JAX.
 
 Ported so far: the forward render of the homogeneous free-flight NEE
-integrators through the render kernel (kernels/wavefront.py), and the
+integrators through the render kernel (kernels/wavefront.py), the
 differentiable render pair with its trainer (kernels/diff.py,
-vpt_torch.dist.fit_kernel); see ROADMAP.md for the queue.
+vpt_torch.dist.fit_kernel), and the geometric-gradient dual kernel with its
+trainers (kernels/geom.py, vpt_torch.dist.fit_geom and fit_geom_fd); see
+ROADMAP.md for the queue.
 """
 from .api.config import RenderConfig
 from .api.render import render

@@ -113,6 +113,12 @@ def load() -> ctypes.CDLL:
     lib.vpt_diff_params_words.restype = ctypes.c_int
     lib.vpt_diff_block_threads.argtypes = []
     lib.vpt_diff_block_threads.restype = ctypes.c_int
+    # the dual kernel (csrc/geom.cu)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.vpt_geom_fwd.argtypes = [vp, vp, vp, ci, ci, vp, vp]
+    lib.vpt_geom_fwd.restype = ctypes.c_int
+    lib.vpt_geom_params_words.argtypes = []
+    lib.vpt_geom_params_words.restype = ctypes.c_int
     lib.vpt_error_string.argtypes = [ctypes.c_int]
     lib.vpt_error_string.restype = ctypes.c_char_p
     return lib
