@@ -28,10 +28,26 @@ plain torch version on the card:
      full size; K = 0 timed beside K1;
  11. the geometric trainers: three fit_geom steps at 1024x1024, then
      examples/localize_light.py's chip configuration through fit_geom_fd
-     (an area light 8 units off in y, 80 CRN-FD steps at 64x48).
+     (an area light 8 units off in y, 80 CRN-FD steps at 64x48);
+ 12. K1's variants: every instantiation (free flight with and without NEE,
+     equi-angular with NEE, clamped equi-angular without) and launch mode
+     (physical, HG g, material-3 shells), under every integrator name of
+     vpt's PALLAS_INTEGRATORS: bit-equal to the plain version at 64x32x8
+     (both samplers, seeds 3 and 11); then each through vpt_torch.render at
+     1024x1024x64 "ld" (cornell_vpt, or medium_shell), bit-equal to the
+     plain version at that frame (whose counters give the work), timed,
+     with its operations bound; the card-side agreement of the free,
+     equi-angular and implicit estimators' means at 256x256x256;
+ 13. the scatter-tile mode (every instantiation: contiguous raw sums,
+     scatter forward and reversed, plain scatter, bit for bit at 128x64x4)
+     and the entry points on it: vpt_torch.render_adaptive at 1024x1024x64
+     (boost 3, frac 0.25), timed, with its first pass and its scatter
+     launch on the tiles it selected bit-equal to the plain version; and
+     vpt_torch.render_to_noise at 256x256 (batches of 16 spp, target
+     0.05), timed.
 
-Each main path (phases 4, 7, 8, 10 and 11) runs with every launch count
-set to 0 just before it and read just after. The line before the last is the
+Each main path (phases 4, 7, 8, 10, 11, 12 and 13) runs with every launch
+count set to 0 just before it and read just after. The line before the last is the
 per-kernel JSON record, the last line the device record. Any failed phase
 raises and the script exits non-zero; without a CUDA device it exits
 non-zero before printing any result.
@@ -53,6 +69,7 @@ from vpt_torch.kernels import _build
 from vpt_torch.kernels import diff as df
 from vpt_torch.kernels import geom as gm
 from vpt_torch.kernels import wavefront as wf
+from vpt_torch.scene.scene import SCENES
 
 # pixel-by-pixel agreement: the 99th percentile of |a-b| / max(1, |ref|max)
 # stays below 1e-4. The kernel and the plain version round the same f32
@@ -72,6 +89,19 @@ Q99_TOL = 1e-4
 GVEC_TOL = 1e-5
 
 MAIN_CFG = dict(width=1024, height=1024, spp=64, sampler="ld", max_bounces=32)
+# K1 (explicit_free) at MAIN_CFG when the kernel had only its free-flight NEE
+# body (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W): the variants must leave
+# it within 3 %
+K1_FREE_ONLY_MS = 82.132
+# phase 12: (label, integrator, scene, HG g): every name of vpt's
+# PALLAS_INTEGRATORS, then the launch-parameter modes
+VARIANTS = [(name, name, "cornell_vpt", 0.0)
+            for name in wf.KERNEL_INTEGRATORS] + [
+    ("explicit_equiangular g=0.5", "explicit_equiangular", "cornell_vpt", 0.5),
+    ("implicit_free g=-0.3", "implicit_free", "cornell_vpt", -0.3),
+    ("explicit_free medium_shell", "explicit_free", "medium_shell", 0.0),
+    ("explicit_free_physical medium_shell", "explicit_free_physical",
+     "medium_shell", 0.0)]
 CHECK_SPP = 4           # K3 against its plain version at the main frame
 GEOM_CHECK_SPP = 2      # K4 (K = 7) against its plain version at the main frame
 
@@ -79,6 +109,14 @@ GEOM_CHECK_SPP = 2      # K4 (K = 7) against its plain version at the main frame
 # outside the tensor cores and HBM3 bandwidth
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+
+
+def with_g(scene, g: float):
+    """The scene with its medium's HG anisotropy set to g."""
+    if g == 0.0:
+        return scene
+    return dataclasses.replace(scene, medium=dataclasses.replace(
+        scene.medium, g=torch.tensor(g)))
 
 
 def q99_rel(a: torch.Tensor, ref: torch.Tensor) -> float:
@@ -112,7 +150,7 @@ def median_ms(fn, n: int = 3) -> tuple[float, list]:
 
 
 def reset_counts() -> None:
-    wf.LAUNCHES = 0
+    wf.LAUNCHES_BY.clear()
     df.LAUNCHES_FWD = 0
     df.LAUNCHES_BWD = 0
     gm.LAUNCHES = 0
@@ -205,6 +243,37 @@ def geom_bound(stats: dict, gp: gm.GeomPacked) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+# K1's variants (csrc/path.cuh render_pixel<kNee, kDist>), counted the same
+# way from the code on top of the free-flight NEE counts above:
+#   per thread-iteration, the equi-angular families: +60 (transmittance,
+#     foot point and D, two atan2_posx of 15 each, tan as sin/cos, the
+#     sample point, its pdf and pSuccess, less the free-flight sample);
+#   per shading event without NEE: 72 (BSDF sampling and throughput only);
+#   per medium event: 14 for the phase sample and throughput, +88 + 23 S
+#     with NEE (the medium NEE trace), +8 for the equi-angular weight,
+#     +30 for the HG direction at g != 0 and +12 for the HG phase value
+#     with NEE; the material-3 cascade and the physical credit count 0.
+def variant_ops_lower_bound(stats: dict, pk: wf.Packed) -> float:
+    S, M = pk.S, len(pk.mis_lights)
+    ea = pk.distance != "free"
+    hg = pk.g != 0.0
+    it = 41 + 23 * S + (60 if ea else 0)
+    shade = 72 + ((136 + 109 * M + 23 * S * (2 + M)) if pk.nee else 0)
+    medium = (14 + ((88 + 23 * S) if pk.nee else 0) + (8 if ea else 0)
+              + (30 if hg else 0) + (12 if hg and pk.nee else 0))
+    return float(stats["thread_iters"] * it + pk.npix * pk.spp * 29
+                 + stats["shade"] * shade + stats["medium"] * medium)
+
+
+def variant_bound(stats: dict, pk: wf.Packed,
+                  n_lanes: int | None = None) -> tuple[float, str]:
+    t_ops = variant_ops_lower_bound(stats, pk) / PEAK_F32 * 1e3
+    # seed (and tile bases) in, 12 bytes of radiance out per lane
+    lanes = pk.npix if n_lanes is None else n_lanes
+    t_bytes = (4.0 + 12.0 * lanes) / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def bytes_moved(kernel: str, dp: df.DiffPacked) -> float:
     """Each input read once, each output written once."""
     npix, P = dp.npix, dp.P
@@ -224,6 +293,7 @@ def bound(kernel: str, stats: dict, dp: df.DiffPacked) -> tuple[float, str]:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     # ---- phase 1: the card
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; no result")
@@ -652,6 +722,224 @@ def main() -> int:
         raise AssertionError(f"fit_geom_fd: residual {resid} (limit 1.0), "
                              f"launches {launched_fd}")
 
+    # ---- phase 12: K1's variants
+    # registers, spill stores and stack of each K1 instantiation (kernel
+    # <nee, distance>)
+    k1_ptxas = {}
+    entry_fn = None
+    for ln in _build.build_log().splitlines():
+        if "Compiling entry" in ln or "Function properties" in ln:
+            # ptxas reports each function, out-of-line callees included
+            entry_fn = ln.split()[-1].strip("'") \
+                if "vpt_wavefront6kernel" in ln else None
+            if "Compiling entry" in ln and entry_fn:
+                entry_fn = ln.split("'")[1]
+        elif entry_fn and ("registers" in ln or "spill" in ln):
+            k1_ptxas.setdefault(entry_fn, []).append(" ".join(ln.split()))
+    for fn, lines in sorted(k1_ptxas.items()):
+        print(f"phase 12 ptxas {fn}: {' | '.join(lines)}", flush=True)
+    shell = SCENES["medium_shell"]()
+    scenes = {"cornell_vpt": scene, "medium_shell": shell}
+    checked = set()
+    for label, integrator, sname, g in VARIANTS:
+        nee, dist, phys = wf.KERNEL_INTEGRATORS[integrator]
+        if (nee, dist, phys, sname, g) in checked:
+            print(f"phase 12 check {label}: the launches of an integrator "
+                  f"checked above (same flags and scene)", flush=True)
+            continue
+        checked.add((nee, dist, phys, sname, g))
+        sc_v = with_g(scenes[sname], g)
+        for sampler in ("random", "ld"):
+            for seed in (3, 11):
+                pk = wf.pack_scene(sc_v, camera, 64, 32, 8, max_bounces=8,
+                                   sampler=sampler, nee=nee, distance=dist,
+                                   physical=phys)
+                s = torch.tensor([seed], dtype=torch.int32, device=dev)
+                k = wf.render_tile(pk, s)
+                p = wf.render_tile_plain(pk, s)
+                equal = bool(torch.equal(k, p))
+                print(f"phase 12 check {label} 64x32x8 {sampler} seed {seed}:"
+                      f" bit-equal {equal}, q99 rel {q99_rel(k, p):.3e}",
+                      flush=True)
+                if not (equal and bool(torch.isfinite(k).all())):
+                    raise AssertionError(f"K1 {label} disagrees with its "
+                                         f"plain version ({sampler}, seed "
+                                         f"{seed})")
+    # each variant through the public API at the main frame, held to its
+    # plain version there bit for bit (whose counters give the frame's work:
+    # phase 4's for explicit_free), then timed
+    main_key = (*wf.KERNEL_INTEGRATORS[cfg.integrator], "cornell_vpt", 0.0)
+    plains = {main_key: (plain, k1_stats, plain_ms)}
+    var_rows = []
+    for label, integrator, sname, g in VARIANTS:
+        nee, dist, phys = wf.KERNEL_INTEGRATORS[integrator]
+        sc_v = with_g(scenes[sname], g)
+        vcfg = dataclasses.replace(cfg, integrator=integrator)
+        reset_counts()
+        vimg = vpt_torch.render(sc_v, camera, vcfg, device="cuda")
+        torch.cuda.synchronize()
+        launched_v = dict(wf.LAUNCHES_BY)
+        entry = wf.KERNEL_ENTRIES[(nee, dist)]
+        if launched_v != {entry: 1}:
+            raise AssertionError(f"{label}: render launched {launched_v}")
+        pk = wf.pack_config(sc_v, camera, vcfg)
+        key = (nee, dist, phys, sname, g)
+        if key not in plains:
+            vstats = {}
+            vplain, vp_ms = cuda_ms(lambda: wf.render_tile_plain(pk, seed_t,
+                                                                 vstats))
+            plains[key] = (vplain, vstats, vp_ms)
+        vplain, vstats, vp_ms = plains[key]
+        vflat = vimg.reshape(-1, 3)
+        v_equal = bool(torch.equal(vflat, vplain))
+        v_err = float((vflat - vplain).abs().max())
+        if not (v_equal and bool(torch.isfinite(vimg).all())):
+            raise AssertionError(f"{label}: not bit-equal to its plain "
+                                 f"version at the main frame (max abs "
+                                 f"{v_err})")
+        v_ms, v_times = median_ms(lambda: wf.render_tile(pk, seed_t))
+        b_ms, b_by = variant_bound(vstats, pk)
+        row = {"variant": label, "integrator": integrator, "scene": sname,
+               "g": g, "entry": entry, "launches": launched_v[entry],
+               "ms": v_ms, "times": v_times,
+               "paths_per_sec": n_paths / (v_ms / 1e3), "plain_ms": vp_ms,
+               "max_abs_err": v_err, "bound_ms": b_ms, "bound_by": b_by,
+               "work": vstats,
+               "mean": [round(float(v), 6) for v in vimg.mean(dim=(0, 1))]}
+        var_rows.append(row)
+        print(f"phase 12 {label}: {cfg.width}x{cfg.height}x{cfg.spp} "
+              f"{cfg.sampler} via render, launches {launched_v}; bit-equal "
+              f"to plain ({vp_ms:.3f} ms); kernel {v_ms:.3f} ms (median of "
+              f"{v_times}), {row['paths_per_sec']:.6e} camera paths/s; bound "
+              f"{b_ms:.3f} ms ({b_by}); work {vstats}; channel means "
+              f"{row['mean']} on {card}", flush=True)
+    del plains, vplain
+    free_ms = var_rows[0]["ms"]
+    print(f"phase 12 explicit_free {free_ms:.3f} ms = "
+          f"{100.0 * (free_ms / K1_FREE_ONLY_MS - 1.0):+.2f} % on the "
+          f"{K1_FREE_ONLY_MS} ms of the free-flight-only kernel", flush=True)
+    # the estimators agree in expectation, by vpt's own comparisons: bit
+    # parity cannot see an estimator that is wrong in both versions.
+    # Equi-angular vs free flight on cornell_vpt by clipped means
+    # (tests/test_pallas.py:115-130, rtol 0.3); implicit vs explicit free
+    # flight in vpt's open scene, one area light in fog, by raw means
+    # (tests/test_integrators.py:39-60, rtol 0.2, 24 bounces): the implicit
+    # estimator never hits cornell_vpt's point light, so there it estimates
+    # another integral
+    ecfg = vpt_torch.RenderConfig(width=256, height=256, spp=256,
+                                  max_bounces=24)
+    open_scene = vpt_torch.make_scene(
+        [(30.0, (0.0, 11.0, 120.0), (0, 0, 0), (8, 7, 6), 0,
+          (0, 0, 0), (0, 0, 0), 0.0)], sigma_a=0.002, sigma_s=0.012)
+    emeans = {}
+    for sname, sc_e, integrator in (
+            ("cornell_vpt", scene, "explicit_free"),
+            ("cornell_vpt", scene, "explicit_equiangular"),
+            ("open", open_scene, "explicit_free"),
+            ("open", open_scene, "implicit_free")):
+        eimg = vpt_torch.render(sc_e, camera, dataclasses.replace(
+            ecfg, integrator=integrator), device="cuda")
+        emeans[f"{sname} {integrator}"] = (
+            float(eimg.clamp(0.0, 1.0).mean()), float(eimg.mean()))
+    r_ea = (emeans["cornell_vpt explicit_equiangular"][0]
+            / emeans["cornell_vpt explicit_free"][0] - 1.0)
+    r_imp = (emeans["open implicit_free"][1]
+             / emeans["open explicit_free"][1] - 1.0)
+    print(f"phase 12 estimators at 256x256x256 random, 24 bounces (clipped "
+          f"mean, raw mean): {emeans}; equi-angular {100 * r_ea:+.2f} % "
+          f"(clipped, limit 30 %), implicit {100 * r_imp:+.2f} % (raw, "
+          f"limit 20 %)", flush=True)
+    if not (abs(r_ea) < 0.30 and abs(r_imp) < 0.20):
+        raise AssertionError(f"estimator means disagree: {emeans}")
+
+    # ---- phase 13: scatter tiles, render_adaptive, render_to_noise
+    scat_check = {}
+    for (nee, dist), entry in wf.KERNEL_ENTRIES.items():
+        pk = wf.pack_scene(scene, camera, 128, 64, 4, max_bounces=8,
+                           nee=nee, distance=dist)
+        s = torch.tensor([11], dtype=torch.int32, device=dev)
+        n_t, lanes = pk.num_tiles, wf.LANES_PER_TILE
+        bases = torch.arange(n_t, dtype=torch.int32, device=dev) * lanes
+        full = wf.render_raw(pk, s)
+        scat = wf.render_raw(pk, s, bases)
+        rev = wf.render_raw(pk, s, bases.flip(0).contiguous())
+        pscat = wf.render_raw_plain(pk, s, bases)
+        ok = (bool(torch.equal(full, scat)) and bool(torch.equal(scat, pscat))
+              and bool(torch.equal(full, rev.reshape(n_t, lanes, 3).flip(0)
+                                   .reshape(-1, 3))))
+        scat_check[entry] = ok
+        print(f"phase 13 scatter {entry} 128x64x4 ({n_t} tiles): raw == "
+              f"scatter == reversed == plain scatter: {ok}", flush=True)
+        if not ok:
+            raise AssertionError(f"scatter mode of {entry} is not bit-equal")
+    acfg = vpt_torch.RenderConfig(**MAIN_CFG)
+    reset_counts()
+    aimg, a_first_ms = cuda_ms(lambda: vpt_torch.render_adaptive(
+        scene, camera, acfg, boost=3.0, frac=0.25, device="cuda"))
+    launched_a = dict(wf.LAUNCHES_BY)
+    if launched_a != {"vpt_wavefront_free_nee": 2,
+                      "vpt_wavefront_free_nee_scatter": 1}:
+        raise AssertionError(f"render_adaptive launched {launched_a}")
+    if not (bool(torch.isfinite(aimg).all()) and bool((aimg >= 0).all())
+            and tuple(aimg.shape) == (acfg.height, acfg.width, 3)):
+        raise AssertionError("adaptive image is not finite and >= 0")
+    go = vpt_torch.make_adaptive_renderer(scene, camera, acfg, boost=3.0,
+                                          frac=0.25, device="cuda")
+    a_ms, a_times = median_ms(lambda: go(acfg.seed))
+    pk1, pk2 = go.packed
+    # its launches against the plain version at their shapes: the first
+    # pass's A sums over the whole frame, and the scatter launch on the
+    # tiles that pass selected
+    a_sums, _, sel = go.first_pass(acfg.seed)
+    a_plain = wf.render_raw_plain(pk1, torch.tensor(
+        [2 * acfg.seed], dtype=torch.int32, device=dev))
+    bases2 = (sel * wf.LANES_PER_TILE).to(torch.int32)
+    seed2 = torch.tensor([2 * acfg.seed + 0x5E11], dtype=torch.int32,
+                         device=dev)
+    extra = wf.render_raw(pk2, seed2, bases2)
+    sc_stats = {}
+    extra_plain, sp_ms = cuda_ms(lambda: wf.render_raw_plain(
+        pk2, seed2, bases2, sc_stats))
+    a_equal = (bool(torch.equal(a_sums, a_plain))
+               and bool(torch.equal(extra, extra_plain)))
+    s_err = float((extra - extra_plain).abs().max())
+    del a_sums, a_plain, extra_plain
+    if not a_equal:
+        raise AssertionError("render_adaptive's launches are not bit-equal "
+                             "to the plain version")
+    sc_ms, sc_times = median_ms(lambda: wf.render_raw(pk2, seed2, bases2))
+    sc_bound, sc_by = variant_bound(sc_stats, pk2,
+                                    n_lanes=go.k * wf.LANES_PER_TILE)
+    a_mean = float(aimg.mean())
+    rel_mean = a_mean / float(img.mean()) - 1.0
+    print(f"phase 13 render_adaptive {acfg.width}x{acfg.height}x{acfg.spp} "
+          f"(boost 3, frac 0.25: {go.k} of {pk1.num_tiles} tiles get "
+          f"{pk2.spp} more spp): launches {launched_a}; {a_first_ms:.3f} ms "
+          f"first, {a_ms:.3f} ms (median of {a_times}); mean {a_mean:.6f} "
+          f"({100 * rel_mean:+.3f} % on the 64-spp render); first pass "
+          f"and scatter launch bit-equal to plain; the scatter launch "
+          f"{sc_ms:.3f} ms (median of {sc_times}), plain {sp_ms:.3f} ms, "
+          f"bound {sc_bound:.3f} ms ({sc_by}), work {sc_stats} on {card}",
+          flush=True)
+    if not abs(rel_mean) < 0.05:
+        raise AssertionError(f"adaptive mean {a_mean} is off the render's")
+    ncfg = vpt_torch.RenderConfig(width=256, height=256, spp=16,
+                                  max_bounces=cfg.max_bounces)
+    reset_counts()
+    t0 = time.perf_counter()
+    nimg, n_spp, n_se = vpt_torch.render_to_noise(
+        scene, camera, ncfg, target_rel_se=0.05, batch_spp=16,
+        device="cuda")
+    n_s = time.perf_counter() - t0
+    launched_n = dict(wf.LAUNCHES_BY)
+    print(f"phase 13 render_to_noise 256x256 (batches of 16 spp, target "
+          f"0.05): {n_spp} spp, median rel SE {n_se:.6f}, {n_s:.3f} s, "
+          f"launches {launched_n} on {card}", flush=True)
+    if launched_n != {"vpt_wavefront_free_nee": n_spp // 16} or \
+            not np.isfinite(n_se) or not bool(torch.isfinite(nimg).all()):
+        raise AssertionError(f"render_to_noise: launches {launched_n}, SE "
+                             f"{n_se}")
+
     common = {"route": "cuda", "library_ms": None, "card": card}
     records += [
         {"name": "diff_fwd", **common, "source": "vpt_torch/csrc/diff.cu",
@@ -680,10 +968,44 @@ def main() -> int:
          "checked_spp": GEOM_CHECK_SPP, "ms_at_checked_spp": k7_2_ms,
          "bound_ms": k4_bound, "bound_by": k4_by,
          "paths_per_sec": n_paths / (k4_ms / 1e3),
-         "k0_ms": k0_ms, "k0_plain_ms": k0_plain_ms, "k0_bound_ms": k0_bound,
+         "k0_ms": k0_ms, "k0_plain_ms": k0_plain_ms,
+         "k0_bound_ms": k0_bound,
          "k0_max_abs_err": err_k0, "k1_random_ms": k1r_ms,
          "fit_geom_fd_residual": resid},
     ]
+    # K1's instantiations: the first variant of each is its row's time
+    sources = {"vpt_wavefront_free_nee": ("wavefront.cu", ":464-493"),
+               "vpt_wavefront_free_implicit": ("wavefront_free_implicit.cu",
+                                               ":464-493, :654-665"),
+               "vpt_wavefront_ea_nee": ("wavefront_ea.cu", ":494-535"),
+               "vpt_wavefront_eac_implicit": ("wavefront_eac_implicit.cu",
+                                              ":536-574")}
+    for entry, (src, branch) in sources.items():
+        rows = [r for r in var_rows if r["entry"] == entry]
+        fields = {"instantiation": entry, "branch": branch, "variants": rows,
+                  "phase12_launches": sum(r["launches"] for r in rows)}
+        if entry == "vpt_wavefront_free_nee":
+            records[0].update(fields, estimator_means=emeans)
+            continue
+        records.append({
+            "name": entry[4:], **common,
+            "source": f"vpt_torch/csrc/{src}",
+            "replaces": "vpt/kernels/wavefront.py:230",
+            "launches": fields["phase12_launches"],
+            "max_abs_err": rows[0]["max_abs_err"], "ms": rows[0]["ms"],
+            "plain_ms": rows[0]["plain_ms"], "bound_ms": rows[0]["bound_ms"],
+            "bound_by": rows[0]["bound_by"], **fields})
+    records.append({
+        "name": "wavefront_free_nee_scatter", **common,
+        "source": "vpt_torch/csrc/wavefront.cu",
+        "replaces": "vpt/kernels/wavefront.py:799",
+        "launches": launched_a["vpt_wavefront_free_nee_scatter"],
+        "max_abs_err": s_err, "ms": sc_ms, "plain_ms": sp_ms,
+        "bound_ms": sc_bound, "bound_by": sc_by, "adaptive_ms": a_ms,
+        "adaptive_tiles": [go.k, pk1.num_tiles, pk2.spp],
+        "noise_spp": n_spp, "noise_rel_se": n_se, "noise_s": n_s,
+        "scatter_checks_128x64x4": scat_check})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,5 +1,7 @@
 """The CUDA kernels on the card (marked `cuda`; skipped without one): the
-render kernel K1, the differentiable pair K2/K3 and the dual kernel K4.
+render kernel K1 (every instantiation and its raw and scatter modes, with
+the adaptive and noise-target entry points), the differentiable pair K2/K3
+and the dual kernel K4.
 
 Run on a machine with an NVIDIA GPU (--noconftest: tests/conftest.py
 imports jax, which the port's machines need not have):
@@ -68,6 +70,86 @@ def test_render_on_card_goes_through_the_kernel(cuda):
     assert wf.LAUNCHES == before + 1
     assert img.shape == (32, 48, 3) and img.device.type == "cuda"
     assert torch.isfinite(img).all() and (img >= 0).all()
+
+
+# every instantiation of K1 and its launch-parameter modes: (integrator,
+# scene, g)
+VARIANTS = [("implicit_free", "cornell_vpt", 0.0),
+            ("explicit_equiangular", "cornell_vpt", 0.0),
+            ("implicit_equiangular", "cornell_vpt", 0.0),
+            ("explicit_free_physical", "medium_shell", 0.0),
+            ("implicit_free_physical", "cornell_vpt", 0.0),
+            ("explicit_equiangular", "cornell_vpt", 0.5),
+            ("implicit_free", "cornell_vpt", -0.3)]
+
+
+def _scene_g(name, g):
+    sc = vpt_torch.SCENES[name]()
+    if g == 0.0:
+        return sc
+    import dataclasses
+    return dataclasses.replace(sc, medium=dataclasses.replace(
+        sc.medium, g=torch.tensor(g)))
+
+
+@pytest.mark.parametrize("sampler", ["random", "ld"])
+@pytest.mark.parametrize("integrator,scene,g", VARIANTS,
+                         ids=[f"{v[0]}-{v[1]}-g{v[2]}" for v in VARIANTS])
+def test_kernel_variant_bit_equal_to_plain_on_card(cuda, integrator, scene, g,
+                                                   sampler):
+    """Each instantiation (and the physical, HG and shell modes) against
+    its plain version on the card: bit for bit (nvcc --fmad=false; the
+    same device math as torch's CUDA ops)."""
+    nee, dist, phys = wf.KERNEL_INTEGRATORS[integrator]
+    pk = wf.pack_scene(_scene_g(scene, g), vpt_torch.default_camera(),
+                       64, 32, 8, max_bounces=8, sampler=sampler, nee=nee,
+                       distance=dist, physical=phys)
+    seed = torch.tensor([3], dtype=torch.int32, device=cuda)
+    before = wf.LAUNCHES
+    k = wf.render_tile(pk, seed)
+    assert wf.LAUNCHES == before + 1
+    p = wf.render_tile_plain(pk, seed)
+    torch.cuda.synchronize()
+    assert torch.isfinite(k).all()
+    assert torch.equal(k, p)
+
+
+def test_scatter_kernel_bit_equal_on_card(cuda):
+    """The raw modes: contiguous tiles, scatter in forward and reversed
+    order, and the plain scatter, bit for bit."""
+    pk = wf.pack_scene(vpt_torch.cornell_vpt(), vpt_torch.default_camera(),
+                       128, 64, 4, max_bounces=6, distance="equiangular")
+    seed = torch.tensor([11], dtype=torch.int32, device=cuda)
+    n, lanes = pk.num_tiles, wf.LANES_PER_TILE
+    bases = torch.arange(n, dtype=torch.int32, device=cuda) * lanes
+    full = wf.render_raw(pk, seed)
+    scat = wf.render_raw(pk, seed, bases)
+    rev = wf.render_raw(pk, seed, bases.flip(0).contiguous())
+    plain = wf.render_raw_plain(pk, seed, bases)
+    torch.cuda.synchronize()
+    assert torch.equal(full, scat) and torch.equal(scat, plain)
+    assert torch.equal(full, rev.reshape(n, lanes, 3).flip(0).reshape(-1, 3))
+
+
+def test_adaptive_and_noise_go_through_the_kernel(cuda):
+    cam = vpt_torch.default_camera()
+    cfg = vpt_torch.RenderConfig(width=128, height=64, spp=4, max_bounces=6)
+    before = wf.LAUNCHES
+    img = vpt_torch.render_adaptive(vpt_torch.cornell_vpt(), cam, cfg,
+                                    boost=2.0, frac=0.5, device="cuda")
+    torch.cuda.synchronize()
+    assert wf.LAUNCHES == before + 3
+    assert img.shape == (64, 128, 3) and torch.isfinite(img).all()
+    ref = vpt_torch.render_adaptive(vpt_torch.cornell_vpt(), cam, cfg,
+                                    boost=2.0, frac=0.5, device="cpu")
+    assert _q99(img.cpu(), ref) < 1e-4
+    before = wf.LAUNCHES
+    cfg = vpt_torch.RenderConfig(width=32, height=16, spp=8, max_bounces=6)
+    img, spp, _ = vpt_torch.render_to_noise(
+        vpt_torch.cornell_vpt(), cam, cfg, target_rel_se=1e-9, max_spp=32,
+        device="cuda")
+    assert spp == 32 and wf.LAUNCHES == before + 4
+    assert torch.isfinite(img).all() and img.shape == (16, 32, 3)
 
 
 def _q99(a, ref):

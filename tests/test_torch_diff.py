@@ -37,6 +37,8 @@ import torch
 import vpt_torch
 from vpt_torch.kernels import diff as df
 
+torch.set_num_threads(1)  # one intra-op thread: see test_torch_wavefront.py
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W, H, SPP, MB, SEED = 32, 16, 4, 8, 3
 LR = 1.5e-3

@@ -26,6 +26,8 @@ from vpt_torch.dist.train import project_params
 from vpt_torch.kernels import diff as df
 from vpt_torch.kernels import wavefront as wf
 
+torch.set_num_threads(1)  # one intra-op thread: see test_torch_wavefront.py
+
 SCENE = vpt_torch.cornell_vpt()
 CAM = vpt_torch.default_camera()
 W, H, SPP, MB, SEED = 16, 12, 4, 8, 3

@@ -41,6 +41,8 @@ import vpt_torch
 from vpt_torch.kernels import geom as gm
 from vpt_torch.scene.scene import CORNELL_VPT_SPHERES
 
+torch.set_num_threads(1)  # one intra-op thread: see test_torch_wavefront.py
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 Q99_TOL = 1e-4
 FLIP_TOL = 1e-4         # a lane above this image error took another branch

@@ -33,6 +33,8 @@ from vpt_torch.kernels import geom as gm
 from vpt_torch.kernels import wavefront as wf
 from vpt_torch.scene.io import scene_from_dict, scene_to_dict
 
+torch.set_num_threads(1)  # one intra-op thread: see test_torch_wavefront.py
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "vpt_torch", "csrc")
 FLAGS = ["-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC"]
@@ -63,8 +65,10 @@ def host_lib():
     so.vpt_params_words.argtypes = []
     so.vpt_params_words.restype = ctypes.c_int
     so.vpt_render_host.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_void_p,
+                                   ctypes.c_int, ctypes.c_int,
                                    ctypes.c_void_p]
-    so.vpt_render_host.restype = None
+    so.vpt_render_host.restype = ctypes.c_int
     so.vpt_diff_params_words.argtypes = []
     so.vpt_diff_params_words.restype = ctypes.c_int
     so.vpt_diff_fwd_host.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
@@ -89,12 +93,41 @@ CASES = [("cornell_vpt", "random", True), ("cornell_vpt", "random", False),
          ("simple_cornell", "ld", True), ("cornell_glass", "random", True)]
 
 
-def _scene(name):
+def _scene(name, g=0.0):
     if name == "cornell_glass":     # no built-in scene has a dielectric
         d = scene_to_dict(vpt_torch.cornell_vpt())
         d["spheres"][6]["material"] = 2
         return scene_from_dict(d)[0]
+    if g != 0.0:
+        return vpt_torch.make_scene(
+            list(vpt_torch.scene.scene.CORNELL_VPT_SPHERES), g=g)
     return vpt_torch.SCENES[name]()
+
+
+# K1's instantiations in the host build (csrc/path_host.cpp)
+HOST_VARIANT = {(True, "free"): 0, (False, "free"): 1,
+                (True, "equiangular"): 2, (False, "ea_clamped"): 3}
+
+
+def _host_render(host_lib, pk, bases=None, n_lanes=None, sums=0):
+    words = np.ascontiguousarray(pk.words())
+    assert words.size == host_lib.vpt_params_words()   # struct layout
+    n_lanes = pk.npix if n_lanes is None else n_lanes
+    out = np.full((n_lanes, 3), np.nan, np.float32)
+    b = None if bases is None else np.ascontiguousarray(bases, np.int32)
+    assert host_lib.vpt_render_host(
+        words.ctypes.data, HOST_VARIANT[(pk.nee, pk.distance)], SEED,
+        None if b is None else b.ctypes.data, n_lanes, sums,
+        out.ctypes.data) == 0
+    return out
+
+
+def _assert_q99(out, ref, nonneg=True):
+    # medium_shell's shell is shaded from inside, where pLight's unclamped
+    # cosine is negative: vpt's image has negative pixels there too
+    assert np.isfinite(out).all() and (not nonneg or (out >= 0).all())
+    rel = np.abs(out - ref) / max(1.0, float(np.abs(ref).max()))
+    assert np.quantile(rel, 0.99) < 1e-4, np.quantile(rel, 0.99)
 
 
 @pytest.mark.parametrize("case", CASES, ids=["-".join(map(str, c))
@@ -104,15 +137,46 @@ def test_host_build_matches_plain(host_lib, case):
     pk = wf.pack_scene(_scene(name), vpt_torch.default_camera(),
                        W, H, SPP, max_bounces=MB, sampler=sampler,
                        jitter=jitter)
-    words = np.ascontiguousarray(pk.words())
-    assert words.size == host_lib.vpt_params_words()   # struct layout
-    out = np.full((W * H, 3), np.nan, np.float32)
-    host_lib.vpt_render_host(words.ctypes.data, SEED, out.ctypes.data)
+    out = _host_render(host_lib, pk)
     ref = wf.render_tile_plain(pk, torch.tensor([SEED], dtype=torch.int32))
-    ref = ref.numpy()
-    assert np.isfinite(out).all() and (out >= 0).all()
-    rel = np.abs(out - ref) / max(1.0, float(np.abs(ref).max()))
-    assert np.quantile(rel, 0.99) < 1e-4, np.quantile(rel, 0.99)
+    _assert_q99(out, ref.numpy())
+
+
+# the other instantiations and launch-parameter modes: (integrator, scene,
+# g, sampler)
+VARIANT_CASES = [("implicit_free", "cornell_vpt", 0.0, "random"),
+                 ("explicit_equiangular", "cornell_vpt", 0.0, "random"),
+                 ("explicit_equiangular", "cornell_vpt", 0.5, "ld"),
+                 ("implicit_equiangular", "cornell_vpt", 0.0, "ld"),
+                 ("implicit_free_physical", "cornell_vpt", -0.3, "random"),
+                 ("explicit_free", "medium_shell", 0.0, "ld"),
+                 ("explicit_free_physical", "medium_shell", 0.0, "random")]
+
+
+@pytest.mark.parametrize("case", VARIANT_CASES,
+                         ids=["-".join(map(str, c)) for c in VARIANT_CASES])
+def test_host_build_of_variant_matches_plain(host_lib, case):
+    integrator, name, g, sampler = case
+    nee, distance, physical = wf.KERNEL_INTEGRATORS[integrator]
+    pk = wf.pack_scene(_scene(name, g), vpt_torch.default_camera(),
+                       W, H, SPP, max_bounces=MB, sampler=sampler, nee=nee,
+                       distance=distance, physical=physical)
+    out = _host_render(host_lib, pk)
+    ref = wf.render_tile_plain(pk, torch.tensor([SEED], dtype=torch.int32))
+    _assert_q99(out, ref.numpy(), nonneg=name != "medium_shell")
+
+
+def test_host_build_of_scatter_matches_plain(host_lib):
+    """The kernel's lane mapping: tiles from a list of bases (reversed
+    here), per-lane sums, padding lanes of the partial last tile."""
+    pk = wf.pack_scene(vpt_torch.cornell_vpt(), vpt_torch.default_camera(),
+                       96, 48, 1, max_bounces=4, sampler="ld")
+    lanes = wf.LANES_PER_TILE
+    bases = np.arange(pk.num_tiles, dtype=np.int32)[::-1] * lanes
+    out = _host_render(host_lib, pk, bases, pk.num_tiles * lanes, sums=1)
+    ref = wf.render_raw_plain(pk, torch.tensor([SEED], dtype=torch.int32),
+                              torch.from_numpy(bases.copy()))
+    _assert_q99(out, ref.numpy())
 
 
 # the pair on the main-path scene (both samplers, jitter on and off), the

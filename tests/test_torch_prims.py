@@ -34,6 +34,8 @@ from vpt_torch.kernels import prims as tp
 from vpt_torch.kernels.wavefront import pack_scene
 from vpt_torch.scene.io import scene_from_dict
 
+torch.set_num_threads(1)  # one intra-op thread: see test_torch_wavefront.py
+
 N = 4096
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -232,3 +234,88 @@ def test_plight_le_scale():
     for x, y in zip(vj, vt):
         np.testing.assert_allclose(y.numpy(), np.asarray(x), rtol=RTOL,
                                    atol=ATOL)
+
+
+# ---- the equi-angular trig, Henyey-Greenstein and the material-3 cascade
+# (the variants of the render kernel)
+
+def _ea_hg(mod, name, ps, z, n, u):
+    if name == "atan_poly":
+        return [mod.atan_poly(2.0 * z - 1.0)]
+    if name == "atan2_posx":
+        return [mod.atan2_posx(40.0 * z - 20.0, u[0] * 10.0 + 1e-3)]
+    if name == "tan_sc":
+        return [mod.tan_sc(2.8 * z - 1.4)]
+    g = 0.5 if ps is None else ps.g
+    if name == "hg_phase_const":
+        cos_t = 2.0 * z - 1.0
+        return [mod.hg_phase_const(cos_t, g) if ps is None
+                else mod.hg_phase_const(ps, cos_t)]
+    if name == "hg_dir":
+        if ps is None:
+            return mod.hg_dir(n, g, u[0], u[1])[0]
+        return mod.hg_dir(ps, n, u[0], u[1])
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["atan_poly", "atan2_posx", "tan_sc",
+                                  "hg_phase_const", "hg_dir"])
+def test_equiangular_and_hg_primitive(name):
+    """atan_poly and atan2_posx are plain f32 arithmetic (bit-equal); tan_sc
+    and the HG forms go through sin, cos and rsqrt (rtol 1e-5). The HG
+    constants are the ones pack_scene folds in float64 for g = 0.5."""
+    rs = np.random.RandomState(4)
+    z = rs.uniform(0, 1, N).astype(np.float32)
+    n, _, _, u, _ = _inputs(6)
+    g_scene = scene_to_dict(SCENE, vpt.default_camera())
+    g_scene["g"] = 0.5
+    ps = pack_scene(*scene_from_dict(g_scene), 8, 4, 1)
+    a = _ea_hg(jp, name, None, _j(z), _both(n)[0], _both(u)[0])
+    b = _ea_hg(tp, name, ps, _t(z), _both(n)[1], _both(u)[1])
+    for x, y in zip(a, b):
+        x, y = _np(x), _np(y)
+        assert y.dtype == np.float32 and np.isfinite(y).all()
+        if name in ("atan_poly", "atan2_posx"):
+            assert np.array_equal(x, y)
+        else:
+            np.testing.assert_allclose(y, x, rtol=RTOL, atol=ATOL)
+
+
+def test_shell_cascade_primitives():
+    """medium_shell's material-3 shell: both roots of every sphere, the
+    scan that skips the shell, and pLight's cascade through it."""
+    shell = vpt.SCENES["medium_shell"]()
+    sc = _scene_consts(shell)
+    ps = pack_scene(*scene_from_dict(scene_to_dict(shell,
+                                                   vpt.default_camera())),
+                    8, 4, 1)
+    assert ps.vol == sc["vol"] != ()
+    o, d = _rays(13)
+    (oj, ot), (dj, dt) = _both(o), _both(d)
+    for s in range(ps.S):
+        t1j, t2j = jp.sphere_both_roots(sc, oj, dj, s)
+        t1t, t2t = tp.sphere_both_roots(ps, ot, dt, s)
+        for x, y in ((t1j, t1t), (t2j, t2t)):
+            np.testing.assert_allclose(y.numpy(), np.asarray(x), rtol=1e-5,
+                                       atol=1e-3)
+    hj, tj, sj = jp.nearest_id_t(sc, oj, dj, skip=sc["vol"])
+    ht, tt, st = tp.nearest_id_t(ps, ot, dt, skip=ps.vol)
+    same = np.asarray(sj) == st.numpy()
+    assert same.mean() >= 0.999 and not np.isin(st.numpy(), ps.vol).any()
+    np.testing.assert_allclose(tt.numpy()[same], np.asarray(tj)[same],
+                               rtol=1e-5)
+    rs = np.random.RandomState(8)
+    xs = np.stack([rs.uniform(-48, 48, N), rs.uniform(-40, 40, N),
+                   rs.uniform(-80, 200, N)]).astype(np.float32)
+    e = np.asarray(shell.emitter_idx)[rs.randint(0, len(shell.emitter_idx),
+                                                 N)]
+    lc = np.asarray(shell.center, np.float32)[e].T.copy()
+    (xj, xt), (lj, lt) = _both(xs), _both(lc)
+    scale_j = np.asarray(jp.plight_le_scale(sc, lj, xj)[0])
+    scale_t = tp.plight_le_scale(ps, lt, xt)[0].numpy()
+    # lanes attenuated by the shell, fully visible and dark all occur
+    full = 1.0 / np.sum((xs - lc) ** 2, axis=0)
+    assert ((scale_j > 0) & (scale_j < 0.99 * full)).mean() > 0.01
+    m = (scale_j > 0) == (scale_t > 0)
+    assert m.mean() >= 0.999
+    np.testing.assert_allclose(scale_t[m], scale_j[m], rtol=RTOL, atol=ATOL)

@@ -17,6 +17,7 @@ import torch
 
 import vpt
 import vpt.io.ppm as vpt_ppm
+import vpt.kernels.wavefront as vpt_wf
 from vpt.core.vecmath import to_display_value as vpt_to_display_value
 from vpt.scene.io import scene_from_dict as vpt_scene_from_dict
 from vpt.scene.io import scene_to_dict as vpt_scene_to_dict
@@ -25,6 +26,7 @@ import vpt_torch
 import vpt_torch.io.ppm as torch_ppm
 from vpt_torch import cli
 from vpt_torch.core.vecmath import to_display_value
+from vpt_torch.kernels import wavefront as wf
 from vpt_torch.scene import scene as tscene
 from vpt_torch.scene.io import scene_from_dict, scene_to_dict
 
@@ -75,6 +77,22 @@ def test_cli_writes_the_ppm_vpt_writes(tmp_path):
     assert out2.read_bytes() == out.read_bytes()
 
 
+def test_cli_equiangular_hg_writes_the_ppm_vpt_writes(tmp_path):
+    args = ["--width", "16", "--height", "8", "--spp", "2", "--max-bounces",
+            "4", "--seed", "5", "--integrator", "explicit_equiangular",
+            "--hg-g", "0.5", "--device", "cpu"]
+    out = tmp_path / "ea.ppm"
+    assert cli.main(args + ["-o", str(out)]) == 0
+    scene = vpt_torch.make_scene(list(tscene.CORNELL_VPT_SPHERES), g=0.5)
+    cfg = vpt_torch.RenderConfig(width=16, height=8, spp=2, max_bounces=4,
+                                 seed=5, integrator="explicit_equiangular")
+    img = vpt_torch.render(scene, vpt_torch.default_camera(), cfg,
+                           device="cpu").numpy()
+    ref = tmp_path / "vpt.ppm"
+    vpt_ppm.write_ppm(str(ref), img)
+    assert out.read_bytes() == ref.read_bytes()
+
+
 @pytest.mark.parametrize("name", HOMOGENEOUS)
 def test_scene_dict_round_trip(name):
     """vpt's scene_to_dict -> the port's scene_from_dict rebuilds the same
@@ -123,20 +141,44 @@ def _render(scene=None, **cfg):
 
 
 UNSUPPORTED = {
-    "implicit_free": lambda: _render(integrator="implicit_free"),
-    "explicit_equiangular": lambda: _render(integrator="explicit_equiangular"),
     "engine_integrator": lambda: _render(integrator="vpt3"),
+    "engine_equiangular_physical": lambda: _render(
+        integrator="implicit_equiangular_physical"),
+    "adaptive_engine_integrator": lambda: vpt_torch.render_adaptive(
+        vpt_torch.cornell_vpt(), vpt_torch.default_camera(),
+        vpt_torch.RenderConfig(width=8, height=4, spp=2,
+                               integrator="surface_pt"), device="cpu"),
+    "noise_engine_integrator": lambda: vpt_torch.render_to_noise(
+        vpt_torch.cornell_vpt(), vpt_torch.default_camera(),
+        vpt_torch.RenderConfig(width=8, height=4, spp=2,
+                               integrator="vpt3"), device="cpu"),
+    "cli_sharded": lambda: cli.main(["--sharded", "--device", "cpu"]),
+    "cli_checkpoint": lambda: cli.main(["--checkpoint", "ck.npz",
+                                        "--device", "cpu"]),
     "float64": lambda: _render(dtype="float64"),
     "renderer_persistent": lambda: vpt_torch.RenderConfig(renderer="persistent"),
     "renderer_scan": lambda: vpt_torch.RenderConfig(renderer="scan"),
-    "medium_shell": lambda: _render(tscene.medium_shell()),
-    "hg_g": lambda: _render(vpt_torch.make_scene(
-        list(tscene.CORNELL_VPT_SPHERES), g=0.3)),
     "foggy_cornell": tscene.foggy_cornell,
     "blob_cloud": tscene.blob_cloud,
     "density_file": lambda: scene_from_dict(vpt_scene_to_dict(
         vpt.SCENES["foggy_cornell"]())),
 }
+
+
+@pytest.mark.parametrize("integrator", sorted(wf.KERNEL_INTEGRATORS))
+def test_render_dispatches_every_kernel_integrator(integrator):
+    """render(device="cpu") is the plain kernel with vpt's
+    PALLAS_INTEGRATORS flags for the name; the names are vpt's."""
+    assert wf.KERNEL_INTEGRATORS == vpt_wf.PALLAS_INTEGRATORS
+    nee, distance, physical = wf.KERNEL_INTEGRATORS[integrator]
+    scene = vpt_torch.make_scene(list(tscene.CORNELL_VPT_SPHERES), g=0.4)
+    img = _render(scene, integrator=integrator, max_bounces=5, seed=2,
+                  sampler="ld")
+    pk = wf.pack_scene(scene, vpt_torch.default_camera(), 8, 4, 1,
+                       max_bounces=5, sampler="ld", nee=nee,
+                       distance=distance, physical=physical)
+    want = wf.render_tile_plain(pk, torch.tensor([2], dtype=torch.int32))
+    assert torch.equal(img, want.reshape(4, 8, 3))
 
 
 @pytest.mark.parametrize("case", sorted(UNSUPPORTED))
@@ -147,6 +189,7 @@ def test_unsupported_raises_not_implemented(case):
 
 def test_port_imports_no_jax():
     code = ("import sys, vpt_torch, vpt_torch.cli, vpt_torch.kernels._build, "
+            "vpt_torch.api.adaptive, vpt_torch.api.noise, "
             "vpt_torch.kernels.wavefront, vpt_torch.kernels.diff, "
             "vpt_torch.kernels.dual, vpt_torch.kernels.geom, "
             "vpt_torch.dist, vpt_torch.dist.train_fast, vpt_torch.io.ppm, "

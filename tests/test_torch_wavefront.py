@@ -40,6 +40,14 @@ from vpt_torch.scene.io import scene_from_dict
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 Q99_TOL = 1e-4
 
+# The plain versions run thousands of small torch ops per iteration. Beside
+# other pytest-xdist workers, torch's intra-op thread pool oversubscribes
+# the CPU and its threads spin: on an 8-core host one plain scatter render
+# took 11 s with 8 threads alone, 294 s with six such processes at once,
+# and 2.9 s with one thread either way. The port's test modules run torch
+# on one thread.
+torch.set_num_threads(1)
+
 # renders vpt's kernel for a list of jobs (JSON) into an .npz
 _JAX_REF = r"""
 import json, sys
@@ -54,8 +62,19 @@ with open(sys.argv[1]) as f:
     jobs = json.load(f)
 out = {}
 for i, job in enumerate(jobs):
+    kind = job.pop("kind", None)
     scene, cam = scene_from_dict(job.pop("scene"))
-    if "cfg" in job:
+    if kind == "adaptive":
+        from vpt.api.adaptive import render_adaptive
+        img = render_adaptive(scene, cam, RenderConfig(**job.pop("cfg")),
+                              interpret=True, **job)
+    elif kind == "noise":
+        from vpt.api.noise import render_to_noise
+        img, spp, se = render_to_noise(scene, cam,
+                                       RenderConfig(**job.pop("cfg")),
+                                       interpret=True, **job)
+        out[f"{i}_meta"] = np.asarray([spp, se], np.float64)
+    elif "cfg" in job:
         img = render_pallas(scene, cam, RenderConfig(**job["cfg"]),
                             interpret=True)
     else:
@@ -67,9 +86,10 @@ np.savez(sys.argv[2], **out)
 """
 
 
-def jax_reference(jobs):
+def jax_reference(jobs, full=False):
     """Run vpt's render kernel (interpret mode, XLA:CPU without FMA) for
-    each job in a subprocess; returns the list of numpy outputs."""
+    each job in a subprocess; returns the list of numpy outputs (full: the
+    dict of every array, with the noise jobs' "<i>_meta" [spp, SE])."""
     with tempfile.TemporaryDirectory() as tmp:
         spec, out = os.path.join(tmp, "jobs.json"), os.path.join(tmp, "o.npz")
         with open(spec, "w") as f:
@@ -82,6 +102,8 @@ def jax_reference(jobs):
                              text=True, timeout=600)
         assert res.returncode == 0, res.stderr[-4000:]
         with np.load(out) as z:
+            if full:
+                return {k: z[k] for k in z.files}
             return [z[str(i)] for i in range(len(jobs))]
 
 
@@ -148,7 +170,8 @@ def test_pack_scene_matches_scene_consts(name):
     assert pk.mat == sc["mat"]
     assert pk.emitters == sc["emitters"]
     assert pk.mis_lights == sc["mis_lights"]
-    assert sc["vol"] == () and sc["field"] is None and sc["g"] == 0.0
+    assert sc["vol"] == pk.vol == () and sc["field"] is None
+    assert sc["g"] == pk.g == 0.0
     assert (pk.sigma_a, pk.sigma_s) == (float(f32(sc["sigma_a"])),
                                         float(f32(sc["sigma_s"])))
     r = np.asarray(sc["r"], np.float64)
@@ -157,21 +180,43 @@ def test_pack_scene_matches_scene_consts(name):
     sigma_t = sc["sigma_a"] + sc["sigma_s"]
     assert pk.inv_sigma_t == float(f32(1.0 / sigma_t))
     words = pk.words()
-    assert words.dtype == np.int32 and words.size == 385
+    assert words.dtype == np.int32 and words.size == 411
     assert list(words[:5]) == [8, 4, 2, 32, 2 * 32 + 64]
 
 
 def test_pack_scene_refuses_what_the_kernel_lacks():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        wf.pack_scene(vpt_torch.scene.scene.medium_shell(),
-                      vpt_torch.default_camera(), 8, 4, 2)
-    g_scene = vpt_torch.make_scene(
-        list(vpt_torch.scene.scene.CORNELL_VPT_SPHERES), g=0.5)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        wf.pack_scene(g_scene, vpt_torch.default_camera(), 8, 4, 2)
+    """What pack_scene refuses now that the kernel renders material-3
+    shells and HG g (both pack, as vpt bakes them: the shell list, g
+    snapped to 0 at |g| <= 1e-3 and the HG constants folded in float64)."""
     with pytest.raises(ValueError, match="sampler"):
         wf.pack_scene(vpt_torch.cornell_vpt(), vpt_torch.default_camera(),
                       8, 4, 2, sampler="sobol")
+    with pytest.raises(ValueError, match="distance"):
+        wf.pack_scene(vpt_torch.cornell_vpt(), vpt_torch.default_camera(),
+                      8, 4, 2, distance="delta")
+    many = vpt_torch.make_scene(
+        list(vpt_torch.scene.scene.CORNELL_VPT_SPHERES) * 2)
+    with pytest.raises(ValueError, match="at most"):
+        wf.pack_scene(many, vpt_torch.default_camera(), 8, 4, 2)
+    shell = wf.pack_scene(vpt_torch.scene.scene.medium_shell(),
+                          vpt_torch.default_camera(), 8, 4, 2)
+    assert shell.vol == _scene_consts(vpt.SCENES["medium_shell"]())["vol"]
+    assert shell.vol and shell.words().size == 411
+    for g in (0.5, -0.3, 5e-4):
+        d = _scene_dict("cornell_vpt")
+        d["g"] = g
+        pk = wf.pack_scene(*scene_from_dict(d), 8, 4, 2)
+        g_vpt = _scene_consts(vpt.scene.io.scene_from_dict(d)[0])["g"]
+        assert pk.g == float(np.float32(g_vpt))
+        if g_vpt == 0.0:
+            assert pk.hg_2g == pk.hg_inv2g == 0.0
+            continue
+        want = (1.0 + g_vpt * g_vpt, 2.0 * g_vpt,
+                (1.0 / (4.0 * np.pi)) * (1.0 - g_vpt * g_vpt),
+                1.0 - g_vpt * g_vpt, 1.0 - g_vpt, 1.0 / (2.0 * g_vpt))
+        got = (pk.hg_1pg2, pk.hg_2g, pk.hg_phase, pk.hg_1mg2, pk.hg_1mg,
+               pk.hg_inv2g)
+        assert got == tuple(float(np.float32(w)) for w in want)
 
 
 def test_plain_deterministic_and_seed_sensitive():

@@ -1,9 +1,11 @@
 """Top-level rendering API (counterpart of ``vpt/api/render.py``).
 
 vpt picks between its XLA engine renderers and the fused kernel; this
-package has the kernel only so far. `device` decides which version of it
-runs: "cuda" launches the hand-written CUDA kernel or raises, "cpu" runs its
-plain torch version. There is no automatic choice and no fallback.
+package has the kernel only so far, for every integrator of vpt's kernel
+(wavefront.KERNEL_INTEGRATORS); vpt's engine integrators raise (ROADMAP
+Queue 1 item 9). `device` decides which version of the kernel runs: "cuda"
+launches the hand-written CUDA kernel or raises, "cpu" runs its plain torch
+version. There is no automatic choice and no fallback.
 """
 from __future__ import annotations
 

@@ -14,12 +14,28 @@ extern "C" int vpt_params_words(void) { return (int)(sizeof(VptParams) / 4); }
 
 extern "C" int vpt_diff_params_words(void) { return (int)(sizeof(DiffParams) / 4); }
 
-// params: a VptParams; out: float32[npix * 3]
-extern "C" void vpt_render_host(const void* params, int seed, float* out) {
+template <bool kNee, int kDist>
+static void render_host(const VptParams& P, int seed, const int* bases, int n_lanes,
+                        int sums, float* out) {
+  for (int i = 0; i < n_lanes; ++i) vpt::render_lane<kNee, kDist>(P, seed, bases, i, sums, out);
+}
+
+// K1's path code, the lanes of one launch of csrc/wavefront_kernel.cuh.
+// params: a VptParams; variant: 0 free + NEE, 1 free, 2 equi-angular + NEE,
+// 3 clamped equi-angular (the kernel's instantiations); bases: int32 tile
+// bases or NULL; out: float32[n_lanes * 3]. Returns -1 for another variant.
+extern "C" int vpt_render_host(const void* params, int variant, int seed, const int* bases,
+                               int n_lanes, int sums, float* out) {
   VptParams P;
   memcpy(&P, params, sizeof P);
-  const int npix = P.width * P.height;
-  for (int p = 0; p < npix; ++p) vpt::render_pixel(P, p, seed, out + 3 * p);
+  switch (variant) {
+    case 0: render_host<true, vpt::kFree>(P, seed, bases, n_lanes, sums, out); break;
+    case 1: render_host<false, vpt::kFree>(P, seed, bases, n_lanes, sums, out); break;
+    case 2: render_host<true, vpt::kEquiangular>(P, seed, bases, n_lanes, sums, out); break;
+    case 3: render_host<false, vpt::kEaClamped>(P, seed, bases, n_lanes, sums, out); break;
+    default: return -1;
+  }
+  return 0;
 }
 
 // K2's path code. params: a DiffParams; pvec: float32[P];

@@ -100,8 +100,13 @@ def build_log() -> str:
 def load() -> ctypes.CDLL:
     """Build if needed, load, and declare the C interface."""
     lib = ctypes.CDLL(str(build()))
-    lib.vpt_wavefront_fwd.argtypes = [ctypes.c_void_p] * 4
-    lib.vpt_wavefront_fwd.restype = ctypes.c_int
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    # K1, one entry per instantiation (csrc/wavefront*.cu)
+    for entry in ("vpt_wavefront_free_nee", "vpt_wavefront_free_implicit",
+                  "vpt_wavefront_ea_nee", "vpt_wavefront_eac_implicit"):
+        fn = getattr(lib, entry)
+        fn.argtypes = [vp, vp, vp, ci, ci, vp, vp]
+        fn.restype = ci
     lib.vpt_params_words.argtypes = []
     lib.vpt_params_words.restype = ctypes.c_int
     # the differentiable pair (csrc/diff.cu)
@@ -114,7 +119,6 @@ def load() -> ctypes.CDLL:
     lib.vpt_diff_block_threads.argtypes = []
     lib.vpt_diff_block_threads.restype = ctypes.c_int
     # the dual kernel (csrc/geom.cu)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.vpt_geom_fwd.argtypes = [vp, vp, vp, ci, ci, vp, vp]
     lib.vpt_geom_fwd.restype = ctypes.c_int
     lib.vpt_geom_params_words.argtypes = []

@@ -141,6 +141,8 @@ def pack_diff(scene: Scene, camera: Camera, width: int, height: int,
     pk = pack_scene(scene, camera, width, height, spp,
                     continue_prob=continue_prob, max_bounces=max_bounces,
                     sampler=sampler, jitter=jitter)
+    if pk.vol:
+        raise _todo("material-3 volumetric shells", "4")
     is_em = [any(v > 0 for v in pk.rad[s]) for s in range(pk.S)]
     # vpt: the albedo gradient lives on non-microfacet non-emitters (pLight's
     # lambert fr also covers glass); the deferred lambert terms on lamberts

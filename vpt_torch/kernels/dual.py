@@ -25,8 +25,9 @@ per-sphere epsilon folded in float64, as vpt folds them) and `ctr_tab`, the
 per-sphere centres: python floats for baked spheres, 0-dim tensors or D
 for the sphere whose centre comes from theta.
 
-Not here yet (ROADMAP Queue 1 items 3 and 6): hg_phase / hg_dir, the
-equi-angular trig (atan_poly, atan2_posx, tan_sc) and the field_* forms.
+Not here yet (ROADMAP Queue 1 items 5 and 6): the dual hg_phase / hg_dir,
+the dual equi-angular trig (atan_poly, atan2_posx, tan_sc; their plain forms
+are in prims.py and csrc/path.cuh) and the field_* forms.
 """
 from __future__ import annotations
 

@@ -157,10 +157,12 @@ def pack_geom(scene: Scene, camera: Camera, width: int, height: int,
     if sampler not in ("random", "ld"):
         raise ValueError(f"unknown sampler {sampler!r}")
     if abs(float(torch.as_tensor(scene.medium.g))) > _G_EPS:
-        raise _todo("a baked HG g != 0 (dual.hg_phase / hg_dir)", "3")
+        raise _todo("a baked HG g != 0 (dual.hg_phase / hg_dir)", "5")
     pk = pack_scene(scene, camera, width, height, spp,
                     continue_prob=continue_prob, max_bounces=max_bounces,
                     sampler=sampler, jitter=jitter)
+    if pk.vol:
+        raise _todo("material-3 volumetric shells", "5")
     if sphere is not None and not 0 <= sphere < pk.S:
         raise ValueError(f"sphere {sphere} of a {pk.S}-sphere scene")
     return GeomPacked(
