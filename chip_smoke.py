@@ -44,9 +44,27 @@ plain torch version on the card:
      (boost 3, frac 0.25), timed, with its first pass and its scatter
      launch on the tiles it selected bit-equal to the plain version; and
      vpt_torch.render_to_noise at 256x256 (batches of 16 spp, target
-     0.05), timed.
+     0.05), timed;
+ 14. the analytic density fields (exp_height, blobs): ptxas of the field
+     instantiations and the homogeneous ones unchanged; K1's field
+     instantiations bit-equal to the plain version at 64x32x8
+     (foggy_cornell and blob_cloud under explicit_free,
+     explicit_equiangular and implicit_free, both samplers, seeds 3 and
+     11); each field instantiation through vpt_torch.render at 1024x1024x64
+     "ld" (explicit_free on both scenes, the other three on foggy_cornell),
+     bit-equal to the plain version there, timed, with its bound; K2/K3's
+     field instantiations against their plain versions at 64x32x8
+     (foggy_cornell without and with the falloff traced, blob_cloud with
+     the blobs traced); the fog pair with diff_field at 1024x1024x64,
+     fwd+bwd timed, K2 bit-equal to plain there and K3 at 4 spp; the
+     trainers at the examples' settings: examples/recover_fog.py --kernel
+     (k 0.12 -> 0.06 at 128x128) and examples/recover_blobs.py (blob 0's
+     shape at 256x192; Adam at 0.15 with only the blob rows kept), then
+     K2/K3 with the blobs traced at that trainer's shape (256x192, 16 spp
+     per render, 16 bounces) against their plain versions, and blob 0's gradients against
+     common-random-number central differences.
 
-Each main path (phases 4, 7, 8, 10, 11, 12 and 13) runs with every launch
+Each main path (phases 4, 7, 8, 10, 11, 12, 13 and 14) runs with every launch
 count set to 0 just before it and read just after. The line before the last is the
 per-kernel JSON record, the last line the device record. Any failed phase
 raises and the script exits non-zero; without a CUDA device it exits
@@ -151,8 +169,7 @@ def median_ms(fn, n: int = 3) -> tuple[float, list]:
 
 def reset_counts() -> None:
     wf.LAUNCHES_BY.clear()
-    df.LAUNCHES_FWD = 0
-    df.LAUNCHES_BWD = 0
+    df.LAUNCHES_BY.clear()
     gm.LAUNCHES = 0
 
 
@@ -290,6 +307,543 @@ def bound(kernel: str, stats: dict, dp: df.DiffPacked) -> tuple[float, str]:
     t_ops = ops_lower_bound(kernel, stats, dp) / PEAK_F32 * 1e3
     t_bytes = bytes_moved(kernel, dp) / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# ---- phase 14: analytic density fields (exp_height, blobs) in K1 and the pair
+
+# registers and spill stores ptxas gives the homogeneous instantiations
+# without the field code (NVIDIA H100 80GB HBM3, this toolkit): the field
+# instantiations must leave them as they were
+HOMOGENEOUS_PTXAS = {
+    "vpt_wavefront6kernelILb1ELi0ELb0E": (116, 0),   # free + NEE
+    "vpt_wavefront6kernelILb1ELi1ELb0E": (119, 0),   # EA + NEE
+    "vpt_wavefront6kernelILb0ELi0ELb0E": (61, 0),    # free
+    "vpt_wavefront6kernelILb0ELi2ELb0E": (68, 0),    # clamped EA
+    "vpt_diff10fwd_kernelILb0E": (118, 0),           # K2
+    "vpt_diff10bwd_kernelILb0E": (128, 56),          # K3
+}
+FIELD_SCENES = ("foggy_cornell", "blob_cloud")
+# K1's field instantiations: (integrator, its first variant's scene at the
+# served frame)
+FIELD_VARIANTS = [("explicit_free", "foggy_cornell"),
+                  ("explicit_free", "blob_cloud"),
+                  ("implicit_free", "foggy_cornell"),
+                  ("explicit_equiangular", "foggy_cornell"),
+                  ("implicit_equiangular", "foggy_cornell")]
+
+
+def ptxas_report() -> dict:
+    """{mangled kernel name: (registers, spill store bytes, stack bytes)}
+    from the build's ptxas -v log."""
+    out, cur, stack, spill = {}, None, 0, 0
+    for ln in _build.build_log().splitlines():
+        if "Compiling entry function" in ln:
+            cur = ln.split("'")[1]
+            stack = spill = None
+        elif cur and "stack frame" in ln and stack is None:
+            w = ln.replace(",", "").split()
+            stack = int(w[w.index("bytes") - 1])
+            spill = int(w[w.index("spill") - 2])
+        elif cur and "Used" in ln and "registers" in ln:
+            w = ln.replace(",", "").split()
+            out[cur] = (int(w[w.index("registers") - 1]), spill or 0,
+                        stack or 0)
+            cur = None
+    return out
+
+
+def field_tau_ops(pk: wf.Packed) -> int:
+    """f32 operations of one field optical depth (csrc/field.cuh
+    field_tau), counted as ops_lower_bound counts: exp_height 13; blobs 59
+    per blob (the offset and the two dot products 15, the Gaussian 4, two
+    erf_poly of 17 and their arguments 3, the sum 3) + 1."""
+    if pk.field.kind == "exp_height":
+        return 13
+    return 59 * len(pk.field.blobs) + 1
+
+
+def field_density_ops(pk: wf.Packed) -> int:
+    return 3 if pk.field.kind == "exp_height" else 13 * len(pk.field.blobs)
+
+
+def field_ops_lower_bound(stats: dict, pk: wf.Packed) -> float:
+    """The field's operations on top of the homogeneous counts: each
+    optical depth in place of one exp(-sigma t) (tau - 1 more), the
+    equi-angular densities, each delta-tracking null step (10 + a
+    density), exp_height's closed-form inversion (9 more than the
+    homogeneous flight per thread-iteration, free flight only) and pLight's
+    light direction (7 per shading event with NEE)."""
+    tau = field_tau_ops(pk)
+    dens = field_density_ops(pk)
+    ops = (stats["taus"] * (tau - 1) + stats.get("densities", 0) * dens
+           + stats["null_steps"] * (10 + dens))
+    if pk.field.kind == "exp_height" and pk.distance == "free":
+        ops += stats["thread_iters"] * 9
+    if pk.nee:
+        ops += stats["shade"] * 7
+    return float(ops)
+
+
+def field_variant_bound(stats: dict, pk: wf.Packed) -> tuple[float, str]:
+    ops = variant_ops_lower_bound(stats, pk) + field_ops_lower_bound(stats,
+                                                                     pk)
+    t_ops = ops / PEAK_F32 * 1e3
+    t_bytes = (4.0 + 12.0 * pk.npix) / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def field_pair_bound(kernel: str, stats: dict,
+                     dp: df.DiffPacked) -> tuple[float, str]:
+    """bound() plus the field's operations: K2 as K1's free-flight NEE
+    field terms; K3 replays them, evaluates one more optical depth per
+    shading or medium event (the sigma score), and with traced field
+    parameters at least one derivative (>= an optical depth's operations)
+    per optical depth it evaluates."""
+    pk = dp.pk
+    ops = ops_lower_bound(kernel, stats, dp) + field_ops_lower_bound(stats,
+                                                                     pk)
+    if kernel == "diff_bwd":
+        events = stats["shade"] + stats["medium"]
+        ops += events * field_tau_ops(pk)
+        if dp.n_fp:
+            ops += (stats["taus"] + events) * field_tau_ops(pk)
+    t_ops = ops / PEAK_F32 * 1e3
+    t_bytes = bytes_moved(kernel, dp) / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def field_phases(card: str, dev: torch.device, camera, cfg,
+                 seed_t: torch.Tensor) -> list:
+    """Phase 14; returns the field instantiations' kernel records."""
+    t14 = time.perf_counter()
+    # -- build and registers
+    rep = ptxas_report()
+
+    def find(prefix):
+        hits = [v for k, v in rep.items() if prefix in k]
+        if len(hits) != 1:
+            raise AssertionError(f"ptxas reports {len(hits)} kernels for "
+                                 f"{prefix}")
+        return hits[0]
+
+    for prefix, (regs, spill) in HOMOGENEOUS_PTXAS.items():
+        got = find(prefix)
+        print(f"phase 14 ptxas homogeneous {prefix}: {got[0]} registers, "
+              f"{got[1]} B spill stores, {got[2]} B stack (expected {regs}, "
+              f"{spill})", flush=True)
+        if got[:2] != (regs, spill):
+            raise AssertionError(f"{prefix} changed: {got} against "
+                                 f"{(regs, spill)}")
+    field_ptxas = {}
+    for (nee, dist), entry in wf.FIELD_ENTRIES.items():
+        k = {"free": 0, "equiangular": 1, "ea_clamped": 2}[dist]
+        field_ptxas[entry] = find(
+            f"vpt_wavefront6kernelILb{int(nee)}ELi{k}ELb1E")
+    field_ptxas["vpt_diff_fwd_field"] = find("vpt_diff10fwd_kernelILb1E")
+    field_ptxas["vpt_diff_bwd_field"] = find("vpt_diff10bwd_kernelILb1E")
+    for entry, (regs, spill, stack) in field_ptxas.items():
+        print(f"phase 14 ptxas {entry}: {regs} registers, {spill} B spill "
+              f"stores, {stack} B stack", flush=True)
+
+    # -- K1 at a small frame, bit for bit
+    scenes = {n: SCENES[n]() for n in FIELD_SCENES}
+    t0 = time.perf_counter()
+    for name in FIELD_SCENES:
+        for integrator in ("explicit_free", "explicit_equiangular",
+                           "implicit_free"):
+            nee, dist, phys = wf.KERNEL_INTEGRATORS[integrator]
+            for sampler in ("random", "ld"):
+                for seed in (3, 11):
+                    pk = wf.pack_scene(scenes[name], camera, 64, 32, 8,
+                                       max_bounces=8, sampler=sampler,
+                                       nee=nee, distance=dist,
+                                       physical=phys)
+                    s = torch.tensor([seed], dtype=torch.int32, device=dev)
+                    k = wf.render_tile(pk, s)
+                    p = wf.render_tile_plain(pk, s)
+                    if not (bool(torch.equal(k, p))
+                            and bool(torch.isfinite(k).all())):
+                        raise AssertionError(
+                            f"K1 field {name} {integrator} {sampler} seed "
+                            f"{seed}: not bit-equal to the plain version "
+                            f"(max abs {float((k - p).abs().max())})")
+    print(f"phase 14 K1 field check 64x32x8: foggy_cornell and blob_cloud "
+          f"under explicit_free, explicit_equiangular, implicit_free, both "
+          f"samplers, seeds 3 and 11: all bit-equal to plain "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # -- K1 at the served frame, through vpt_torch.render
+    n_paths = cfg.width * cfg.height * cfg.spp
+    k1_rows = {}
+    for integrator, name in FIELD_VARIANTS:
+        nee, dist, phys = wf.KERNEL_INTEGRATORS[integrator]
+        entry = wf.FIELD_ENTRIES[(nee, dist)]
+        vcfg = dataclasses.replace(cfg, integrator=integrator)
+        reset_counts()
+        img = vpt_torch.render(scenes[name], camera, vcfg, device="cuda")
+        torch.cuda.synchronize()
+        launched = dict(wf.LAUNCHES_BY)
+        if launched != {entry: 1}:
+            raise AssertionError(f"{name} {integrator}: render launched "
+                                 f"{launched}")
+        pk = wf.pack_config(scenes[name], camera, vcfg)
+        stats = {}
+        plain, p_ms = cuda_ms(lambda: wf.render_tile_plain(pk, seed_t,
+                                                            stats))
+        flat = img.reshape(-1, 3)
+        equal = bool(torch.equal(flat, plain))
+        err = float((flat - plain).abs().max())
+        del plain
+        if not (equal and bool(torch.isfinite(img).all())):
+            raise AssertionError(f"{name} {integrator}: not bit-equal to "
+                                 f"the plain version at the served frame "
+                                 f"(max abs {err})")
+        ms, times = median_ms(lambda: wf.render_tile(pk, seed_t))
+        b_ms, b_by = field_variant_bound(stats, pk)
+        mean = [round(float(v), 6) for v in img.mean(dim=(0, 1))]
+        k1_rows[(integrator, name)] = dict(
+            entry=entry, scene=name, integrator=integrator,
+            launches=launched[entry], ms=ms, times=times, plain_ms=p_ms,
+            max_abs_err=err, bound_ms=b_ms, bound_by=b_by, work=stats,
+            paths_per_sec=n_paths / (ms / 1e3), mean=mean)
+        print(f"phase 14 {name} {integrator} {cfg.width}x{cfg.height}x"
+              f"{cfg.spp} {cfg.sampler} via render: launches {launched}; "
+              f"bit-equal to plain ({p_ms:.3f} ms); kernel {ms:.3f} ms "
+              f"(median of {times}), {n_paths / (ms / 1e3):.6e} camera "
+              f"paths/s; bound {b_ms:.3f} ms ({b_by}); work {stats}; "
+              f"channel means {mean} on {card}", flush=True)
+
+    # -- the pair at a small frame
+    # the fog without traced field parameters under both samplers; the
+    # traced modes under "random" here, and under "ld" at their main-path
+    # frames below (the fog falloff at the served frame, the blobs at
+    # examples/recover_blobs.py's)
+    pair_cases = [("foggy_cornell", {}, "random", 3),
+                  ("foggy_cornell", {}, "ld", 11),
+                  ("foggy_cornell", {"diff_field": True}, "random", 3),
+                  ("blob_cloud", {"diff_blobs": True}, "random", 3)]
+    t0 = time.perf_counter()
+    for name, kw, sampler, seed in pair_cases:
+        sc = scenes[name]
+        dp = df.pack_diff(sc, camera, 64, 32, 8, max_bounces=8,
+                          sampler=sampler, **kw)
+        pvec = df._flatten(df.pack_params(
+            sc, with_field="diff_field" in kw,
+            with_blobs="diff_blobs" in kw), sc.count).to(dev)
+        s = torch.tensor([seed], dtype=torch.int32, device=dev)
+        gbar = torch.from_numpy(np.random.default_rng(seed)
+                                .standard_normal((dp.npix, 3))
+                                .astype(np.float32)).to(dev)
+        k = df.diff_fwd(dp, pvec, s)
+        g = df.diff_bwd(dp, pvec, s, gbar)
+        G = df.diff_bwd(dp, pvec, s, gbar, per_lane=True)
+        p = df.diff_fwd_plain(dp, pvec, s)
+        Gp = df.diff_bwd_plain(dp, pvec, s, gbar, per_lane=True)
+        torch.cuda.synchronize()
+        over = int(((g - Gp.sum(0)).abs()
+                    > GVEC_TOL * Gp.abs().sum(0)).sum())
+        equal = bool(torch.equal(k, p))
+        rows = float((G == Gp).all(1).float().mean())
+        q_lane = lane_q99(G, Gp)
+        print(f"phase 14 K2/K3 field check 64x32x8 {name} {kw} "
+              f"{sampler} seed {seed}: image bit-equal {equal}, "
+              f"per-pixel gradient q99 {q_lane:.3e}, bit-equal rows "
+              f"{rows:.4f}, summed entries over bound {over} of {dp.P}",
+              flush=True)
+        if not (equal and over == 0 and q_lane < Q99_TOL
+                and bool(torch.isfinite(G).all())):
+            raise AssertionError(f"K2/K3 field {name} {kw} {sampler}: "
+                                 f"disagree with their plain versions")
+    print(f"phase 14 pair checks {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # -- the fog pair with the falloff traced at the served frame
+    fog = scenes["foggy_cornell"]
+    render = df.make_diff_renderer(fog, camera, cfg.width, cfg.height,
+                                   cfg.spp, max_bounces=cfg.max_bounces,
+                                   sampler=cfg.sampler, diff_field=True,
+                                   device="cuda")
+    params = {k: v.to(dev).requires_grad_()
+              for k, v in df.pack_params(fog, with_field=True).items()}
+    reset_counts()
+    render(params, cfg.seed).mean().backward()
+    torch.cuda.synchronize()
+    launched_pair = dict(df.LAUNCHES_BY)
+    if launched_pair != {"vpt_diff_fwd_field": 1, "vpt_diff_bwd_field": 1}:
+        raise AssertionError(f"fog fwd+bwd launched {launched_pair}")
+    if not all(bool(torch.isfinite(v.grad).all()) for v in params.values()):
+        raise AssertionError("fog gradient not finite")
+    dk = float(params["fog_k"].grad)
+
+    def fwd_bwd():
+        for v in params.values():
+            v.grad = None
+        render(params, cfg.seed).mean().backward()
+
+    pair_ms, pair_times = median_ms(fwd_bwd)
+    dp = render.packed
+    pvec = df._flatten({k: v.detach() for k, v in params.items()},
+                       fog.count)
+    gmean = torch.full((dp.npix, 3), 1.0 / (3 * dp.npix), device=dev)
+    k2_ms, k2_times = median_ms(lambda: df.diff_fwd(dp, pvec, seed_t))
+    k3_ms, k3_times = median_ms(lambda: df.diff_bwd(dp, pvec, seed_t,
+                                                    gmean))
+    k2 = df.diff_fwd(dp, pvec, seed_t)
+    pstats = {}
+    k2p, k2p_ms = cuda_ms(lambda: df.diff_fwd_plain(dp, pvec, seed_t,
+                                                    stats=pstats))
+    k2_equal = bool(torch.equal(k2, k2p))
+    k2_err = float((k2 - k2p).abs().max())
+    del k2p
+    dp4 = df.pack_diff(fog, camera, cfg.width, cfg.height, CHECK_SPP,
+                       max_bounces=cfg.max_bounces, sampler=cfg.sampler,
+                       diff_field=True)
+    gbar4 = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (dp4.npix, 3)).astype(np.float32)).to(dev)
+    k3_4_ms, _ = median_ms(lambda: df.diff_bwd(dp4, pvec, seed_t, gbar4))
+    g4 = df.diff_bwd(dp4, pvec, seed_t, gbar4)
+    G4p, k3p_ms = cuda_ms(lambda: df.diff_bwd_plain(dp4, pvec, seed_t, gbar4,
+                                                    per_lane=True))
+    over = int(((g4 - G4p.sum(0)).abs() > GVEC_TOL * G4p.abs().sum(0)).sum())
+    k3_err = float((g4 - G4p.sum(0)).abs().max())
+    del G4p
+    k2_bound, k2_by = field_pair_bound("diff_fwd", pstats, dp)
+    k3_bound, k3_by = field_pair_bound("diff_bwd", pstats, dp)
+    print(f"phase 14 fog pair (diff_field) {cfg.width}x{cfg.height}x"
+          f"{cfg.spp} {cfg.sampler}: launches {launched_pair}; dL/dk "
+          f"{dk:.6e}; fwd+bwd {pair_ms:.3f} ms (median of {pair_times}), "
+          f"{n_paths / (pair_ms / 1e3):.6e} camera paths/s; K2 {k2_ms:.3f} "
+          f"ms ({k2_times}), bit-equal to plain {k2_equal} ({k2p_ms:.3f} "
+          f"ms), bound {k2_bound:.3f} ms ({k2_by}); K3 {k3_ms:.3f} ms "
+          f"({k3_times}), at {CHECK_SPP} spp {k3_4_ms:.3f} ms against plain "
+          f"{k3p_ms:.3f} ms, summed entries over bound {over}, bound "
+          f"{k3_bound:.3f} ms ({k3_by}); work {pstats} on {card}",
+          flush=True)
+    if not (k2_equal and over == 0):
+        raise AssertionError("the fog pair disagrees with its plain "
+                             "versions at the served frame")
+
+    # -- the trainers at the examples' own settings
+    # examples/recover_fog.py --kernel: k 0.12 -> 0.06 from a 128x128
+    # target at 256 spp (max_bounces 32), 32 spp per render, lr 4e-3, 100
+    # steps, only fog_k kept
+    from vpt_torch.media.density import exp_height
+    reset_counts()
+    t0 = time.perf_counter()
+    fcfg = vpt_torch.RenderConfig(width=128, height=128, spp=256,
+                                  max_bounces=32, sampler="ld", seed=123)
+    target = vpt_torch.render(fog, camera, fcfg, device="cuda")
+    wrong = dataclasses.replace(fog, medium=dataclasses.replace(
+        fog.medium, density=exp_height(k=0.12, y0=-40.8, majorant=1.01)))
+    fitted, losses = vpt_torch.dist.fit_kernel(
+        wrong, camera, target, steps=100, spp=32, learning_rate=4e-3,
+        sampler="ld", diff_field=True,
+        param_filter=lambda upd, init: {**init, "fog_k": upd["fog_k"]},
+        device="cuda")
+    torch.cuda.synchronize()
+    fog_s = time.perf_counter() - t0
+    k_rec = float(fitted["fog_k"])
+    launched_fog = {**wf.LAUNCHES_BY, **df.LAUNCHES_BY}
+    print(f"phase 14 recover_fog (128x128, target 256 spp, 32 spp, lr 4e-3, "
+          f"100 steps): k 0.12 -> {k_rec:.6f} (true 0.06, |err| "
+          f"{abs(k_rec - 0.06):.6f}); loss {losses[0]:.6g} -> "
+          f"{losses[-1]:.6g}; {fog_s:.3f} s wall; launches {launched_fog} "
+          f"on {card}", flush=True)
+    if launched_fog.get("vpt_diff_bwd_field") != 200 or \
+            not abs(k_rec - 0.06) < 0.006:
+        raise AssertionError(f"recover_fog: k {k_rec}, launches "
+                             f"{launched_fog}")
+    # examples/recover_blobs.py: blob 0 perturbed (cx +6, cy -4, r x1.5,
+    # w x0.6); 256x192 target at 256 spp, 32 spp per render, 16 bounces,
+    # Adam at 0.15 on the blobs only, 120 steps, seed 1
+    from vpt_torch.scene.scene import Medium
+    truth = scenes["blob_cloud"]
+    reset_counts()
+    t0 = time.perf_counter()
+    bcfg = vpt_torch.RenderConfig(width=256, height=192, spp=256,
+                                  max_bounces=16, sampler="ld", seed=42)
+    btarget = vpt_torch.render(truth, camera, bcfg, device="cuda")
+    tb = truth.medium.density.params.clone()
+    wb = tb.clone()
+    wb[0, 0] += 6.0
+    wb[0, 1] -= 4.0
+    wb[0, 3] *= 1.5
+    wb[0, 4] *= 0.6
+    bwrong = dataclasses.replace(truth, medium=Medium(
+        truth.medium.sigma_a, truth.medium.sigma_s, 0.0,
+        dataclasses.replace(truth.medium.density, params=wb)))
+    def fit_blobs(steps):
+        return vpt_torch.dist.fit_kernel(
+            bwrong, camera, btarget, steps=steps, spp=32, max_bounces=16,
+            learning_rate=0.15, sampler="ld", diff_blobs=True, seed=1,
+            param_filter=lambda upd, init: {**init, "blobs": upd["blobs"]},
+            device="cuda")
+
+    bfit, blosses = fit_blobs(120)
+    torch.cuda.synchronize()
+    blob_s = time.perf_counter() - t0
+    launched_blob = {**wf.LAUNCHES_BY, **df.LAUNCHES_BY}
+    rec = bfit["blobs"].cpu()
+    l1_0 = float((wb[0] - tb[0]).abs().sum())
+    l1_1 = float((rec[0] - tb[0]).abs().sum())
+    print(f"phase 14 recover_blobs (256x192, target 256 spp, 32 spp, 16 "
+          f"bounces, Adam 0.15 on the blobs, 120 steps): blob 0 "
+          f"{[round(float(v), 4) for v in wb[0]]} -> "
+          f"{[round(float(v), 4) for v in rec[0]]} (true "
+          f"{[round(float(v), 4) for v in tb[0]]}); param-error L1 "
+          f"{l1_0:.4f} -> {l1_1:.4f} (halved: {l1_1 <= 0.5 * l1_0}); loss "
+          f"{blosses[0]:.6g} -> {blosses[-1]:.6g}; {blob_s:.3f} s wall; "
+          f"launches {launched_blob} on {card}", flush=True)
+    # the example's 120 steps are deterministic on the card (no atomics):
+    # the fit must take them through the field kernels and move blob 0
+    # toward the truth; the trend beyond them is reported, not held
+    if launched_blob.get("vpt_diff_bwd_field") != 240 or \
+            not (l1_1 < l1_0 and blosses[-1] < blosses[0]
+                 and bool(torch.isfinite(rec).all())):
+        raise AssertionError(f"recover_blobs: L1 {l1_0} -> {l1_1}, loss "
+                             f"{blosses[0]} -> {blosses[-1]}, launches "
+                             f"{launched_blob}")
+    # K2/K3 with every blob parameter traced at the shape the trainer gave
+    # them (256x192, 32 spp per step: 16 per render, 16 bounces: long
+    # paths, the 15 blob slots of K3's accumulator) against their plain
+    # versions, at the fit's start (its first render's seed)
+    t0 = time.perf_counter()
+    bdp = df.pack_diff(bwrong, camera, 256, 192, 16, max_bounces=16,
+                       sampler="ld", diff_blobs=True)
+    bvec = df._flatten(df.pack_params(bwrong, with_blobs=True),
+                       truth.count).to(dev)
+    bseed = torch.tensor([2], dtype=torch.int32, device=dev)
+    bgbar = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (bdp.npix, 3)).astype(np.float32)).to(dev)
+    bk = df.diff_fwd(bdp, bvec, bseed)
+    bg = df.diff_bwd(bdp, bvec, bseed, bgbar)
+    bG = df.diff_bwd(bdp, bvec, bseed, bgbar, per_lane=True)
+    bp_img = df.diff_fwd_plain(bdp, bvec, bseed)
+    bGp = df.diff_bwd_plain(bdp, bvec, bseed, bgbar, per_lane=True)
+    torch.cuda.synchronize()
+    b_equal = bool(torch.equal(bk, bp_img))
+    b_over = int(((bg - bGp.sum(0)).abs()
+                  > GVEC_TOL * bGp.abs().sum(0)).sum())
+    b_q = lane_q99(bG, bGp)
+    b_rows = float((bG == bGp).all(1).float().mean())
+    print(f"phase 14 K2/K3 blob check at the recover_blobs frame 256x192x16 "
+          f"ld, 16 bounces, diff_blobs (n_fp {bdp.n_fp}, P {bdp.P}): image "
+          f"bit-equal {b_equal}, per-pixel gradient q99 {b_q:.3e}, bit-equal "
+          f"rows {b_rows:.4f}, summed entries over bound {b_over} of "
+          f"{bdp.P} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    if not (b_equal and b_over == 0 and b_q < Q99_TOL
+            and bool(torch.isfinite(bG).all())):
+        raise AssertionError("K2/K3 with diff_blobs disagree with their "
+                             "plain versions at the recover_blobs frame")
+    del bG, bGp
+    t0 = time.perf_counter()
+    l1_long = {}
+    for steps in (480,):
+        rec_l = fit_blobs(steps)[0]["blobs"].cpu()
+        l1_long[steps] = float((rec_l[0] - tb[0]).abs().sum())
+    print(f"phase 14 recover_blobs continued with the same settings: "
+          f"param-error L1 after {sorted(l1_long.items())} steps; blob 0 "
+          f"{[round(float(v), 4) for v in rec_l[0]]} "
+          f"({time.perf_counter() - t0:.3f} s)", flush=True)
+    # the example's own CPU toy setting (recover_blobs.py --cpu: 32x24,
+    # target 32 spp, 8 spp, 20 steps), to set beside vpt's run of it
+    ttarget = vpt_torch.render(truth, camera, dataclasses.replace(
+        bcfg, width=32, height=24, spp=32), device="cuda")
+    trec = vpt_torch.dist.fit_kernel(
+        bwrong, camera, ttarget, steps=20, spp=8, max_bounces=16,
+        learning_rate=0.15, sampler="ld", diff_blobs=True, seed=1,
+        param_filter=lambda upd, init: {**init, "blobs": upd["blobs"]},
+        device="cuda")[0]["blobs"].cpu()
+    l1_toy = float((trec[0] - tb[0]).abs().sum())
+    print(f"phase 14 recover_blobs at the example's --cpu setting (32x24, "
+          f"target 32 spp, 8 spp, 20 steps): blob 0 "
+          f"{[round(float(v), 4) for v in trec[0]]}, param-error L1 "
+          f"{l1_0:.4f} -> {l1_toy:.4f}", flush=True)
+    if not bool(torch.isfinite(trec).all()):
+        raise AssertionError("recover_blobs toy fit: not finite")
+    # blob 0's gradients at the example's frame against common-random-
+    # number central differences of the pair's own forward, by vpt's
+    # criterion (tests/test_diff_kernel.py:586-612: 16 seeds, |mean grad -
+    # mean FD| < 4 sigma + 10 %)
+    brender = df.make_diff_renderer(truth, camera, 256, 192, 32,
+                                    max_bounces=16, sampler="ld",
+                                    diff_blobs=True, device="cuda")
+    bp = {k: v.to(dev) for k, v in df.pack_params(
+        truth, with_blobs=True).items()}
+    fd_rows = []
+    for ci, h in ((0, 0.5), (1, 0.5), (3, 0.3), (4, 0.05)):
+        gs_, fds = [], []
+        for k in range(16):
+            p_ = {kk: v.clone().requires_grad_(kk == "blobs")
+                  for kk, v in bp.items()}
+            brender(p_, 900 + k).mean().backward()
+            gs_.append(float(p_["blobs"].grad[0, ci]))
+            with torch.no_grad():
+                pp = {kk: v.clone() for kk, v in bp.items()}
+                pm = {kk: v.clone() for kk, v in bp.items()}
+                pp["blobs"][0, ci] += h
+                pm["blobs"][0, ci] -= h
+                fds.append((float(brender(pp, 900 + k).mean())
+                            - float(brender(pm, 900 + k).mean())) / (2 * h))
+        gm, gse = float(np.mean(gs_)), float(np.std(gs_) / 4.0)
+        fm, fse = float(np.mean(fds)), float(np.std(fds) / 4.0)
+        tol = 4.0 * float(np.hypot(gse, fse)) + 0.1 * max(abs(gm), abs(fm))
+        fd_rows.append((ci, gm, gse, fm, fse, abs(gm - fm) < tol))
+    print(f"phase 14 blob 0 gradients vs CRN FD at 256x192x32 (param, grad "
+          f"mean, se, FD mean, se, agree): {fd_rows}", flush=True)
+    if not all(r[-1] for r in fd_rows):
+        raise AssertionError(f"blob gradients disagree with CRN FD: "
+                             f"{fd_rows}")
+    print(f"phase 14 {time.perf_counter() - t14:.1f} s", flush=True)
+
+    # -- the records
+    common = {"route": "cuda", "library_ms": None, "card": card}
+    records = []
+    srcs = {"vpt_wavefront_free_nee_field": "wavefront_field.cu",
+            "vpt_wavefront_free_implicit_field":
+                "wavefront_field_free_implicit.cu",
+            "vpt_wavefront_ea_nee_field": "wavefront_field_ea.cu",
+            "vpt_wavefront_eac_implicit_field":
+                "wavefront_field_eac_implicit.cu"}
+    for entry, src in srcs.items():
+        rows = [r for r in k1_rows.values() if r["entry"] == entry]
+        regs, spill, stack = field_ptxas[entry]
+        records.append({
+            "name": entry[4:], **common,
+            "source": f"vpt_torch/csrc/{src}",
+            "replaces": "vpt/kernels/wavefront.py:465",
+            "launches": sum(r["launches"] for r in rows),
+            "max_abs_err": rows[0]["max_abs_err"], "ms": rows[0]["ms"],
+            "plain_ms": rows[0]["plain_ms"], "bound_ms": rows[0]["bound_ms"],
+            "bound_by": rows[0]["bound_by"], "variants": rows,
+            "ptxas": {"registers": regs, "spill_stores": spill,
+                      "stack": stack},
+            "launches_recover_fog": launched_fog.get(entry, 0),
+            "launches_recover_blobs": launched_blob.get(entry, 0)})
+    for name, src, ms, p_ms, b_ms, b_by, err, extra in (
+            ("diff_fwd_field", "diff_field_fwd.cu", k2_ms, k2p_ms, k2_bound,
+             k2_by, k2_err, {"fwd_bwd_ms": pair_ms}),
+            ("diff_bwd_field", "diff_field_bwd.cu", k3_ms, k3p_ms, k3_bound,
+             k3_by, k3_err, {"checked_spp": CHECK_SPP,
+                             "ms_at_checked_spp": k3_4_ms})):
+        regs, spill, stack = field_ptxas["vpt_" + name]
+        records.append({
+            "name": name, **common, "source": f"vpt_torch/csrc/{src}",
+            "replaces": ("vpt/kernels/diff.py:1274" if "fwd" in name
+                         else "vpt/kernels/diff.py:1303"),
+            "launches": launched_pair["vpt_" + name],
+            "launches_recover_fog": launched_fog["vpt_" + name],
+            "launches_recover_blobs": launched_blob["vpt_" + name],
+            "max_abs_err": err, "ms": ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "ptxas": {"registers": regs, "spill_stores": spill,
+                      "stack": stack},
+            "recover_fog_k": k_rec, "recover_fog_s": fog_s,
+            "recover_blobs_l1": [l1_0, l1_1], "recover_blobs_s": blob_s,
+            "recover_blobs_l1_by_steps": l1_long,
+            "recover_blobs_l1_cpu_setting": l1_toy,
+            **extra})
+    return records
 
 
 def main() -> int:
@@ -1005,6 +1559,10 @@ def main() -> int:
         "adaptive_tiles": [go.k, pk1.num_tiles, pk2.spp],
         "noise_spp": n_spp, "noise_rel_se": n_se, "noise_s": n_s,
         "scatter_checks_128x64x4": scat_check})
+    print(f"phases 1-13: {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- phase 14: the density fields
+    records += field_phases(card, dev, camera, cfg, seed_t)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

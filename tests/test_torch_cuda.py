@@ -1,7 +1,8 @@
 """The CUDA kernels on the card (marked `cuda`; skipped without one): the
 render kernel K1 (every instantiation and its raw and scatter modes, with
 the adaptive and noise-target entry points), the differentiable pair K2/K3
-and the dual kernel K4.
+and the dual kernel K4; K1's and the pair's field instantiations on
+foggy_cornell and blob_cloud.
 
 Run on a machine with an NVIDIA GPU (--noconftest: tests/conftest.py
 imports jax, which the port's machines need not have):
@@ -260,3 +261,56 @@ def test_geom_renderer_goes_through_the_kernel(cuda):
     got = gm.flatten_theta({k: v.grad for k, v in theta.items()})
     want = tang.sum((1, 2)) / (3 * 48 * 32)
     assert torch.allclose(got[:7], want, rtol=1e-5, atol=1e-9)
+
+
+FIELD_K1 = [(name, integrator) for name in ("foggy_cornell", "blob_cloud")
+            for integrator in ("explicit_free", "implicit_free",
+                               "explicit_equiangular", "implicit_equiangular")]
+
+
+@pytest.mark.parametrize("name,integrator", FIELD_K1)
+def test_field_kernel_bit_equal_to_plain_on_card(cuda, name, integrator):
+    """K1's field instantiations (csrc/wavefront_field*.cu) launch for a
+    scene with a density field and equal the plain version bit for bit."""
+    nee, distance, physical = wf.KERNEL_INTEGRATORS[integrator]
+    pk = wf.pack_scene(vpt_torch.SCENES[name](), vpt_torch.default_camera(),
+                       64, 32, 8, max_bounces=8, sampler="ld", nee=nee,
+                       distance=distance, physical=physical)
+    seed = torch.tensor([11], dtype=torch.int32, device=cuda)
+    wf.LAUNCHES_BY.clear()
+    k = wf.render_tile(pk, seed)
+    assert wf.LAUNCHES_BY == {wf.FIELD_ENTRIES[(nee, distance)]: 1}
+    p = wf.render_tile_plain(pk, seed)
+    torch.cuda.synchronize()
+    assert torch.isfinite(k).all() and torch.equal(k, p)
+
+
+@pytest.mark.parametrize("name,traced", [
+    ("foggy_cornell", None), ("foggy_cornell", "diff_field"),
+    ("blob_cloud", "diff_blobs")])
+def test_field_pair_matches_plain_on_card(cuda, name, traced):
+    """K2/K3's field instantiations (csrc/diff_field_*.cu): the image bit
+    for bit, K3's per-pixel vectors row for row, the block-summed vector
+    within 1e-5 of sum_lanes |G_lane, k|, the field slots included."""
+    sc = vpt_torch.SCENES[name]()
+    kw = {traced: True} if traced else {}
+    dp = df.pack_diff(sc, vpt_torch.default_camera(), 64, 32, 8,
+                      max_bounces=8, sampler="random", **kw)
+    pvec = df._flatten(df.pack_params(
+        sc, with_field=traced == "diff_field",
+        with_blobs=traced == "diff_blobs"), sc.count).to(cuda)
+    seed = torch.tensor([3], dtype=torch.int32, device=cuda)
+    gbar = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (dp.npix, 3)).astype(np.float32)).to(cuda)
+    df.LAUNCHES_BY.clear()
+    k = df.diff_fwd(dp, pvec, seed)
+    g = df.diff_bwd(dp, pvec, seed, gbar)
+    G = df.diff_bwd(dp, pvec, seed, gbar, per_lane=True)
+    assert df.LAUNCHES_BY == {"vpt_diff_fwd_field": 1,
+                              "vpt_diff_bwd_field": 2}
+    p = df.diff_fwd_plain(dp, pvec, seed)
+    Gp = df.diff_bwd_plain(dp, pvec, seed, gbar, per_lane=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(G).all() and torch.equal(k, p)
+    assert torch.equal(G, Gp)
+    assert bool(((g - Gp.sum(0)).abs() <= 1e-5 * Gp.abs().sum(0)).all())

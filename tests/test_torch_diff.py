@@ -36,6 +36,7 @@ import torch
 
 import vpt_torch
 from vpt_torch.kernels import diff as df
+from test_torch_wavefront import reference_env
 
 torch.set_num_threads(1)  # one intra-op thread: see test_torch_wavefront.py
 
@@ -126,9 +127,7 @@ def vpt_reference(sampler, train):
         spec = os.path.join(tmp, "job.json")
         with open(spec, "w") as f:
             json.dump(job, f)
-        env = dict(os.environ, JAX_PLATFORMS="cpu",
-                   XLA_FLAGS=(os.environ.get("XLA_FLAGS", "")
-                              + " --xla_cpu_max_isa=AVX").strip())
+        env = reference_env()
         res = subprocess.run([sys.executable, "-c", _JAX_REF, spec], cwd=REPO,
                              env=env, capture_output=True, text=True,
                              timeout=600)

@@ -177,7 +177,44 @@ REFUSED = {
     "fit_kernel_diff_g": lambda: vpt_torch.dist.fit_kernel(
         SCENE, CAM, torch.zeros(4, 8, 3), steps=1, diff_g=True,
         device="cpu"),
+    # the traced field parameters need their field kind
+    "diff_field_blob_scene": lambda: df.make_diff_renderer(
+        vpt_torch.scene.scene.blob_cloud(), CAM, 8, 4, 1, diff_field=True,
+        device="cpu"),
+    "diff_blobs_fog_scene": lambda: df.make_diff_renderer(
+        vpt_torch.scene.scene.foggy_cornell(), CAM, 8, 4, 1,
+        diff_blobs=True, device="cpu"),
+    "grid_field": lambda: vpt_torch.media.density.grid(
+        np.ones((2, 2, 2)), (0, 0, 0), (1, 1, 1)),
+    "geom_fog": lambda: vpt_torch.kernels.geom.make_geom_renderer(
+        vpt_torch.scene.scene.foggy_cornell(), CAM, 8, 4, 1, sphere=8,
+        device="cpu"),
 }
+
+
+REFUSED_VALUES = {
+    "diff_field_and_blobs": lambda: df.make_diff_renderer(
+        vpt_torch.scene.scene.blob_cloud(), CAM, 8, 4, 1, diff_field=True,
+        diff_blobs=True, device="cpu"),
+    "more_blobs_than_the_cap": lambda: wf.pack_scene(
+        vpt_torch.make_scene(
+            list(vpt_torch.scene.scene.CORNELL_VPT_SPHERES),
+            density=vpt_torch.media.density.blobs(
+                [(0.0, 0.0, -30.0 + i, 5.0, 0.1)
+                 for i in range(wf.MAX_BLOBS + 1)])), CAM, 8, 4, 1),
+    "with_field_blob_scene": lambda: df.pack_params(
+        vpt_torch.scene.scene.blob_cloud(), with_field=True),
+    "with_blobs_fog_scene": lambda: df.pack_params(
+        vpt_torch.scene.scene.foggy_cornell(), with_blobs=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED_VALUES))
+def test_misuse_raises_value_error(case):
+    """vpt's ValueErrors: one traced field kind per scene, the scene's own
+    field kind for pack_params, and the kernels' blob cap."""
+    with pytest.raises(ValueError):
+        REFUSED_VALUES[case]()
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))

@@ -140,8 +140,11 @@ REFUSED = {
     "medium_shell": lambda: gm.make_geom_renderer(
         vpt_torch.scene.scene.medium_shell(), CAM, 8, 4, 1, sphere=7,
         device="cpu"),
-    "density_field": lambda: vpt_torch.make_scene(
-        list(vpt_torch.scene.scene.CORNELL_VPT_SPHERES), density=object()),
+    # the analytic fields render and train on K1-K3; K4's dual field forms
+    # are item 5
+    "density_field": lambda: gm.make_geom_renderer(
+        vpt_torch.scene.scene.foggy_cornell(), CAM, 8, 4, 1, sphere=8,
+        device="cpu"),
 }
 
 

@@ -46,8 +46,8 @@ def host_lib():
     if cxx is None:
         pytest.skip("g++ not found: the host build of csrc/path.cuh needs it")
     srcs = [os.path.join(CSRC, f)
-            for f in ("path_host.cpp", "path.cuh", "diff_path.cuh",
-                      "geom_path.cuh")]
+            for f in ("path_host.cpp", "path.cuh", "field.cuh",
+                      "diff_path.cuh", "geom_path.cuh")]
     h = hashlib.sha256(" ".join(FLAGS).encode())
     for p in srcs:
         with open(p, "rb") as f:
@@ -104,9 +104,11 @@ def _scene(name, g=0.0):
     return vpt_torch.SCENES[name]()
 
 
-# K1's instantiations in the host build (csrc/path_host.cpp)
+# K1's instantiations in the host build (csrc/path_host.cpp); their field
+# instantiations follow at +4
 HOST_VARIANT = {(True, "free"): 0, (False, "free"): 1,
                 (True, "equiangular"): 2, (False, "ea_clamped"): 3}
+FIELD_VARIANT = 4
 
 
 def _host_render(host_lib, pk, bases=None, n_lanes=None, sums=0):
@@ -115,8 +117,10 @@ def _host_render(host_lib, pk, bases=None, n_lanes=None, sums=0):
     n_lanes = pk.npix if n_lanes is None else n_lanes
     out = np.full((n_lanes, 3), np.nan, np.float32)
     b = None if bases is None else np.ascontiguousarray(bases, np.int32)
+    variant = HOST_VARIANT[(pk.nee, pk.distance)] + (
+        0 if pk.field is None else FIELD_VARIANT)
     assert host_lib.vpt_render_host(
-        words.ctypes.data, HOST_VARIANT[(pk.nee, pk.distance)], SEED,
+        words.ctypes.data, variant, SEED,
         None if b is None else b.ctypes.data, n_lanes, sums,
         out.ctypes.data) == 0
     return out
@@ -166,6 +170,32 @@ def test_host_build_of_variant_matches_plain(host_lib, case):
     _assert_q99(out, ref.numpy(), nonneg=name != "medium_shell")
 
 
+# every field instantiation on both fields: (scene, integrator, sampler)
+FIELD_CASES = [(name, integrator, sampler)
+               for name in ("foggy_cornell", "blob_cloud")
+               for integrator, sampler in (
+                   ("explicit_free", "ld"), ("implicit_free", "random"),
+                   ("explicit_equiangular", "random"),
+                   ("implicit_equiangular", "ld"))]
+
+
+@pytest.mark.parametrize("case", FIELD_CASES,
+                         ids=["-".join(c) for c in FIELD_CASES])
+def test_host_build_of_field_variant_matches_plain(host_lib, case):
+    """csrc/field.cuh in K1's field instantiations (render_pixel<..., true>):
+    closed-form exp_height inversion, delta tracking at max_null 64 with
+    Pcg::skip after acceptance, every field transmittance."""
+    name, integrator, sampler = case
+    nee, distance, physical = wf.KERNEL_INTEGRATORS[integrator]
+    pk = wf.pack_scene(_scene(name), vpt_torch.default_camera(), W, H, SPP,
+                       max_bounces=MB, sampler=sampler, nee=nee,
+                       distance=distance, physical=physical)
+    assert pk.field is not None and pk.field.max_null == 64
+    out = _host_render(host_lib, pk)
+    ref = wf.render_tile_plain(pk, torch.tensor([SEED], dtype=torch.int32))
+    _assert_q99(out, ref.numpy())
+
+
 def test_host_build_of_scatter_matches_plain(host_lib):
     """The kernel's lane mapping: tiles from a list of bases (reversed
     here), per-lane sums, padding lanes of the partial last tile."""
@@ -190,12 +220,42 @@ DIFF_CASES = [("cornell_vpt", "random", True), ("cornell_vpt", "ld", True),
                          ids=["-".join(map(str, c)) for c in DIFF_CASES])
 def test_host_build_of_diff_pair_matches_plain(host_lib, case):
     name, sampler, jitter = case
-    scene = _scene(name)
+    _check_host_pair(host_lib, _scene(name), sampler, jitter, {})
+
+
+# the pair's field instantiations: the fog with and without the falloff
+# traced, the blobs with and without their rows traced
+FIELD_DIFF_CASES = [("foggy_cornell", "ld", "diff_field"),
+                    ("foggy_cornell", "random", None),
+                    ("blob_cloud", "random", "diff_blobs"),
+                    ("blob_cloud", "ld", None)]
+
+
+@pytest.mark.parametrize("case", FIELD_DIFF_CASES,
+                         ids=["-".join(map(str, c)) for c in FIELD_DIFF_CASES])
+def test_host_build_of_field_pair_matches_plain(host_lib, case):
+    """diff_pixel<kGrads, true>: the field's transmittances and sigma
+    scores, and with traced parameters their n_fp slots (pair_field
+    computes the traced constants as the kernel's staging does)."""
+    name, sampler, traced = case
+    _check_host_pair(host_lib, _scene(name), sampler, True,
+                     {traced: True} if traced else {}, max_flips=1)
+
+
+def _check_host_pair(host_lib, scene, sampler, jitter, kw, max_flips=0):
+    """The host build of K2/K3 against the plain pair. max_flips: lanes
+    whose path may take the other branch of a discrete event (libm's and
+    torch's exp / log1p differ by an ulp on some inputs): more than 1e-4 of
+    their own scale apart in the image, they are left out of the gradient's
+    zero-pattern check. Measured: lane 502 of the fog at "random", a
+    free-flight inversion, 28 % apart; no lane in the homogeneous cases."""
     dp = df.pack_diff(scene, vpt_torch.default_camera(), W, H, SPP,
-                      max_bounces=MB, sampler=sampler, jitter=jitter)
+                      max_bounces=MB, sampler=sampler, jitter=jitter, **kw)
     words = np.ascontiguousarray(dp.words())
     assert words.size == host_lib.vpt_diff_params_words()   # struct layout
-    pvec = df._flatten(df.pack_params(scene), scene.count).contiguous()
+    pvec = df._flatten(df.pack_params(
+        scene, with_field=kw.get("diff_field", False),
+        with_blobs=kw.get("diff_blobs", False)), scene.count).contiguous()
     seed = torch.tensor([SEED], dtype=torch.int32)
     out = np.full((W * H, 3), np.nan, np.float32)
     host_lib.vpt_diff_fwd_host(words.ctypes.data, pvec.data_ptr(), SEED,
@@ -204,6 +264,9 @@ def test_host_build_of_diff_pair_matches_plain(host_lib, case):
     assert np.isfinite(out).all() and (out >= 0).all()
     rel = np.abs(out - ref) / max(1.0, float(np.abs(ref).max()))
     assert np.quantile(rel, 0.99) < 1e-4, np.quantile(rel, 0.99)
+    flips = (np.abs(out - ref).max(1)
+             / np.maximum(1.0, np.abs(ref).max(1))) > 1e-4
+    assert flips.sum() <= max_flips, np.flatnonzero(flips)
 
     gbar = np.random.default_rng(0).standard_normal((W * H, 3)).astype(
         np.float32)
@@ -215,7 +278,7 @@ def test_host_build_of_diff_pair_matches_plain(host_lib, case):
     assert np.isfinite(G).all()
     rel = (np.abs(G - Gp) / np.maximum(1.0, np.abs(Gp).max(0))).max(1)
     assert np.quantile(rel, 0.99) < 1e-4, np.quantile(rel, 0.99)
-    assert np.array_equal(G == 0.0, Gp == 0.0)
+    assert np.array_equal(G[~flips] == 0.0, Gp[~flips] == 0.0)
 
 
 # K4 at every tangent count the host build is tested for, both samplers:

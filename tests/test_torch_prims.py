@@ -319,3 +319,16 @@ def test_shell_cascade_primitives():
     m = (scale_j > 0) == (scale_t > 0)
     assert m.mean() >= 0.999
     np.testing.assert_allclose(scale_t[m], scale_j[m], rtol=RTOL, atol=ATOL)
+
+
+def test_erf_poly_is_vpts_polynomial():
+    """The A&S 7.1.26 polynomial as vpt writes it (not torch.erf): within
+    rtol 1e-5 of vpt's (XLA's and torch's exp differ by an ulp on some
+    inputs), odd in x, and within its 1.5e-7 of the true erf (plus f32
+    rounding)."""
+    x = np.random.RandomState(3).uniform(-4, 4, N).astype(np.float32)
+    ours = tp.erf_poly(_t(x)).numpy()
+    np.testing.assert_allclose(ours, np.asarray(jp.erf_poly(_j(x))),
+                               rtol=RTOL, atol=ATOL)
+    assert np.array_equal(tp.erf_poly(_t(-x)).numpy(), -ours)
+    assert np.abs(ours - torch.erf(_t(x).double()).numpy()).max() < 5e-7

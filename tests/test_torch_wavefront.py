@@ -18,6 +18,12 @@ kernel. That moves pLight's visibility test against the radius-1e5 walls,
 whose quadratic cancels to an error comparable to the 1.2e-4 visibility
 slack, for ~4% of pixels (measured: q99 rel 1.7e-3 with FMA, 1.1e-7
 without, 32x16x4 "random"). Nothing in vpt changes for it.
+
+The subprocess also runs with XLA's Eigen thread pool off
+(--xla_cpu_multi_thread_eigen=false): the differentiable pair's reference
+of tests/test_torch_hetero_diff.py came out bit for bit the same with it
+and took 26 % less CPU time (241 s against 326 s), CPU that the other
+test files share.
 """
 import json
 import os
@@ -86,6 +92,15 @@ np.savez(sys.argv[2], **out)
 """
 
 
+def reference_env() -> dict:
+    """The environment of a vpt reference subprocess (see the module
+    docstring): XLA:CPU, code generation capped at AVX, no Eigen pool."""
+    return dict(os.environ, JAX_PLATFORMS="cpu",
+                XLA_FLAGS=(os.environ.get("XLA_FLAGS", "")
+                           + " --xla_cpu_max_isa=AVX"
+                           + " --xla_cpu_multi_thread_eigen=false").strip())
+
+
 def jax_reference(jobs, full=False):
     """Run vpt's render kernel (interpret mode, XLA:CPU without FMA) for
     each job in a subprocess; returns the list of numpy outputs (full: the
@@ -94,11 +109,8 @@ def jax_reference(jobs, full=False):
         spec, out = os.path.join(tmp, "jobs.json"), os.path.join(tmp, "o.npz")
         with open(spec, "w") as f:
             json.dump(jobs, f)
-        env = dict(os.environ, JAX_PLATFORMS="cpu",
-                   XLA_FLAGS=(os.environ.get("XLA_FLAGS", "")
-                              + " --xla_cpu_max_isa=AVX").strip())
         res = subprocess.run([sys.executable, "-c", _JAX_REF, spec, out],
-                             cwd=REPO, env=env, capture_output=True,
+                             cwd=REPO, env=reference_env(), capture_output=True,
                              text=True, timeout=600)
         assert res.returncode == 0, res.stderr[-4000:]
         with np.load(out) as z:
@@ -180,7 +192,10 @@ def test_pack_scene_matches_scene_consts(name):
     sigma_t = sc["sigma_a"] + sc["sigma_s"]
     assert pk.inv_sigma_t == float(f32(1.0 / sigma_t))
     words = pk.words()
-    assert words.dtype == np.int32 and words.size == 411
+    # 411 words of scene, camera and estimator, then csrc/path.cuh's
+    # FieldParams (184 words, zero in a homogeneous medium)
+    assert words.dtype == np.int32 and words.size == 411 + 184
+    assert not words[411:].any()
     assert list(words[:5]) == [8, 4, 2, 32, 2 * 32 + 64]
 
 
@@ -201,7 +216,7 @@ def test_pack_scene_refuses_what_the_kernel_lacks():
     shell = wf.pack_scene(vpt_torch.scene.scene.medium_shell(),
                           vpt_torch.default_camera(), 8, 4, 2)
     assert shell.vol == _scene_consts(vpt.SCENES["medium_shell"]())["vol"]
-    assert shell.vol and shell.words().size == 411
+    assert shell.vol and shell.words().size == 411 + 184
     for g in (0.5, -0.3, 5e-4):
         d = _scene_dict("cornell_vpt")
         d["g"] = g

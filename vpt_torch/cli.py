@@ -110,7 +110,7 @@ def main(argv=None) -> int:
     dtype = scene.radius.dtype
     scene = dataclasses.replace(
         scene, medium=Medium(sigma_a.to(dtype), sigma_s.to(dtype),
-                             torch.as_tensor(g).to(dtype)))
+                             torch.as_tensor(g).to(dtype), med.density))
     camera = file_cam if file_cam is not None else vpt_torch.default_camera()
     if args.dump_scene:
         vpt_torch.save_scene(args.dump_scene, scene, camera)

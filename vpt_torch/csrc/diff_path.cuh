@@ -3,9 +3,10 @@
 // (kGrads = true) in one body, as vpt's make_kernel(grads) is one body.
 //
 // Thread-scalar transcription of vpt/kernels/diff.py:290-1251 for the
-// homogeneous free-flight NEE estimator (nee, distance "free", not
-// physical), isotropic phase, no material-3 shells, samplers "random" and
-// "ld". It reuses csrc/path.cuh's primitives and its parity rules (uint32
+// free-flight NEE estimator (nee, distance "free", not physical), isotropic
+// phase, no material-3 shells, samplers "random" and "ld", in a homogeneous
+// medium or (kField) an analytic density field with vpt's diff_field /
+// diff_blobs traced parameters. It reuses csrc/path.cuh's primitives and its parity rules (uint32
 // PCG, every draw in vpt's order, no FMA contraction), and follows diff.py's
 // arithmetic rather than the forward kernel's: sigma_t = sa + ss, 1/sigma_t
 // and (sigma_s/sigma_t)/cp are f32 operations on the parameter vector, the
@@ -13,13 +14,21 @@
 // writes them.
 //
 // Parameters: pv[0] = sigma_a, pv[1] = sigma_s, pv[2 + 3s + c] = albedo,
-// pv[2 + 3S + 3s + c] = radiance (P = 2 + 6S). The scene's own radiance
-// (DiffParams.base.rad) still decides which spheres are emitters, as in vpt.
+// pv[2 + 3S + 3s + c] = radiance, then n_fp traced field parameters from IK =
+// 2 + 6S: fog_k (1) or the blob rows (5K: cx, cy, cz, r, w per blob); P =
+// 2 + 6S + n_fp. The scene's own radiance (DiffParams.base.rad) still
+// decides which spheres are emitters, as in vpt.
+//
+// The field's arithmetic: without traced field parameters its constants are
+// K1's (folded in double on the host); with them, f32 operations on the
+// vector (traced_blob), and 1/(sigma_t majorant) is always an f32 operation
+// since sigma_t is traced. The pair matches K1 within vpt's 1e-5 of scale.
 #pragma once
 
 #include "path.cuh"
 
 #define VPT_MAX_PARAMS (2 + 6 * VPT_MAX_SPHERES)
+#define VPT_MAX_FP (5 * VPT_MAX_BLOBS)  // traced field-parameter slots
 
 // Launch parameters of K2/K3, laid out word by word by
 // vpt_torch/kernels/diff.py DiffPacked.words().
@@ -30,9 +39,66 @@ struct DiffParams {
   int n_params;    // P = 2 + 6 * n_spheres
   int alb_mask;    // bit s: sphere s has an albedo gradient
   int lam_mask;    // bit s: sphere s has deferred lambert-albedo terms
+  int n_fp;        // traced field-parameter slots (0, 1 or 5K)
+  int fp_kind;     // 0 none, kFpFogK, kFpBlobs
 };
 
 namespace vpt {
+
+enum FpKind { kFpFogK = 1, kFpBlobs = 2 };
+
+// A traced blob's constants from its row (cx, cy, cz, r, w) of the vector,
+// in f32 as vpt's traced field forms compute them
+VPT_HD void traced_blob(const float* row, FieldBlob& B) {
+  B.cx = row[0];
+  B.cy = row[1];
+  B.cz = row[2];
+  B.r = row[3];
+  B.w = row[4];
+  const float inv_r = 1.0f / B.r;
+  B.inv_r = inv_r;
+  B.ramp = B.r * SQRT_HALF_PI;
+  B.dens_c = 1.0f / (B.r * B.r);
+  B.tau_c = inv_r * inv_r;
+  B.amp_c = B.ramp * B.w;
+  B.kh = inv_r * SQRT_HALF;
+}
+
+// The field the pair reads (staged per block by csrc/diff_kernel.cuh): the
+// launch's, with the traced entries recomputed from the vector
+VPT_HD void pair_field(const DiffParams& D, const float* pv, FieldParams& F) {
+  F = D.base.field;
+  const int ik = 2 + 6 * D.base.n_spheres;
+  if (D.fp_kind == kFpFogK) F.k = pv[ik];
+  if (D.fp_kind == kFpBlobs)
+    for (int b = 0; b < F.n_blobs; ++b) traced_blob(pv + ik + 5 * b, F.blob[b]);
+}
+
+// vpt's fp_dI: d(optical path per unit sigma along (o, d) to t)/dtheta for
+// the n_fp traced slots
+VPT_HD void fp_dI(const FieldParams& F, int fp_kind, V3 o, V3 d, float t, float* out) {
+  if (fp_kind == kFpFogK) {
+    out[0] = field_tau_dk(F, o, d, t);
+  } else {
+    for (int b = 0; b < F.n_blobs; ++b) blob_tau_grads(F.blob[b], o, d, t, out + 5 * b);
+  }
+}
+
+// vpt's fp_dlogdens: d log(density at x)/dtheta for the n_fp traced slots
+VPT_HD void fp_dlogdens(const FieldParams& F, int fp_kind, V3 x, float* out) {
+  if (fp_kind == kFpFogK) {
+    out[0] = -(x.y - F.y0);
+    return;
+  }
+  float dens = 0.0f;
+  for (int b = 0; b < F.n_blobs; ++b) {
+    float e = blob_dens_grads(F.blob[b], x, out + 5 * b);
+    float we = F.blob[b].w * e;
+    dens = b == 0 ? we : dens + we;
+  }
+  const float inv = 1.0f / vmax(dens, 1e-30f);
+  for (int f = 0; f < 5 * F.n_blobs; ++f) out[f] = out[f] * inv;
+}
 
 VPT_HD Attr attrs_p(const VptParams& P, const float* pv, int sid) {
   Attr a = attrs(P, sid);
@@ -48,14 +114,19 @@ VPT_HD Attr attrs_p(const VptParams& P, const float* pv, int sid) {
 // MISv2 and its partials (diff.py mis_v2): 3 draws per MIS light, then 3.
 // With kGrads: dsig = d/dsigma_t of the light-strategy transmittances,
 // dalb = d/dalbedo, drad[e] = d/dradiance of MIS light e, dle = d/d(hit
-// radiance) of the BSDF strategy, sid2 its hit sphere.
-template <bool kGrads>
-VPT_HD void diff_mis_v2(const VptParams& P, const float* pv, float sigma_t, Pcg& rng,
-                        const Attr& at, V3 xs, V3 n, V3 d, float acc[3], float dsig[3],
-                        float dalb[3], float dle[3], float drad[][3], int& sid2) {
+// radiance) of the BSDF strategy, sid2 its hit sphere. kField: the light
+// strategy's transmittance through the field F, and with n_fp traced slots
+// dk[f] = d/d(slot f) of the light strategy.
+template <bool kGrads, bool kField>
+VPT_HD void diff_mis_v2(const VptParams& P, const float* pv, const FieldParams& F, int fp_kind,
+                        int n_fp, float sigma_t, Pcg& rng, const Attr& at, V3 xs, V3 n, V3 d,
+                        float acc[3], float dsig[3], float dalb[3], float dle[3],
+                        float drad[][3], float dk[][3], int& sid2) {
   const int rad0 = 2 + 3 * P.n_spheres;
   const bool is_lam = !at.is_mic && !at.is_die;
   for (int i = 0; i < 3; ++i) acc[i] = dsig[i] = dalb[i] = 0.0f;
+  if constexpr (kGrads && kField)
+    for (int f = 0; f < n_fp; ++f) dk[f][0] = dk[f][1] = dk[f][2] = 0.0f;
   V3 wo = neg3(d);
   for (int j = 0; j < P.n_mis; ++j) {
     int e = P.mis_lights[j];
@@ -74,7 +145,12 @@ VPT_HD void diff_mis_v2(const VptParams& P, const float* pv, float sigma_t, Pcg&
     float fr[3];
     eval_fr_nee(at, n, d, wi, false, fr);
     float fpdf_inv = TWO_PI * vmax(1.0f - cos_max, 1e-12f);
-    float att = normcx;
+    // the optical path per unit sigma_t (the distance when homogeneous)
+    float att;
+    if constexpr (kField)
+      att = field_tau(F, 1.0f, xs, wc, normcx);
+    else
+      att = normcx;
     float tr = expf(-sigma_t * att);
     float w_vis = visible ? tr * dot3(n, wi) * fpdf_inv : 0.0f;
     float gpdf = bsdf_pdf_for_dir(at, n, wo, wi, rng.next());
@@ -87,6 +163,17 @@ VPT_HD void diff_mis_v2(const VptParams& P, const float* pv, float sigma_t, Pcg&
         dsig[i] = dsig[i] + term * (-att);
         dalb[i] = dalb[i] + (is_lam ? re * w_vis * wf * INV_PI : 0.0f);
         drad[e][i] = fr[i] * w_vis * wf;
+      }
+    }
+    if constexpr (kGrads && kField) {
+      if (n_fp > 0) {  // d(tr)/dtheta = tr (-sigma_t dI/dtheta)
+        float dIs[VPT_MAX_FP];
+        fp_dI(F, fp_kind, xs, wc, normcx, dIs);
+        for (int f = 0; f < n_fp; ++f)
+          for (int i = 0; i < 3; ++i) {
+            float term = pv[rad0 + 3 * e + i] * fr[i] * w_vis * wf;
+            dk[f][i] = dk[f][i] + term * (-sigma_t * dIs[f]);
+          }
       }
     }
   }
@@ -164,21 +251,27 @@ VPT_HD void diff_mis_v2(const VptParams& P, const float* pv, float sigma_t, Pcg&
 }
 
 // freeSingleScattering with the point-source kill (diff.py medium_nee):
-// radiance, its weight w (d/dlrad) and the shadow distance (d/dsigma_t of
-// the transmittance is -att * value)
-VPT_HD void diff_medium_nee(const VptParams& P, float sigma_t, V3 xt, V3 lc,
-                            const float lrad[3], float lr, int lid, float u1, float u2,
-                            float out[3], float& w, float& att) {
+// radiance, its weight w (d/dlrad), the optical path per unit sigma att
+// (d/dsigma_t of the transmittance is -att * value), the cone direction wl
+// and the shadow distance t_sh
+template <bool kField>
+VPT_HD void diff_medium_nee(const VptParams& P, const FieldParams& F, float sigma_t, V3 xt,
+                            V3 lc, const float lrad[3], float lr, int lid, float u1, float u2,
+                            float out[3], float& w, float& att, V3& wl, float& t_sh) {
   V3 wc = sub3(lc, xt);
   float inv_mag = vrsqrt(vmax(dot3(wc, wc), 1e-20f));
   V3 wc_n = scale3(wc, inv_mag);
   float ratio = lr * inv_mag;
   float cos_max = sqrtf(vmax(1.0f - ratio * ratio, 1e-12f));
-  V3 wl = cone_dir(wc_n, cos_max, u1, u2);
+  wl = cone_dir(wc_n, cos_max, u1, u2);
   float t;
   int sid = nearest_id_t(P, xt, wl, t);
   bool visible = sid >= 0 && sid == lid && lr > 0.0f;
-  att = t;
+  if constexpr (kField)
+    att = field_tau(F, 1.0f, xt, wl, t);
+  else
+    att = t;
+  t_sh = t;
   w = visible ? expf(-sigma_t * att) * P.nee_phase * vmax(1.0f - cos_max, 1e-12f) : 0.0f;
   for (int i = 0; i < 3; ++i) out[i] = lrad[i] * w;
 }
@@ -189,9 +282,16 @@ VPT_HD void diff_medium_nee(const VptParams& P, float sigma_t, V3 xt, V3 lc,
 // leaves its loop at samples == spp: in vpt's tile a finished lane is frozen
 // (alive and need stay false, every accumulation is gated on shade, medium,
 // credit or finished), so nothing more reaches L or the gradient.
-template <bool kGrads>
-VPT_HD void diff_pixel(const DiffParams& D, const float* pv, int pixel, int seed,
-                       const float* gbar, float out[3], float* gout) {
+//
+// kField: the medium's density field F (csrc/diff_kernel.cuh stages it, with
+// the traced parameters' constants from pv). Its free flight is K1's (the
+// same draws; an escaped flight kills the lane), every transmittance and
+// sigma score takes the field's optical paths per unit sigma, and the n_fp
+// traced slots gain vpt's pathwise terms (pLight, MIS light strategy, medium
+// NEE) and deferred event-score pairs.
+template <bool kGrads, bool kField = false>
+VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& F, int pixel,
+                       int seed, const float* gbar, float out[3], float* gout) {
   const VptParams& P = D.base;
   const int S = P.n_spheres;
   const int rad0 = 2 + 3 * S;
@@ -204,6 +304,13 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, int pixel, int seed
   const float med_dsig = -inv_st;
   const float inv_ps = P.n_em_f;
   const float inv_cp = P.inv_cp;
+  // the traced field-parameter slots and delta tracking's step scale
+  const int n_fp = kField ? D.n_fp : 0;
+  const int fp_kind = D.fp_kind;
+  const int IK = 2 + 6 * S;
+  float inv_mr = 0.0f;
+  if constexpr (kField) inv_mr = 1.0f / (sigma_t * F.maj);
+  constexpr int kFp = (kGrads && kField) ? VPT_MAX_FP : 1;
 
   const float px = (float)(pixel % P.width);
   const float py = (float)(P.height - 1 - pixel / P.width);
@@ -225,13 +332,17 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, int pixel, int seed
   // vector (gv, indexed by sphere id)
   float wt[3] = {0.0f, 0.0f, 0.0f};
   float g_st = 0.0f, g_ssx = 0.0f, A_st = 0.0f, B_st = 0.0f, A_ssx = 0.0f, B_ssx = 0.0f;
-  float gv[kGrads ? VPT_MAX_PARAMS : 1];
+  // (gv[IK + f] the immediate field-parameter terms, A_fp / B_fp their
+  // deferred event-score pairs)
+  float gv[kGrads ? (kField ? VPT_MAX_PARAMS + VPT_MAX_FP : VPT_MAX_PARAMS) : 1];
   float A_alb[kGrads ? VPT_MAX_SPHERES : 1][3], B_alb[kGrads ? VPT_MAX_SPHERES : 1][3];
+  float A_fp[kFp], B_fp[kFp];
   if constexpr (kGrads) {
     for (int i = 0; i < 3; ++i) wt[i] = gbar[i] * D.inv_spp;
     for (int k = 0; k < D.n_params; ++k) gv[k] = 0.0f;
     for (int s = 0; s < S; ++s)
       for (int i = 0; i < 3; ++i) A_alb[s][i] = B_alb[s][i] = 0.0f;
+    for (int f = 0; f < n_fp; ++f) A_fp[f] = B_fp[f] = 0.0f;
   }
 
   V3 o = mk(0.0f, 0.0f, 0.0f), d = mk(0.0f, 0.0f, 1.0f);
@@ -273,7 +384,7 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, int pixel, int seed
       u_pick = ld_strat(LD_A5, off[4], s_f);
       u_dist = ld_strat(LD_A3, off[2], s_f);
     }
-    const bool live = u_rr >= P.q;
+    bool live = u_rr >= P.q;
     float t;
     int sid = nearest_id_t(P, o, d, t);
     bool hit = sid >= 0;
@@ -294,17 +405,52 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, int pixel, int seed
       lr = P.r[lid];
     }
 
-    float d_s = -log1pf(-u_dist) * inv_st;
+    float d_s;
+    if constexpr (kField)
+      d_s = field_sample_free(F, sigma_t, inv_mr, o, d, u_dist, rng, t_eff);
+    else
+      d_s = -log1pf(-u_dist) * inv_st;
     bool surface = d_s > t_eff && hit;
+    if (kField) live = live && (d_s < 0.5f * BIG || surface);  // escaped: dies
     V3 xt = ray_at(o, d_s, d);
     bool medium = live && !surface;
     bool shade_pre = live && surface;
     if constexpr (kGrads) {
       // free-flight score vs the L-prefix before this bounce
-      float k_sc = shade_pre ? -t_eff : (medium ? inv_st - d_s : 0.0f);
+      float k_sc;
+      if constexpr (kField) {
+        // dlog p/dsigma = 1/sigma_t - I(d) (medium) | -I(t) (surface), I
+        // the optical path per unit sigma
+        if (shade_pre)
+          k_sc = -field_tau(F, 1.0f, o, d, t_eff);
+        else if (medium)
+          k_sc = inv_st - field_tau(F, 1.0f, o, d, d_s);
+        else
+          k_sc = 0.0f;
+      } else {
+        k_sc = shade_pre ? -t_eff : (medium ? inv_st - d_s : 0.0f);
+      }
       float wL0 = wt[0] * Lps[0] + wt[1] * Lps[1] + wt[2] * Lps[2];
       A_st = A_st + k_sc;
       B_st = B_st + k_sc * wL0;
+      if constexpr (kField) {
+        if (n_fp > 0) {
+          // field-parameter event scores: dlog dens(x_d)/dtheta - sigma
+          // dI(d)/dtheta (medium), -sigma dI(t)/dtheta (surface)
+          float dI[kFp], dld[kFp];
+          if (shade_pre) fp_dI(F, fp_kind, o, d, t_eff, dI);
+          if (medium) {
+            fp_dI(F, fp_kind, o, d, d_s, dI);
+            fp_dlogdens(F, fp_kind, xt, dld);
+          }
+          for (int f = 0; f < n_fp; ++f) {
+            float k_f = shade_pre ? -sigma_t * dI[f]
+                                  : (medium ? dld[f] - sigma_t * dI[f] : 0.0f);
+            A_fp[f] = A_fp[f] + k_f;
+            B_fp[f] = B_fp[f] + k_f * wL0;
+          }
+        }
+      }
     }
 
     bool em_hit = surface && at.is_em;
@@ -332,12 +478,19 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, int pixel, int seed
         ldp[i] = lrad[i] * coef[i];
       }
       float att_pl = dist_l;
+      V3 wlight = mk(0.0f, 0.0f, 0.0f);
+      if constexpr (kField) {
+        float inv_dl = 1.0f / vmax(dist_l, 1e-20f);
+        wlight = scale3(sub3(lc, xs), inv_dl);
+        att_pl = field_tau(F, 1.0f, xs, wlight, dist_l);
+      }
       float trs = expf(-sigma_t * att_pl);
       float ldm[3], dsig[3], dalb[3], dle[3];
       float drad[kGrads ? VPT_MAX_SPHERES : 1][3];
+      float dk[kFp][3];
       int sid2;
-      diff_mis_v2<kGrads>(P, pv, sigma_t, rng, at, xs, nrm, d, ldm, dsig, dalb, dle, drad,
-                          sid2);
+      diff_mis_v2<kGrads, kField>(P, pv, F, fp_kind, n_fp, sigma_t, rng, at, xs, nrm, d, ldm,
+                                  dsig, dalb, dle, drad, dk, sid2);
       for (int i = 0; i < 3; ++i) {
         float add = (ldp[i] * trs * inv_ps + ldm[i]) * tp[i] * inv_cp;
         L[i] = L[i] + add;
@@ -348,6 +501,19 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, int pixel, int seed
         for (int i = 0; i < 3; ++i)
           gs = gs + wt[i] * (ldp[i] * trs * (-att_pl) * inv_ps + dsig[i]) * tp[i] * inv_cp;
         g_st = g_st + gs;
+        if constexpr (kField) {
+          if (n_fp > 0) {  // pLight's and the MIS light strategy's d(tr)/dtheta
+            float dI_pl[kFp];
+            fp_dI(F, fp_kind, xs, wlight, dist_l, dI_pl);
+            for (int f = 0; f < n_fp; ++f) {
+              float gk = 0.0f;
+              for (int i = 0; i < 3; ++i)
+                gk = gk + wt[i] * (ldp[i] * trs * (-sigma_t * dI_pl[f]) * inv_ps + dk[f][i]) *
+                              tp[i] * inv_cp;
+              gv[IK + f] = gv[IK + f] + gk;
+            }
+          }
+        }
         for (int q = 0; q < n_em; ++q) {  // radiance: pLight, MIS light, MIS BSDF
           int e = P.emitters[q];
           bool is_mis = false;
@@ -396,8 +562,10 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, int pixel, int seed
         }
       }
     } else if (medium) {
-      float ld_med[3], w_med, att_nee;
-      diff_medium_nee(P, sigma_t, xt, lc, lrad, lr, lid, m1, m2, ld_med, w_med, att_nee);
+      float ld_med[3], w_med, att_nee, t_nee;
+      V3 wl_nee;
+      diff_medium_nee<kField>(P, F, sigma_t, xt, lc, lrad, lr, lid, m1, m2, ld_med, w_med,
+                              att_nee, wl_nee, t_nee);
       float adds[3];
       for (int i = 0; i < 3; ++i) {
         adds[i] = ld_med[i] * inv_ps * tp[i] * ar_cp;
@@ -412,6 +580,14 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, int pixel, int seed
         }
         g_st = g_st + gs;
         g_ssx = g_ssx + gx * inv_ss;
+        if constexpr (kField) {
+          if (n_fp > 0) {  // the medium-NEE transmittance's d/dtheta
+            float dI_nee[kFp];
+            fp_dI(F, fp_kind, xt, wl_nee, t_nee, dI_nee);
+            for (int f = 0; f < n_fp; ++f)
+              gv[IK + f] = gv[IK + f] + gx * (-sigma_t * dI_nee[f]);
+          }
+        }
         if (lid >= 0)
           for (int i = 0; i < 3; ++i)
             gv[rad0 + 3 * lid + i] =
@@ -438,6 +614,10 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, int pixel, int seed
         g_st = g_st + (A_st * WL - B_st);
         g_ssx = g_ssx + (A_ssx * WL - B_ssx);
         A_st = B_st = A_ssx = B_ssx = 0.0f;
+        for (int f = 0; f < n_fp; ++f) {
+          gv[IK + f] = gv[IK + f] + (A_fp[f] * WL - B_fp[f]);
+          A_fp[f] = B_fp[f] = 0.0f;
+        }
         for (int s = 0; s < S; ++s) {
           if (!((D.lam_mask >> s) & 1)) continue;
           for (int i = 0; i < 3; ++i) {
@@ -457,6 +637,7 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, int pixel, int seed
     float wt_sum = wt[0] * Lps[0] + wt[1] * Lps[1] + wt[2] * Lps[2];
     g_st = g_st + A_st * wt_sum - B_st;
     g_ssx = g_ssx + A_ssx * wt_sum - B_ssx;
+    for (int f = 0; f < n_fp; ++f) gv[IK + f] = gv[IK + f] + A_fp[f] * wt_sum - B_fp[f];
     for (int s = 0; s < S; ++s) {
       if (!((D.lam_mask >> s) & 1)) continue;
       for (int i = 0; i < 3; ++i)

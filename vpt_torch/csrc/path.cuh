@@ -3,10 +3,11 @@
 //
 // Thread-scalar transcription of vpt's fused render kernel body
 // (vpt/kernels/wavefront.py:266-741) and of the primitives it inlines
-// (vpt/kernels/prims.py), for homogeneous media: free-flight and the two
-// equi-angular distance samplers, with or without NEE, the physical RR
-// compensation, the baked Henyey-Greenstein g, material-3 shells in pLight's
-// cascade, samplers "random" and "ld". (nee, distance) are template
+// (vpt/kernels/prims.py): free-flight and the two equi-angular distance
+// samplers, with or without NEE, the physical RR compensation, the baked
+// Henyey-Greenstein g, material-3 shells in pLight's cascade, samplers
+// "random" and "ld", in a homogeneous medium or in an analytic density field
+// (exp_height or Gaussian blobs). (nee, distance, field) are template
 // parameters of render_pixel; the rest are launch parameters. Everything is
 // __host__ __device__: nvcc builds it into the kernel, and the test build
 // compiles the same header with g++ through csrc/path_host.cpp.
@@ -42,6 +43,34 @@
 #endif
 
 #define VPT_MAX_SPHERES 16
+#define VPT_MAX_BLOBS 16
+
+// One Gaussian blob of a density field and the constants its formulas fold
+// (vpt folds them in float64 where it bakes the field, and computes them in
+// f32 where its pair traces the blob; the host or the pair's kernel fills
+// them accordingly): FieldBlob words of kernels/wavefront.py BLOB_KEYS.
+struct FieldBlob {
+  float cx, cy, cz, r, w;
+  float dens_c;  // 1 / (r r)            field_density
+  float tau_c;   // (1 / r)^2            field_tau
+  float amp_c;   // r sqrt(pi / 2) w     field_tau
+  float kh;      // (1 / r) sqrt(1 / 2)  field_tau
+  float inv_r;   // 1 / r                the blob derivatives
+  float ramp;    // r sqrt(pi / 2)       the blob derivatives
+};
+
+// An analytic density field (vpt/media/density.py), laid out by
+// kernels/wavefront.py field_words(); all zeros in a homogeneous medium.
+struct FieldParams {
+  int kind;          // 1 exp_height, 2 blobs
+  int n_blobs;       // blobs: rows in blob[]
+  int max_null;      // blobs: delta-tracking null collisions per flight
+  float k, y0;       // exp_height: d(x) = exp(-k (x_y - y0))
+  float maj;         // majorant, f32
+  float inv_maj;     // 1 / majorant, folded in double
+  float inv_maj_rate;  // 1 / (sigma_t majorant), folded in double (K1)
+  FieldBlob blob[VPT_MAX_BLOBS];
+};
 
 // Launch parameters, laid out word by word by
 // vpt_torch/kernels/wavefront.py Packed.words(). All fields are 4 bytes.
@@ -78,6 +107,7 @@ struct VptParams {
   float rad[VPT_MAX_SPHERES][3];
   float eta[VPT_MAX_SPHERES][3];
   float kap[VPT_MAX_SPHERES][3];
+  FieldParams field;                // read by the field instantiations only
 };
 
 namespace vpt {
@@ -555,9 +585,17 @@ VPT_HD float power_h_invg(float f, float g_inv) {
   return f > 0.0f ? r2 / (r2 + 1.0f) : 0.0f;
 }
 
+}  // namespace vpt
+
+#include "field.cuh"
+
+namespace vpt {
+
 // ---- estimator pieces (vpt/kernels/wavefront.py) ------------------------
 
-// MISv2 (misSamplingFunctions.h:96-170): takes 3 draws per MIS light, then 3
+// MISv2 (misSamplingFunctions.h:96-170): takes 3 draws per MIS light, then 3.
+// kField: the light strategy's transmittance through the density field.
+template <bool kField>
 VPT_HD void mis_v2(const VptParams& P, Pcg& rng, const Attr& at, V3 xs, V3 n, V3 d,
                    float acc[3]) {
   acc[0] = acc[1] = acc[2] = 0.0f;
@@ -579,7 +617,11 @@ VPT_HD void mis_v2(const VptParams& P, Pcg& rng, const Attr& at, V3 xs, V3 n, V3
     float fr[3];
     eval_fr_nee(at, n, d, wi, false, fr);
     float fpdf_inv = TWO_PI * vmax(1.0f - cos_max, 1e-12f);
-    float tr = expf(-P.sigma_t * normcx);
+    float tr;
+    if constexpr (kField)
+      tr = field_tr_toward(P.field, P.sigma_t, xs, wc, normcx);
+    else
+      tr = expf(-P.sigma_t * normcx);
     float w_vis = visible ? tr * dot3(n, wi) * fpdf_inv : 0.0f;
     float gpdf = bsdf_pdf_for_dir(at, n, wo, wi, rng.next());
     float wf = power_h_invf(fpdf_inv, gpdf);
@@ -651,7 +693,8 @@ VPT_HD void mis_v2(const VptParams& P, Pcg& rng, const Attr& at, V3 xs, V3 n, V3
 // freeSingleScattering (volumetricBasicFunctions.h:284-340) with the
 // missing-else point kill: point sources (lr == 0) contribute 0. d is the
 // incoming propagation direction: at g != 0 the phase value toward the cone
-// sample is HG
+// sample is HG. kField: the shadow ray's transmittance through the field
+template <bool kField>
 VPT_HD void medium_nee(const VptParams& P, V3 d, V3 xt, V3 lc, const float lrad[3], float lr,
                        int lid, float u1, float u2, float out[3]) {
   V3 wc = sub3(lc, xt);
@@ -663,7 +706,11 @@ VPT_HD void medium_nee(const VptParams& P, V3 d, V3 xt, V3 lc, const float lrad[
   float t;
   int sid = nearest_id_t(P, xt, wl, t);
   bool visible = sid >= 0 && sid == lid && lr > 0.0f;
-  float tr_l = expf(-P.sigma_t * t);
+  float tr_l;
+  if constexpr (kField)
+    tr_l = field_tr_toward(P.field, P.sigma_t, xt, wl, t);
+  else
+    tr_l = expf(-P.sigma_t * t);
   // phase / cone pdf = phase * 2pi * (1 - cos_max)
   float phase_2pi = P.g != 0.0f ? hg_phase_const(P, dot3(d, wl)) * TWO_PI : P.nee_phase;
   float w = visible ? tr_l * phase_2pi * vmax(1.0f - cos_max, 1e-12f) : 0.0f;
@@ -684,8 +731,15 @@ enum Distance { kFree = 0, kEquiangular = 1, kEaClamped = 2 };
 // skipped ones are taken with Pcg::skip): camera u, v ("random" with
 // jitter); u_rr, u_pick; u_dist; u_ev (equi-angular families); with NEE the
 // MISv2 draws, skipped on lanes that do not shade; BSDF u1, u2, u_choice;
-// phase u_p1, u_p2; with NEE the two medium-NEE cone draws.
-template <bool kNee, int kDist>
+// phase u_p1, u_p2; with NEE the two medium-NEE cone draws. In a blobs field
+// the free flight takes 2 * max_null draws right after u_dist
+// (field_sample_free).
+//
+// kField: the medium's density field (P.field, exp_height or blobs). A
+// flight may then escape (d_s == BIG off any surface), which kills the lane;
+// every transmittance is the field's, and the equi-angular medium weight
+// takes sigma_s(xt) = sigma_s d(xt).
+template <bool kNee, int kDist, bool kField = false>
 VPT_HD void render_pixel(const VptParams& P, uint32_t lane, int pixel, int seed, float out[3]) {
   const float px = (float)(pixel % P.width);
   const float py = (float)(P.height - 1 - pixel / P.width);
@@ -742,7 +796,7 @@ VPT_HD void render_pixel(const VptParams& P, uint32_t lane, int pixel, int seed,
     }
     // after regeneration every lane in this loop is alive; `live` is the
     // Russian-roulette survival of this iteration
-    const bool live = u_rr >= P.q;
+    bool live = u_rr >= P.q;
     float t;
     int sid = nearest_id_t(P, o, d, t);
     bool hit = sid >= 0;
@@ -771,11 +825,23 @@ VPT_HD void render_pixel(const VptParams& P, uint32_t lane, int pixel, int seed,
     // transmittance to the surface: the implicit free weight and the
     // equi-angular event probability
     float tr_actual = 0.0f;
-    if (kDist != kFree || (!kNee && !P.physical)) tr_actual = hit ? expf(-P.sigma_t * t) : 0.0f;
+    if constexpr (kField) {
+      // in the field: equi-angular's event probability here, the implicit
+      // free weight's (1 - Tr) on the medium lanes below
+      if (kDist != kFree && hit) tr_actual = expf(-field_tau(P.field, P.sigma_t, o, d, t));
+    } else {
+      if (kDist != kFree || (!kNee && !P.physical)) tr_actual = hit ? expf(-P.sigma_t * t) : 0.0f;
+    }
     float d_along = 0.0f, pdf_success = 1.0f;
     if (kDist == kFree) {
-      float d_s = -log1pf(-u_dist) * P.inv_sigma_t;
+      float d_s;
+      if constexpr (kField)
+        d_s = field_sample_free(P.field, P.sigma_t, P.field.inv_maj_rate, o, d, u_dist, rng, t_eff);
+      else
+        d_s = -log1pf(-u_dist) * P.inv_sigma_t;
       surface = d_s > t_eff && hit;
+      // an escaped flight kills the lane
+      if (kField) live = live && (d_s < 0.5f * BIG || surface);
       xt = ray_at(o, d_s, d);
     } else {
       // equi-angular (equiAngularParams2, volumetricBasicFunctions.h:209-223)
@@ -832,9 +898,16 @@ VPT_HD void render_pixel(const VptParams& P, uint32_t lane, int pixel, int seed,
         float fr[3];
         eval_fr_nee(at, nrm, d, wi, true, fr);
         float cosw = dot3(nrm, wi);
-        float trs = expf(-P.sigma_t * dist_l);
+        float trs;
+        if constexpr (kField) {
+          float inv_dl = 1.0f / vmax(dist_l, 1e-20f);
+          V3 wlight = scale3(sub3(lc, xs), inv_dl);
+          trs = field_tr_toward(P.field, P.sigma_t, xs, wlight, dist_l);
+        } else {
+          trs = expf(-P.sigma_t * dist_l);
+        }
         float ldm[3];
-        mis_v2(P, rng, at, xs, nrm, d, ldm);
+        mis_v2<kField>(P, rng, at, xs, nrm, d, ldm);
         for (int i = 0; i < 3; ++i) {
           float ldp = lrad[i] * le_scale * fr[i] * cosw;
           float ld = ldp * (trs * P.n_em_f) + ldm[i];
@@ -867,7 +940,7 @@ VPT_HD void render_pixel(const VptParams& P, uint32_t lane, int pixel, int seed,
           // explicit free flight: transmittance/pdf cancel analytically
           // (the PBRT simplification, vptShadeMethods.h:1248)
           float ld_med[3];
-          medium_nee(P, d, xt, lc, lrad, lr, lid, m1, m2, ld_med);
+          medium_nee<kField>(P, d, xt, lc, lrad, lr, lid, m1, m2, ld_med);
           for (int i = 0; i < 3; ++i) L[i] = L[i] + ld_med[i] * tp[i] * P.med_c;
           w_med = P.tp_med;
         } else if (P.physical) {
@@ -875,17 +948,24 @@ VPT_HD void render_pixel(const VptParams& P, uint32_t lane, int pixel, int seed,
         } else {
           // implicit free: (sigma_s / sigma_t) / (cp (1 - Tr))
           // (vptShadeMethods.h:977,1006)
+          if constexpr (kField)
+            tr_actual = hit ? expf(-field_tau(P.field, P.sigma_t, o, d, t)) : 0.0f;
           w_med = P.tp_med / vmax(1.0f - tr_actual, 1e-20f);
         }
       } else {
         // equi-angular: T and pdf appear explicitly
         // (vptShadeMethods.h:1134-1146)
-        float t_xt = expf(-P.sigma_t * fabsf(d_along));
+        float t_xt;
+        if constexpr (kField)  // tau is odd in t: |tau| behind the origin
+          t_xt = expf(-fabsf(field_tau(P.field, P.sigma_t, o, d, d_along)));
+        else
+          t_xt = expf(-P.sigma_t * fabsf(d_along));
         float inv_pdf_s = 1.0f / pdf_success;
         w_med = P.ss_cp * t_xt * inv_pdf_s;
+        if constexpr (kField) w_med = w_med * field_density(P.field, xt);  // sigma_s(xt)
         if (kNee) {
           float ld_med[3];
-          medium_nee(P, d, xt, lc, lrad, lr, lid, m1, m2, ld_med);
+          medium_nee<kField>(P, d, xt, lc, lrad, lr, lid, m1, m2, ld_med);
           float scale = w_med * P.n_em_f;
           for (int i = 0; i < 3; ++i) L[i] = L[i] + ld_med[i] * scale * tp[i];
         }
@@ -910,14 +990,14 @@ constexpr int kLanesPerTile = 32 * 128;
 // Lane i of a launch: lane i, or lane i % kLanesPerTile of tile i / kLanesPerTile
 // from bases[]; writes the lane's sums (sums != 0) or its radiance / spp to
 // out[3 i .. 3 i + 2]
-template <bool kNee, int kDist>
+template <bool kNee, int kDist, bool kField = false>
 VPT_HD void render_lane(const VptParams& P, int seed, const int* bases, int i,
                         int sums, float* out) {
   const int npix = P.width * P.height;
   const int lane = bases ? bases[i / kLanesPerTile] + i % kLanesPerTile : i;
   const int pixel = lane < npix - 1 ? lane : npix - 1;
   float L[3];
-  render_pixel<kNee, kDist>(P, (uint32_t)lane, pixel, seed, L);
+  render_pixel<kNee, kDist, kField>(P, (uint32_t)lane, pixel, seed, L);
   const float spp = (float)P.spp;
   for (int c = 0; c < 3; ++c) out[3 * i + c] = sums ? L[c] : L[c] / spp;
 }

@@ -1,6 +1,7 @@
 // Host build of the kernels' per-path code, for the CPU tests only.
 //
-// Compiles csrc/path.cuh, csrc/diff_path.cuh and csrc/geom_path.cuh with a
+// Compiles csrc/path.cuh (with csrc/field.cuh), csrc/diff_path.cuh and
+// csrc/geom_path.cuh with a
 // C++ compiler and loops over the pixels in place of the CUDA grid, so the
 // kernels' path code can be held against the plain torch versions where
 // there is no card
@@ -14,37 +15,51 @@ extern "C" int vpt_params_words(void) { return (int)(sizeof(VptParams) / 4); }
 
 extern "C" int vpt_diff_params_words(void) { return (int)(sizeof(DiffParams) / 4); }
 
-template <bool kNee, int kDist>
+template <bool kNee, int kDist, bool kField>
 static void render_host(const VptParams& P, int seed, const int* bases, int n_lanes,
                         int sums, float* out) {
-  for (int i = 0; i < n_lanes; ++i) vpt::render_lane<kNee, kDist>(P, seed, bases, i, sums, out);
+  for (int i = 0; i < n_lanes; ++i)
+    vpt::render_lane<kNee, kDist, kField>(P, seed, bases, i, sums, out);
 }
 
 // K1's path code, the lanes of one launch of csrc/wavefront_kernel.cuh.
 // params: a VptParams; variant: 0 free + NEE, 1 free, 2 equi-angular + NEE,
-// 3 clamped equi-angular (the kernel's instantiations); bases: int32 tile
-// bases or NULL; out: float32[n_lanes * 3]. Returns -1 for another variant.
+// 3 clamped equi-angular (the kernel's instantiations), 4-7 the same in a
+// density field; bases: int32 tile bases or NULL; out: float32[n_lanes * 3].
+// Returns -1 for another variant.
 extern "C" int vpt_render_host(const void* params, int variant, int seed, const int* bases,
                                int n_lanes, int sums, float* out) {
   VptParams P;
   memcpy(&P, params, sizeof P);
   switch (variant) {
-    case 0: render_host<true, vpt::kFree>(P, seed, bases, n_lanes, sums, out); break;
-    case 1: render_host<false, vpt::kFree>(P, seed, bases, n_lanes, sums, out); break;
-    case 2: render_host<true, vpt::kEquiangular>(P, seed, bases, n_lanes, sums, out); break;
-    case 3: render_host<false, vpt::kEaClamped>(P, seed, bases, n_lanes, sums, out); break;
+    case 0: render_host<true, vpt::kFree, false>(P, seed, bases, n_lanes, sums, out); break;
+    case 1: render_host<false, vpt::kFree, false>(P, seed, bases, n_lanes, sums, out); break;
+    case 2: render_host<true, vpt::kEquiangular, false>(P, seed, bases, n_lanes, sums, out); break;
+    case 3: render_host<false, vpt::kEaClamped, false>(P, seed, bases, n_lanes, sums, out); break;
+    case 4: render_host<true, vpt::kFree, true>(P, seed, bases, n_lanes, sums, out); break;
+    case 5: render_host<false, vpt::kFree, true>(P, seed, bases, n_lanes, sums, out); break;
+    case 6: render_host<true, vpt::kEquiangular, true>(P, seed, bases, n_lanes, sums, out); break;
+    case 7: render_host<false, vpt::kEaClamped, true>(P, seed, bases, n_lanes, sums, out); break;
     default: return -1;
   }
   return 0;
 }
 
-// K2's path code. params: a DiffParams; pvec: float32[P];
-// out: float32[npix * 3], the radiance sums divided by spp
+// K2's path code (its field instantiation when the scene has a field).
+// params: a DiffParams; pvec: float32[P]; out: float32[npix * 3], the
+// radiance sums divided by spp
 extern "C" void vpt_diff_fwd_host(const void* params, const float* pvec, int seed, float* out) {
   DiffParams D;
   memcpy(&D, params, sizeof D);
+  FieldParams F;
+  vpt::pair_field(D, pvec, F);
   const int npix = D.base.width * D.base.height;
-  for (int p = 0; p < npix; ++p) vpt::diff_pixel<false>(D, pvec, p, seed, nullptr, out + 3 * p, nullptr);
+  for (int p = 0; p < npix; ++p) {
+    if (F.kind != 0)
+      vpt::diff_pixel<false, true>(D, pvec, F, p, seed, nullptr, out + 3 * p, nullptr);
+    else
+      vpt::diff_pixel<false, false>(D, pvec, F, p, seed, nullptr, out + 3 * p, nullptr);
+  }
 }
 
 // K3's path code. gbar: float32[npix * 3]; gout: float32[npix * P], each
@@ -53,9 +68,16 @@ extern "C" void vpt_diff_bwd_host(const void* params, const float* pvec, int see
                                   const float* gbar, float* gout) {
   DiffParams D;
   memcpy(&D, params, sizeof D);
+  FieldParams F;
+  vpt::pair_field(D, pvec, F);
   const int npix = D.base.width * D.base.height;
-  for (int p = 0; p < npix; ++p)
-    vpt::diff_pixel<true>(D, pvec, p, seed, gbar + 3 * p, nullptr, gout + (size_t)D.n_params * p);
+  for (int p = 0; p < npix; ++p) {
+    float* g = gout + (size_t)D.n_params * p;
+    if (F.kind != 0)
+      vpt::diff_pixel<true, true>(D, pvec, F, p, seed, gbar + 3 * p, nullptr, g);
+    else
+      vpt::diff_pixel<true, false>(D, pvec, F, p, seed, gbar + 3 * p, nullptr, g);
+  }
 }
 
 extern "C" int vpt_geom_params_words(void) { return (int)(sizeof(GeomParams) / 4); }

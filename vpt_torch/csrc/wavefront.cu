@@ -3,7 +3,7 @@
 // helpers the wrappers share. The kernel is in csrc/wavefront_kernel.cuh.
 #include "wavefront_kernel.cuh"
 
-VPT_WAVEFRONT_ENTRY(vpt_wavefront_free_nee, true, vpt::kFree)
+VPT_WAVEFRONT_ENTRY(vpt_wavefront_free_nee, true, vpt::kFree, false)
 
 extern "C" int vpt_params_words(void) { return (int)(sizeof(VptParams) / 4); }
 

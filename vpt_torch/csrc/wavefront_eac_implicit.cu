@@ -2,4 +2,4 @@
 // (implicit_equiangular). The kernel is in csrc/wavefront_kernel.cuh.
 #include "wavefront_kernel.cuh"
 
-VPT_WAVEFRONT_ENTRY(vpt_wavefront_eac_implicit, false, vpt::kEaClamped)
+VPT_WAVEFRONT_ENTRY(vpt_wavefront_eac_implicit, false, vpt::kEaClamped, false)

@@ -2,4 +2,4 @@
 // implicit_free_physical). The kernel is in csrc/wavefront_kernel.cuh.
 #include "wavefront_kernel.cuh"
 
-VPT_WAVEFRONT_ENTRY(vpt_wavefront_free_implicit, false, vpt::kFree)
+VPT_WAVEFRONT_ENTRY(vpt_wavefront_free_implicit, false, vpt::kFree, false)

@@ -13,7 +13,11 @@
 // wavefront.cu (free flight + NEE, the main path), wavefront_free_implicit.cu,
 // wavefront_ea.cu (equi-angular + NEE), wavefront_eac_implicit.cu (clamped
 // equi-angular, no NEE). The physical mode, HG g and the material-3 shells
-// are launch parameters.
+// are launch parameters. A medium with an analytic density field runs in a
+// second set, one per pair again (wavefront_field*.cu, kField = true): the
+// field is a compile-time parameter so that the homogeneous instantiations
+// keep their code (K1's main path holds 116 registers without spills), and
+// exp_height against blobs is a uniform switch inside them.
 //
 // Lanes: lane i of the launch (bases == NULL), or tile i / 4096 of the
 // launch from bases[] (vpt's scatter-tile mode, adaptive sampling's second
@@ -40,35 +44,36 @@ namespace vpt_wavefront {
 
 constexpr int kThreads = 128;
 
-template <bool kNee, int kDist>
+template <bool kNee, int kDist, bool kField>
 __global__ void __launch_bounds__(kThreads)
     kernel(const __grid_constant__ VptParams P, const int* __restrict__ seed,
            const int* __restrict__ bases, int n_lanes, int sums, float* __restrict__ out) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n_lanes) return;
-  vpt::render_lane<kNee, kDist>(P, seed[0], bases, i, sums, out);
+  vpt::render_lane<kNee, kDist, kField>(P, seed[0], bases, i, sums, out);
 }
 
 // params: host pointer to a VptParams (copied into the launch); seed: device
 // int32[1]; bases: device int32[n_lanes / 4096] or NULL; out: device
 // float32[n_lanes * 3]; stream: cudaStream_t.
 // Returns cudaGetLastError() right after the launch; does not synchronise.
-template <bool kNee, int kDist>
+template <bool kNee, int kDist, bool kField>
 int launch(const void* params, const void* seed, const void* bases, int n_lanes, int sums,
            void* out, void* stream) {
   VptParams P;
   memcpy(&P, params, sizeof P);
   if (n_lanes <= 0) return 0;
   const int blocks = (n_lanes + kThreads - 1) / kThreads;
-  kernel<kNee, kDist><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  kernel<kNee, kDist, kField><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       P, (const int*)seed, (const int*)bases, n_lanes, sums, (float*)out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace vpt_wavefront
 
-#define VPT_WAVEFRONT_ENTRY(name, nee, dist)                                                  \
+#define VPT_WAVEFRONT_ENTRY(name, nee, dist, field)                                        \
   extern "C" int name(const void* params, const void* seed, const void* bases, int n_lanes, \
                       int sums, void* out, void* stream) {                                     \
-    return vpt_wavefront::launch<nee, dist>(params, seed, bases, n_lanes, sums, out, stream); \
+    return vpt_wavefront::launch<nee, dist, field>(params, seed, bases, n_lanes, sums, out,    \
+                                                   stream);                                    \
   }

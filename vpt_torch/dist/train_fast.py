@@ -2,8 +2,9 @@
 
 Counterpart of ``make_kernel_train_step``, ``_fit_loop`` and ``fit_kernel``
 in ``vpt/dist/train_fast.py``. The step optimizes the medium and material
-set {sigma_a, sigma_s, albedo, radiance} through kernels/diff.py: K2 renders,
-K3 replays the paths for the gradient.
+set {sigma_a, sigma_s, albedo, radiance}, and in a density field the fog
+falloff "fog_k" (diff_field) or the blob rows "blobs" (diff_blobs), through
+kernels/diff.py: K2 renders, K3 replays the paths for the gradient.
 
 The loss is vpt's A/B unbiased MSE: two independent half-budget renders A
 and B give E[(A-t)(B-t)] = (E[est]-t)^2 exactly, so low-spp steps do not
@@ -19,7 +20,10 @@ boundary terms the dual estimator drops.
 optax.adam becomes torch.optim.Adam with optax's defaults, and the
 optimizer keeps its own state: the step updates the params dict in place
 and returns the loss. Param groups stand in for optax.multi_transform: a
-leaf outside the optimizer stays frozen. A learning rate may be a float or
+leaf outside the optimizer stays frozen (fit_kernel's param_filter does
+the same: examples/recover_blobs.py's Adam at 0.15 on "blobs" and
+set_to_zero elsewhere is learning_rate=0.15 with a filter that keeps only
+the updated "blobs"; Adam is per element). A learning rate may be a float or
 a schedule count -> lr (exponential_decay). The multi-view and sharded
 trainers of vpt's module are ROADMAP Queue 1 items 5 and 8.
 """
@@ -105,12 +109,13 @@ def fit_kernel(scene: Scene, camera: Camera, target, *, steps: int = 100,
                diff_g: bool = False, diff_field: bool = False,
                diff_blobs: bool = False, diff_grid: bool = False,
                param_filter=None, log_every: int = 0, device="cuda"):
-    """Recover {sigma_a, sigma_s, albedo, radiance} from a target (H, W, 3)
-    image with the render pair on `device` ("cuda": K2/K3 or raise; "cpu":
-    their plain versions). `param_filter(updated, initial) -> params` can
-    freeze entries (e.g. keep everything but sigma_s fixed). Returns
-    (params, losses). diff_g, diff_field, diff_blobs and diff_grid raise
-    NotImplementedError naming their ROADMAP item."""
+    """Recover {sigma_a, sigma_s, albedo, radiance}, plus the fog falloff
+    "fog_k" when diff_field=True or the blob rows "blobs" (K, 5) when
+    diff_blobs=True, from a target (H, W, 3) image with the render pair on
+    `device` ("cuda": K2/K3 or raise; "cpu": their plain versions).
+    `param_filter(updated, initial) -> params` can freeze entries (e.g. keep
+    everything but sigma_s fixed). Returns (params, losses). diff_g and
+    diff_grid raise NotImplementedError naming their ROADMAP item."""
     height, width = target.shape[:2]
     dev = torch.device(device)
     params = {k: v.to(dev).requires_grad_()
@@ -123,6 +128,8 @@ def fit_kernel(scene: Scene, camera: Camera, target, *, steps: int = 100,
     step = make_kernel_train_step(scene, camera, width, height, spp,
                                   optimizer, distance=distance,
                                   max_bounces=max_bounces, sampler=sampler,
+                                  diff_g=diff_g, diff_field=diff_field,
+                                  diff_blobs=diff_blobs, diff_grid=diff_grid,
                                   device=dev)
     return _fit_loop(step, params, target, width, height, steps, seed,
                      param_filter, log_every, dev)

@@ -101,19 +101,25 @@ def load() -> ctypes.CDLL:
     """Build if needed, load, and declare the C interface."""
     lib = ctypes.CDLL(str(build()))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    # K1, one entry per instantiation (csrc/wavefront*.cu)
-    for entry in ("vpt_wavefront_free_nee", "vpt_wavefront_free_implicit",
-                  "vpt_wavefront_ea_nee", "vpt_wavefront_eac_implicit"):
+    # K1, one entry per instantiation (csrc/wavefront*.cu), homogeneous and
+    # in a density field
+    from .wavefront import FIELD_ENTRIES, KERNEL_ENTRIES
+
+    for entry in (*KERNEL_ENTRIES.values(), *FIELD_ENTRIES.values()):
         fn = getattr(lib, entry)
         fn.argtypes = [vp, vp, vp, ci, ci, vp, vp]
         fn.restype = ci
     lib.vpt_params_words.argtypes = []
     lib.vpt_params_words.restype = ctypes.c_int
-    # the differentiable pair (csrc/diff.cu)
-    lib.vpt_diff_fwd.argtypes = [ctypes.c_void_p] * 5
-    lib.vpt_diff_fwd.restype = ctypes.c_int
-    lib.vpt_diff_bwd.argtypes = [ctypes.c_void_p] * 7
-    lib.vpt_diff_bwd.restype = ctypes.c_int
+    # the differentiable pair (csrc/diff.cu; in a density field
+    # csrc/diff_field_fwd.cu and diff_field_bwd.cu)
+    for sfx in ("", "_field"):
+        fwd = getattr(lib, "vpt_diff_fwd" + sfx)
+        fwd.argtypes = [vp] * 5
+        fwd.restype = ci
+        bwd = getattr(lib, "vpt_diff_bwd" + sfx)
+        bwd.argtypes = [vp] * 7
+        bwd.restype = ci
     lib.vpt_diff_params_words.argtypes = []
     lib.vpt_diff_params_words.restype = ctypes.c_int
     lib.vpt_diff_block_threads.argtypes = []

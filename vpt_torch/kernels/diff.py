@@ -28,9 +28,26 @@ Arithmetic follows vpt's diff body, not its forward kernel: sigma_t,
 vector, the camera divides by the frame size, and the NEE sums associate as
 diff.py writes them. The draw order is K1's (kernels/wavefront.py).
 
-Scope: nee=True, distance="free", physical=False, homogeneous medium with
-g == 0, no material-3 shell, samplers "random" and "ld". Everything else
-raises NotImplementedError naming its ROADMAP item.
+Density fields (vpt's diff_field / diff_blobs, diff.py:306-345): in an
+analytic field (exp_height or blobs) every transmittance is the field's,
+the free flight inverts or delta-tracks it with K1's draws, and the sigma
+scores take the optical paths per unit sigma (field_tau(fc, 1.0, ...)).
+diff_field traces the exp_height falloff "fog_k" and diff_blobs the blob
+rows "blobs" (K, 5): n_fp = 1 or 5K slots after the 2 + 6S, each with a
+pathwise term (the transmittances' d/dtheta through fp_dI) and a deferred
+event-score pair (fp_dI and fp_dlogdens at the sampled distance). The
+field runs in the kernels' field instantiations (csrc/diff_field.cu).
+
+Arithmetic of the field: where no field parameter is traced, the field's
+constants are K1's, folded in float64 on the host; where one is, vpt's
+expressions are f32 operations on the parameter vector (1/r, (1/r)^2,
+1/(r r), r sqrt(pi/2), r sqrt(pi/2) w, (1/r) sqrt(1/2), and 1/(sigma_t
+majorant) always, sigma_t being traced). So the pair matches K1 within
+vpt's 1e-5 of scale, not bit for bit.
+
+Scope: nee=True, distance="free", physical=False, g == 0, no material-3
+shell, samplers "random" and "ld". Everything else raises
+NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -48,11 +65,26 @@ from .wavefront import _G_EPS, Packed, pack_scene
 
 __all__ = ["pack_params", "unpack_params", "DiffPacked", "pack_diff",
            "diff_fwd_plain", "diff_bwd_plain", "diff_fwd", "diff_bwd",
-           "make_diff_renderer", "LAUNCHES_FWD", "LAUNCHES_BWD"]
+           "make_diff_renderer", "LAUNCHES_FWD", "LAUNCHES_BWD",
+           "LAUNCHES_BY"]
 
-# kernel launches in this process (diff_fwd / diff_bwd add one per launch)
-LAUNCHES_FWD = 0
-LAUNCHES_BWD = 0
+# kernel launches in this process: diff_fwd / diff_bwd add one per launch
+# under the C entry they launch (the field instantiations' entries end in
+# "_field"). LAUNCHES_FWD and LAUNCHES_BWD read the totals of the K2 and
+# K3 entries; callers reset all of them by clearing LAUNCHES_BY.
+LAUNCHES_BY: dict = {}
+
+
+def __getattr__(name: str):
+    prefix = {"LAUNCHES_FWD": "vpt_diff_fwd",
+              "LAUNCHES_BWD": "vpt_diff_bwd"}.get(name)
+    if prefix is None:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    return sum(n for k, n in LAUNCHES_BY.items() if k.startswith(prefix))
+
+# DiffParams.fp_kind: the traced field parameters
+FP_NONE, FP_FOG_K, FP_BLOBS = 0, 1, 2
 
 def _todo(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
@@ -62,43 +94,69 @@ def _todo(what: str, item: str) -> NotImplementedError:
 def pack_params(scene: Scene, with_g: bool = False, with_field: bool = False,
                 with_grid: bool = False, with_blobs: bool = False) -> dict:
     """Differentiable parameters of a scene: a dict of float32 tensors
-    sigma_a (), sigma_s (), albedo (S, 3), radiance (S, 3)."""
+    sigma_a (), sigma_s (), albedo (S, 3), radiance (S, 3); with_field adds
+    the exp_height falloff "fog_k" (), with_blobs the blob rows "blobs"
+    (K, 5) (pair them with diff_field / diff_blobs)."""
     if with_g:
         raise _todo("a traced HG g (with_g)", "4")
-    if with_field:
-        raise _todo("a traced fog falloff (with_field)", "6")
-    if with_blobs:
-        raise _todo("traced blob parameters (with_blobs)", "6")
     if with_grid:
         raise _todo("traced voxel values (with_grid)", "7")
 
     def t(x):
         return torch.as_tensor(x).detach().to(torch.float32).clone()
 
-    return {"sigma_a": t(scene.medium.sigma_a),
-            "sigma_s": t(scene.medium.sigma_s),
-            "albedo": t(scene.albedo), "radiance": t(scene.radiance)}
+    p = {"sigma_a": t(scene.medium.sigma_a),
+         "sigma_s": t(scene.medium.sigma_s),
+         "albedo": t(scene.albedo), "radiance": t(scene.radiance)}
+    fld = scene.medium.density
+    if with_field:
+        if fld is None or fld.kind != "exp_height":
+            raise ValueError("with_field=True needs an exp_height "
+                             "Medium.density")
+        p["fog_k"] = t(fld.params[0])
+    if with_blobs:
+        if fld is None or fld.kind != "blobs":
+            raise ValueError("with_blobs=True needs a blobs Medium.density")
+        p["blobs"] = t(fld.params)
+    return p
 
 
 def _flatten(params: dict, S: int) -> torch.Tensor:
-    """params -> packed (2 + 6S,) vector, differentiable (torch.cat)."""
-    extra = sorted(set(params) - {"sigma_a", "sigma_s", "albedo", "radiance"})
+    """params -> packed (2 + 6S [+ 1 | + 5K],) vector, differentiable
+    (torch.cat): vpt's order, the field slots after the 2 + 6S."""
+    extra = sorted(set(params) - {"sigma_a", "sigma_s", "albedo", "radiance",
+                                  "fog_k", "blobs"})
     if extra:
-        raise _todo(f"parameters {extra}", "4, 6 and 7")
-    return torch.cat([
-        params["sigma_a"].reshape(1), params["sigma_s"].reshape(1),
-        params["albedo"].reshape(3 * S), params["radiance"].reshape(3 * S),
-    ]).to(torch.float32)
+        raise _todo(f"parameters {extra}", "4 and 7")
+    parts = [params["sigma_a"].reshape(1), params["sigma_s"].reshape(1),
+             params["albedo"].reshape(3 * S), params["radiance"].reshape(3 * S)]
+    if "fog_k" in params:
+        parts.append(params["fog_k"].reshape(1))
+    if "blobs" in params:
+        parts.append(params["blobs"].reshape(-1))
+    return torch.cat(parts).to(torch.float32)
 
 
-def unpack_params(vec: torch.Tensor, S: int) -> dict:
-    """Packed (2 + 6S,) vector -> params dict (views of vec)."""
-    if vec.shape[0] != 2 + 6 * S:
-        raise _todo(f"a packed vector of {vec.shape[0]} entries for "
-                    f"{S} spheres (g, fog and blob slots)", "4 and 6")
-    return {"sigma_a": vec[0], "sigma_s": vec[1],
-            "albedo": vec[2:2 + 3 * S].reshape(S, 3),
-            "radiance": vec[2 + 3 * S:2 + 6 * S].reshape(S, 3)}
+def unpack_params(vec: torch.Tensor, S: int, *, with_field: bool = False,
+                  n_blobs: int = 0) -> dict:
+    """Packed vector -> params dict (views of vec); with_field reads the
+    "fog_k" slot, n_blobs > 0 a trailing (n_blobs, 5) "blobs" block."""
+    n = 2 + 6 * S + int(with_field) + 5 * n_blobs
+    if vec.shape[0] != n:
+        raise ValueError(f"a packed vector of {vec.shape[0]} entries; "
+                         f"{S} spheres, with_field={with_field} and "
+                         f"n_blobs={n_blobs} pack {n} (a traced g is "
+                         f"ROADMAP Queue 1 item 4)")
+    p = {"sigma_a": vec[0], "sigma_s": vec[1],
+         "albedo": vec[2:2 + 3 * S].reshape(S, 3),
+         "radiance": vec[2 + 3 * S:2 + 6 * S].reshape(S, 3)}
+    idx = 2 + 6 * S
+    if with_field:
+        p["fog_k"] = vec[idx]
+        idx += 1
+    if n_blobs:
+        p["blobs"] = vec[idx:idx + 5 * n_blobs].reshape(n_blobs, 5)
+    return p
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,29 +171,64 @@ class DiffPacked:
     inv_spp: float      # f32(1/spp), the cotangent's scale
     alb_ids: tuple      # spheres with an albedo gradient
     lam_ids: tuple      # spheres with deferred lambert-albedo terms
+    fp_kind: int = FP_NONE  # traced field parameters: none, fog_k, blobs
+
+    @property
+    def n_fp(self) -> int:
+        """Traced field-parameter slots: 1 (fog_k), 5K (blobs) or 0."""
+        if self.fp_kind == FP_FOG_K:
+            return 1
+        return 5 * len(self.pk.field.blobs) if self.fp_kind == FP_BLOBS else 0
 
     @property
     def P(self) -> int:
-        return 2 + 6 * self.pk.S
+        return 2 + 6 * self.pk.S + self.n_fp
 
     @property
     def npix(self) -> int:
         return self.pk.npix
 
+    @property
+    def entries(self) -> tuple:
+        """The C entries of K2 and K3 for this scene: the field
+        instantiations (csrc/diff_field.cu) in a density field."""
+        sfx = "" if self.pk.field is None else "_field"
+        return "vpt_diff_fwd" + sfx, "vpt_diff_bwd" + sfx
+
     def words(self) -> np.ndarray:
         fl = np.asarray([self.cp, self.inv_spp], np.float32).view(np.int32)
         mask = lambda ids: sum(1 << s for s in ids)   # noqa: E731
-        ints = np.asarray([self.P, mask(self.alb_ids), mask(self.lam_ids)],
-                          np.int32)
+        ints = np.asarray([self.P, mask(self.alb_ids), mask(self.lam_ids),
+                           self.n_fp, self.fp_kind], np.int32)
         return np.concatenate([self.pk.words(), fl, ints])
 
 
 def pack_diff(scene: Scene, camera: Camera, width: int, height: int,
               spp: int, *, continue_prob: float = 0.6, max_bounces: int = 32,
-              sampler: str = "random", jitter: bool = True) -> DiffPacked:
+              sampler: str = "random", jitter: bool = True,
+              diff_field: bool = False,
+              diff_blobs: bool = False) -> DiffPacked:
     """Freeze scene, camera and frame for the pair. The geometry, the
-    emitter structure and the materials are baked, as in vpt; sigma,
-    albedo and radiance come from the parameter vector at each call."""
+    emitter structure, the materials and the density field are baked, as
+    in vpt; sigma, albedo and radiance come from the parameter vector at
+    each call, and so do the fog falloff (diff_field) or the blob rows
+    (diff_blobs). vpt's guards (diff.py:220-237) carry over."""
+    fld = scene.medium.density
+    if diff_field and diff_blobs:
+        raise ValueError("diff_field and diff_blobs are mutually exclusive "
+                         "(one field kind per scene)")
+    # vpt points other fields' training at its engine (AD / FD), which is
+    # ROADMAP Queue 1 item 9 here
+    if diff_blobs and (fld is None or fld.kind != "blobs"):
+        raise NotImplementedError(
+            "diff_blobs traces the Gaussian-blob parameters; the scene needs "
+            "Medium.density = blobs(...) (other fields train on vpt's "
+            "engine: ROADMAP Queue 1 item 9)")
+    if diff_field and (fld is None or fld.kind != "exp_height"):
+        raise NotImplementedError(
+            "diff_field traces the exp_height fog falloff k; the scene needs "
+            "Medium.density = exp_height(...) (blob parameters: diff_blobs; "
+            "other fields train on vpt's engine: ROADMAP Queue 1 item 9)")
     if abs(float(torch.as_tensor(scene.medium.g))) > _G_EPS:
         raise _todo("a baked HG g != 0", "4 (with diff_g)")
     pk = pack_scene(scene, camera, width, height, spp,
@@ -150,8 +243,32 @@ def pack_diff(scene: Scene, camera: Camera, width: int, height: int,
                     if pk.mat[s] != MICROFACET and not is_em[s])
     lam_ids = tuple(s for s in range(pk.S)
                     if pk.mat[s] == LAMBERT and not is_em[s])
+    fp_kind = FP_FOG_K if diff_field else FP_BLOBS if diff_blobs else FP_NONE
     return DiffPacked(pk=pk, cp=f32(continue_prob), inv_spp=f32(1.0 / spp),
-                      alb_ids=alb_ids, lam_ids=lam_ids)
+                      alb_ids=alb_ids, lam_ids=lam_ids, fp_kind=fp_kind)
+
+
+def traced_field(dp: DiffPacked, pv: torch.Tensor):
+    """The pair's FieldConsts: K1's (folded in float64) when no field
+    parameter is traced; with fog_k, k read from the parameter vector; with
+    blobs, every blob constant an f32 operation on its row of the vector,
+    as vpt's traced forms compute them."""
+    fc = dp.pk.field
+    ik = 2 + 6 * dp.pk.S
+    if dp.fp_kind == FP_FOG_K:
+        return dataclasses.replace(fc, k=pv[ik])
+    if dp.fp_kind != FP_BLOBS:
+        return fc
+    blobs = []
+    for b in range(len(fc.blobs)):
+        cx, cy, cz, r, w = (pv[ik + 5 * b + j] for j in range(5))
+        inv_r = 1.0 / r
+        ramp = r * pr._SQRT_HALF_PI
+        blobs.append(pr.Blob(cx=cx, cy=cy, cz=cz, r=r, w=w,
+                             dens_c=1.0 / (r * r), tau_c=inv_r * inv_r,
+                             amp_c=ramp * w, kh=inv_r * pr._SQRT_HALF,
+                             inv_r=inv_r, ramp=ramp))
+    return dataclasses.replace(fc, blobs=tuple(blobs))
 
 
 # ---------------------------------------------------------------------------
@@ -190,6 +307,29 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
     inv_ss = 1.0 / ss
     inv_ps = float(n_em)
     inv_cp = pk.inv_cp
+    # the density field, its traced parameters (n_fp slots from IK) and the
+    # hooks of their derivatives: fp_dI(o, d, t) -> n_fp values of
+    # d(optical path per unit sigma)/dtheta, fp_dlogdens(x) -> n_fp values
+    # of d log(density)/dtheta
+    fc = traced_field(dp, pv)
+    n_fp, IK = dp.n_fp, 2 + 6 * S
+    if fc is not None:
+        inv_mr = 1.0 / (sigma_t * fc.maj)   # delta tracking's step scale
+    if dp.fp_kind == FP_FOG_K:
+        def fp_dI(o_, d_, t_):
+            return [pr.field_tau_dk(fc, o_, d_, t_)]
+
+        def fp_dlogdens(x_):
+            return [-(x_[1] - fc.y0)]
+    elif dp.fp_kind == FP_BLOBS:
+        def fp_dI(o_, d_, t_):
+            return [v for tup in pr.field_blob_tau_grads(fc.blobs, o_, d_, t_)
+                    for v in tup]
+
+        def fp_dlogdens(x_):
+            dens_, dd = pr.field_blob_dens_grads(fc.blobs, x_)
+            inv = 1.0 / torch.clamp_min(dens_, 1e-30)
+            return [v * inv for tup in dd for v in tup]
 
     lane = torch.arange(N, dtype=torch.int64, device=dev)
     px = (lane % W).to(torch.float32)
@@ -257,6 +397,7 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
         dsig = [z, z, z]
         drad = {}
         dalb = [z, z, z]
+        dk = [[z, z, z] for _ in range(n_fp)]   # d/d(field param) per slot
         is_lam = ~at["is_mic"] & ~at["is_die"]
         for e in pk.mis_lights:
             ec = pk.c[e]
@@ -274,7 +415,10 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
             visible = hit & (sid == e)
             fr = pr.eval_fr_nee(at, n, d, wi)
             fpdf_inv = TWO_PI * torch.clamp_min(1.0 - cos_max, 1e-12)
-            att = normcx
+            # att: the optical path per unit sigma_t (the distance when
+            # homogeneous); d(tr)/dsigma = -att tr
+            att = normcx if fc is None else pr.field_tau(fc, 1.0, xs, wc,
+                                                         normcx)
             tr = torch.exp(-sigma_t * att)
             w_vis = torch.where(visible, tr * pr.dot3(n, wi) * fpdf_inv, 0.0)
             gpdf = pr.bsdf_pdf_for_dir(at, n, wo, wi, rng())
@@ -289,6 +433,13 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
                     dalb[i] = dalb[i] + torch.where(
                         is_lam, re[i] * w_vis * wf * INV_PI, 0.0)
                 drad[e] = [fr[i] * w_vis * wf for i in range(3)]
+                if n_fp:
+                    # d(tr)/dtheta = tr (-sigma_t dI/dtheta)
+                    dIs = fp_dI(xs, wc, normcx)
+                    for f in range(n_fp):
+                        for i in range(3):
+                            dk[f][i] = dk[f][i] + term[i] * (-sigma_t
+                                                             * dIs[f])
         # BSDF strategy
         u1, u2, u_choice = rng(), rng(), rng()
         wi_l = pr.cosine_hemi(n, u1, u2)
@@ -348,10 +499,11 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
         for i in range(3):
             dalb[i] = dalb[i] + torch.where(is_lam & nz_l, le[i] * wg, 0.0)
         return acc, {"dsig": dsig, "drad": drad, "dalb": dalb, "dle": dle,
-                     "sid2": sid2}
+                     "sid2": sid2, "dk": dk}
 
     def medium_nee(rng, xt, lc, lrad, lr, lid):
-        """freeSingleScattering; returns (radiance, weight, distance)."""
+        """freeSingleScattering; returns (radiance, weight, optical path
+        per unit sigma, the cone direction and the shadow distance)."""
         wc = [lc[i] - xt[i] for i in range(3)]
         inv_mag = torch.rsqrt(torch.clamp_min(pr.dot3(wc, wc), 1e-20))
         wc_n = pr.scale3(wc, inv_mag)
@@ -362,11 +514,11 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
         wl = pr.cone_dir(wc_n, cos_max, u1, u2)
         hit, t, sid = pr.nearest_id_t(pk, xt, wl)
         visible = hit & (sid == lid) & (lr > 0.0)
-        att = t
+        att = t if fc is None else pr.field_tau(fc, 1.0, xt, wl, t)
         w = torch.where(visible,
                         torch.exp(-sigma_t * att) * pk.nee_phase
                         * torch.clamp_min(1.0 - cos_max, 1e-12), 0.0)
-        return [lrad[i] * w for i in range(3)], w, att
+        return [lrad[i] * w for i in range(3)], w, att, wl, t
 
     acc = {}
     if grads:
@@ -382,6 +534,9 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
             for i in range(3):
                 acc[("A_alb", s, i)] = z
                 acc[("B_alb", s, i)] = z
+        for f in range(n_fp):
+            for k in ("g_fp", "A_fp", "B_fp"):
+                acc[(k, f)] = z
 
     rng = pr.Pcg(pr.pcg_seed(lane, seed_i))
     o = [z, z, z]
@@ -394,10 +549,11 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
     samples = torch.zeros(N, dtype=torch.int64, device=dev)
     cam_o = [torch.full_like(z, v) for v in pk.cam_o]
     one = torch.ones_like(z)
-    counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    counts = torch.zeros(5, dtype=torch.int64, device=dev)
     it = 0
     while it < pk.max_iters and bool((samples < spp).any()):
-        need = ~alive & (samples < spp)
+        act = samples < spp         # the kernels' threads still looping
+        need = ~alive & act
         if stats is not None:
             counts[0] += (samples < spp).sum()
         nd = camera_ray(rng, samples)
@@ -426,19 +582,52 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
                              xs[2] - at["cz"]])
         lc, lrad, lr, lid = light_attrs(u_pick)
 
-        d_s = -torch.log1p(-u_dist) * inv_st
-        surface = (d_s > t_eff) & hit
+        if fc is None:
+            d_s = -torch.log1p(-u_dist) * inv_st
+            surface = (d_s > t_eff) & hit
+        else:
+            # K1's field free flight and draws; an escaped flight kills the
+            # lane (its score would weight no future contribution)
+            d_s = pr.field_sample_free(
+                fc, sigma_t, inv_mr, o, d, u_dist, rng, t_eff, active=act,
+                work=counts[4:5] if stats is not None else None)
+            surface = (d_s > t_eff) & hit
+            alive = alive & ((d_s < 0.5 * BIG) | surface)
         xt = [o[i] + d_s * d[i] for i in range(3)]
         medium = alive & ~surface
         shade_pre = alive & surface
 
         if grads:
             # free-flight score vs the L-prefix before this bounce
-            k_sc = torch.where(shade_pre, -t_eff,
-                               torch.where(medium, inv_st - d_s, 0.0))
+            if fc is None:
+                k_sc = torch.where(shade_pre, -t_eff,
+                                   torch.where(medium, inv_st - d_s, 0.0))
+            else:
+                # p(d) = sigma_t dens(x_d) e^{-sigma_t I(d)}, P(surface) =
+                # e^{-sigma_t I(t)}: dlog/dsigma = 1/sigma_t - I(d) | -I(t);
+                # the gated distances keep the chains finite (d_s == BIG)
+                t_det = torch.where(shade_pre, t_eff, 0.0)
+                d_det = torch.where(medium, d_s, 0.0)
+                I_surf = pr.field_tau(fc, 1.0, o, d, t_det)
+                I_med = pr.field_tau(fc, 1.0, o, d, d_det)
+                k_sc = torch.where(shade_pre, -I_surf,
+                                   torch.where(medium, inv_st - I_med, 0.0))
             wL0 = _wdot(wt, Lps)
             acc["A_st"] = acc["A_st"] + k_sc
             acc["B_st"] = acc["B_st"] + k_sc * wL0
+            if n_fp:
+                # field-parameter event scores: dlog p(d)/dtheta = dlog
+                # dens(x_d)/dtheta - sigma dI(d)/dtheta (medium), dlog
+                # P(surface)/dtheta = -sigma dI(t)/dtheta (surface)
+                dI_s = fp_dI(o, d, t_det)
+                dI_m = fp_dI(o, d, d_det)
+                dlogd = fp_dlogdens([o[j] + d_det * d[j] for j in range(3)])
+                for f in range(n_fp):
+                    k_f = torch.where(
+                        shade_pre, -sigma_t * dI_s[f],
+                        torch.where(medium, dlogd[f] - sigma_t * dI_m[f], 0.0))
+                    acc[("A_fp", f)] = acc[("A_fp", f)] + k_f
+                    acc[("B_fp", f)] = acc[("B_fp", f)] + k_f * wL0
 
         em_hit = surface & at["is_em"]
         credit = alive & em_hit & (depth == 0)
@@ -457,7 +646,12 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
 
         ldp, ldp_coef, ldp_lam, dist_ls = plight_term(at, xs, nrm, d, lc,
                                                       lrad)
-        att_pl = dist_ls
+        if fc is None:
+            att_pl = dist_ls
+        else:
+            inv_dl = 1.0 / torch.clamp_min(dist_ls, 1e-20)
+            wlight = [(lc[i] - xs[i]) * inv_dl for i in range(3)]
+            att_pl = pr.field_tau(fc, 1.0, xs, wlight, dist_ls)
         trs = torch.exp(-sigma_t * att_pl)
         ldm, misp = mis_v2(rng, at, xs, nrm, d)
         for i in range(3):
@@ -471,6 +665,18 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
                 gs = gs + wt[i] * (ldp[i] * trs * (-att_pl) * inv_ps
                                    + misp["dsig"][i]) * tp[i] * inv_cp
             acc["g_st"] = acc["g_st"] + torch.where(shade, gs, 0.0)
+            if n_fp:
+                # the field-parameter terms of pLight's and the MIS light
+                # strategy's transmittances
+                dI_pl = fp_dI(xs, wlight, dist_ls)
+                for f in range(n_fp):
+                    gk = z
+                    for i in range(3):
+                        gk = gk + wt[i] * (
+                            ldp[i] * trs * (-sigma_t * dI_pl[f]) * inv_ps
+                            + misp["dk"][f][i]) * tp[i] * inv_cp
+                    acc[("g_fp", f)] = acc[("g_fp", f)] + torch.where(
+                        shade, gk, 0.0)
             for e in em:
                 m = shade & (lid == e)
                 for i in range(3):
@@ -500,7 +706,8 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
         wi_m = pr.uniform_sphere(u_p1, u_p2)
         med_scale = ar_cp
         med_dsig = -inv_st
-        ld_med, w_med, att_nee = medium_nee(rng, xt, lc, lrad, lr, lid)
+        ld_med, w_med, att_nee, wl_nee, t_nee = medium_nee(rng, xt, lc, lrad,
+                                                           lr, lid)
         adds = [torch.where(medium, ld_med[i] * inv_ps * tp[i] * med_scale,
                             0.0) for i in range(3)]
         for i in range(3):
@@ -514,6 +721,15 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
                 gx = gx + wt[i] * adds[i]
             acc["g_st"] = acc["g_st"] + gs
             acc["g_ssx"] = acc["g_ssx"] + gx * inv_ss
+            if n_fp:
+                # the medium-NEE transmittance's field-parameter term, the
+                # inputs gated on medium (an escaped lane's xt is at BIG)
+                t_nee_g = torch.where(medium, t_nee, 0.0)
+                xt_g = [torch.where(medium, xt[j], 0.0) for j in range(3)]
+                dI_nee = fp_dI(xt_g, wl_nee, t_nee_g)
+                for f in range(n_fp):
+                    acc[("g_fp", f)] = acc[("g_fp", f)] + torch.where(
+                        medium, gx * (-sigma_t * dI_nee[f]), 0.0)
             for e in em:
                 m = medium & (lid == e)
                 for i in range(3):
@@ -543,6 +759,11 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
         if stats is not None:
             counts[1] += shade.sum()
             counts[2] += medium.sum()
+            if fc is not None:
+                # K2's field optical depths: pLight and the MIS lights on
+                # shading lanes, medium NEE on medium lanes
+                counts[3] += (shade.sum() * (1 + len(pk.mis_lights))
+                              + medium.sum())
         o = pr.sel3(shade, xs, pr.sel3(medium, xt, o))
         d = pr.sel3(shade, wi_s, pr.sel3(medium, wi_m, d))
         tp = pr.sel3(shade, tp_surface, pr.sel3(medium, tp_medium, tp))
@@ -554,7 +775,9 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
             # fold the deferred pairs: A * L_total - B at path death
             WL = _wdot(wt, Lps)
             for g, a, b in (("g_st", "A_st", "B_st"),
-                            ("g_ssx", "A_ssx", "B_ssx")):
+                            ("g_ssx", "A_ssx", "B_ssx"),
+                            *((("g_fp", f), ("A_fp", f), ("B_fp", f))
+                              for f in range(n_fp))):
                 acc[g] = acc[g] + torch.where(
                     finished, acc[a] * WL - acc[b], 0.0)
                 acc[a] = torch.where(finished, 0.0, acc[a])
@@ -572,7 +795,8 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
         it += 1
 
     if stats is not None:
-        for k, v in zip(("thread_iters", "shade", "medium"), counts.tolist()):
+        keys = ("thread_iters", "shade", "medium", "taus", "null_steps")
+        for k, v in zip(keys, counts.tolist()):
             stats[k] = stats.get(k, 0) + v
     if not grads:
         return torch.stack(L, dim=-1) / scalar(float(spp))
@@ -587,6 +811,9 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
     G = torch.zeros((N, dp.P), dtype=torch.float32, device=dev)
     G[:, 0] = g_st
     G[:, 1] = g_st + g_ssx
+    for f in range(n_fp):
+        G[:, IK + f] = (acc[("g_fp", f)] + acc[("A_fp", f)] * wt_sum
+                        - acc[("B_fp", f)])
     for s in dp.alb_ids:
         for i in range(3):
             G[:, 2 + 3 * s + i] = acc[("alb", s, i)]
@@ -656,14 +883,13 @@ def diff_fwd(dp: DiffPacked, pvec: torch.Tensor,
     """K2 on pvec.device: (npix, 3) float32 radiance / spp. A CUDA tensor
     launches csrc/diff.cu on the current stream without synchronising; a
     CPU tensor runs diff_fwd_plain."""
-    global LAUNCHES_FWD
     _check_inputs(dp, pvec, seed)
     if pvec.device.type == "cpu":
         return diff_fwd_plain(dp, pvec, seed)
     out = torch.empty((dp.npix, 3), dtype=torch.float32, device=pvec.device)
-    _launch("vpt_diff_fwd", dp, pvec.device, pvec.data_ptr(),
+    _launch(dp.entries[0], dp, pvec.device, pvec.data_ptr(),
             seed.data_ptr(), out.data_ptr())
-    LAUNCHES_FWD += 1
+    LAUNCHES_BY[dp.entries[0]] = LAUNCHES_BY.get(dp.entries[0], 0) + 1
     return out
 
 
@@ -674,7 +900,6 @@ def diff_bwd(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
     are summed here. per_lane=True returns each pixel's own vector (npix,
     P) instead, as diff_bwd_plain does (for checks: the kernel then also
     writes them out). A CPU tensor runs diff_bwd_plain."""
-    global LAUNCHES_BWD
     _check_inputs(dp, pvec, seed)
     gbar = gbar.contiguous()        # mean()'s cotangent is an expanded view
     if gbar.dtype != torch.float32 or tuple(gbar.shape) != (dp.npix, 3) \
@@ -690,10 +915,10 @@ def diff_bwd(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
                            dtype=torch.float32, device=pvec.device)
     lanes = (torch.empty((dp.npix, dp.P), dtype=torch.float32,
                          device=pvec.device) if per_lane else None)
-    _launch("vpt_diff_bwd", dp, pvec.device, pvec.data_ptr(),
+    _launch(dp.entries[1], dp, pvec.device, pvec.data_ptr(),
             seed.data_ptr(), gbar.data_ptr(), partials.data_ptr(),
             lanes.data_ptr() if per_lane else None)
-    LAUNCHES_BWD += 1
+    LAUNCHES_BY[dp.entries[1]] = LAUNCHES_BY.get(dp.entries[1], 0) + 1
     return lanes if per_lane else partials.sum(0)
 
 
@@ -722,13 +947,12 @@ def make_diff_renderer(scene: Scene, camera: Camera, width: int, height: int,
                        diff_field: bool = False, diff_blobs: bool = False,
                        diff_grid: bool = False, device="cuda"):
     """Build render(params, seed) -> (npix, 3) on `device`, differentiable
-    with respect to params (pack_params) through torch autograd. "cuda"
-    runs K2/K3 or raises; "cpu" runs their plain versions."""
+    with respect to params (pack_params; with_field=True for diff_field,
+    with_blobs=True for diff_blobs) through torch autograd. "cuda" runs
+    K2/K3 (their field instantiations in a density field) or raises; "cpu"
+    runs their plain versions."""
     if diff_g:
         raise _todo("a traced HG g (diff_g)", "4, after the medium set")
-    if diff_field or diff_blobs:
-        raise _todo("traced density-field parameters (diff_field, "
-                    "diff_blobs)", "6")
     if diff_grid:
         raise _todo("voxel-grid gradients (diff_grid)", "7")
     if distance != "free":
@@ -741,7 +965,8 @@ def make_diff_renderer(scene: Scene, camera: Camera, width: int, height: int,
                            "torch.cuda.is_available() is False")
     dp = pack_diff(scene, camera, width, height, spp,
                    continue_prob=continue_prob, max_bounces=max_bounces,
-                   sampler=sampler, jitter=jitter)
+                   sampler=sampler, jitter=jitter, diff_field=diff_field,
+                   diff_blobs=diff_blobs)
     S = dp.pk.S
 
     def render(params: dict, seed) -> torch.Tensor:

@@ -158,6 +158,9 @@ def pack_geom(scene: Scene, camera: Camera, width: int, height: int,
         raise ValueError(f"unknown sampler {sampler!r}")
     if abs(float(torch.as_tensor(scene.medium.g))) > _G_EPS:
         raise _todo("a baked HG g != 0 (dual.hg_phase / hg_dir)", "5")
+    if scene.medium.density is not None:
+        raise _todo("a density field (dual.field_tau / field_sample_free, "
+                    "geom.py:335-562)", "5")
     pk = pack_scene(scene, camera, width, height, spp,
                     continue_prob=continue_prob, max_bounces=max_bounces,
                     sampler=sampler, jitter=jitter)

@@ -1,8 +1,9 @@
 """Plain torch versions of the per-path primitives of the render kernel.
 
 Counterpart of ``vpt/kernels/prims.py``, restricted to what the forward
-render of homogeneous media uses (both distance families, the baked HG g
-and the material-3 pLight cascade). Every function works on
+render uses (both distance families, the baked HG g, the material-3 pLight
+cascade and the analytic density fields) and the differentiable pair's
+field derivatives. Every function works on
 lane tensors of any shape in lockstep, with the same masked selects and the
 same f32 operation order as vpt, so that at one seed it gives the same
 draws and (up to 1-ulp differences of the transcendentals) the same values.
@@ -19,6 +20,7 @@ shifts logically, and `>>` on a torch int32 tensor is an arithmetic shift.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -531,3 +533,243 @@ def power_h_invg(f, g_inv):
     r = torch.clamp(f, 0.0, 1e12) * g_inv
     r2 = r * r
     return torch.where(f > 0.0, r2 / (r2 + 1.0), 0.0)
+
+
+# --- analytic density fields (vpt/kernels/prims.py:592-624, 892-1087) ------
+#
+# `fc` is a FieldConsts: the field's parameters and the constants its
+# formulas fold. vpt bakes the parameters as python floats, so its kernels
+# fold 1/(r r), (1/r)^2, r sqrt(pi/2) w, (1/r) sqrt(1/2), 1/majorant and
+# 1/(sigma_t majorant) in float64; field_consts folds them the same way.
+# Where vpt's pair traces the parameters (diff_field, diff_blobs), the same
+# expressions are f32 operations on the parameter vector, and the
+# FieldConsts holds 0-dim f32 tensors computed so (kernels/diff.py).
+
+_SQRT_HALF = math.sqrt(0.5)
+_SQRT_HALF_PI = math.sqrt(0.5 * math.pi)
+_TWO_OVER_SQRTPI = 1.1283791670955126
+# unit-sigma optical-path cap: past total extinction at the sigma >= 1e-6
+# floor, far below f32 overflow in the score chains (vpt: _TAU_CAP)
+TAU_CAP = 3.0e7
+
+
+@dataclasses.dataclass(frozen=True)
+class Blob:
+    """One Gaussian blob and the constants its formulas fold."""
+
+    cx: object
+    cy: object
+    cz: object
+    r: object
+    w: object
+    dens_c: object      # 1 / (r r)           (field_density)
+    tau_c: object       # (1 / r)^2           (field_tau)
+    amp_c: object       # r sqrt(pi/2) w      (field_tau)
+    kh: object          # (1 / r) sqrt(1/2)   (field_tau)
+    inv_r: object       # 1 / r               (the blob derivatives)
+    ramp: object        # r sqrt(pi/2)        (the blob derivatives)
+
+
+@dataclasses.dataclass(frozen=True)
+class FieldConsts:
+    kind: str           # "exp_height" or "blobs"
+    k: object = 0.0     # exp_height falloff
+    y0: float = 0.0
+    maj: float = 1.0    # majorant, f32
+    inv_maj: float = 1.0    # 1 / majorant, folded in float64
+    max_null: int = 64
+    blobs: tuple = ()
+
+
+def baked_blob(row) -> Blob:
+    """A blob row (float64 values of its f32 parameters) with its constants
+    folded in float64 and rounded to f32, as vpt's baked kernels have
+    them."""
+    cx, cy, cz, r, w = (float(v) for v in row)
+    inv_r = 1.0 / r
+    return Blob(cx=f32(cx), cy=f32(cy), cz=f32(cz), r=f32(r), w=f32(w),
+                dens_c=f32(1.0 / (r * r)), tau_c=f32(inv_r * inv_r),
+                amp_c=f32(r * _SQRT_HALF_PI * w), kh=f32(inv_r * _SQRT_HALF),
+                inv_r=f32(inv_r), ramp=f32(r * _SQRT_HALF_PI))
+
+
+def field_consts(kind: str, params, majorant: float,
+                 max_null: int) -> FieldConsts:
+    """FieldConsts of a density field (params: float64 numpy of its f32
+    values)."""
+    p = np.asarray(params, np.float64)
+    if kind == "exp_height":
+        return FieldConsts(kind=kind, k=f32(p.reshape(-1)[0]),
+                           y0=f32(p.reshape(-1)[1]), maj=f32(majorant),
+                           inv_maj=f32(1.0 / majorant),
+                           max_null=int(max_null))
+    return FieldConsts(kind=kind, maj=f32(majorant),
+                       inv_maj=f32(1.0 / majorant), max_null=int(max_null),
+                       blobs=tuple(baked_blob(r) for r in p.reshape(-1, 5)))
+
+
+def erf_poly(x):
+    """A&S 7.1.26 erf (max abs err 1.5e-7), as vpt writes it (not
+    torch.erf)."""
+    s = torch.where(x >= 0.0, 1.0, -1.0)
+    a = torch.abs(x)
+    t = 1.0 / (1.0 + 0.3275911 * a)
+    y = 1.0 - t * (0.254829592 + t * (-0.284496736 + t * (
+        1.421413741 + t * (-1.453152027 + t * 1.061405429)))) \
+        * torch.exp(-a * a)
+    return s * y
+
+
+def _exp_clip(x):
+    return torch.exp(torch.clamp(x, -80.0, 80.0))
+
+
+def field_density(fc: FieldConsts, x):
+    """Density multiplier d(x); x is a list of 3 lane tensors."""
+    if fc.kind == "exp_height":
+        return _exp_clip(-fc.k * (x[1] - fc.y0))
+    dens = None
+    for b in fc.blobs:
+        dx = [x[0] - b.cx, x[1] - b.cy, x[2] - b.cz]
+        g = b.w * torch.exp(-0.5 * dot3(dx, dx) * b.dens_c)
+        dens = g if dens is None else dens + g
+    return dens
+
+
+def field_tau(fc: FieldConsts, sigma_t, o, d, t):
+    """Optical depth sigma_t * int_0^t d(o + s dir) ds along unit d, closed
+    form. exp_height keeps vpt's f32 rails: the +-80 exponent clip, the
+    constant-density limit at |k d_y| < 1e-6, the monotone lower bound
+    t min(d0, d_end), odd in t, and the +-TAU_CAP clip."""
+    if fc.kind == "exp_height":
+        d0 = _exp_clip(-fc.k * (o[1] - fc.y0))
+        d_end = _exp_clip(-fc.k * (o[1] + t * d[1] - fc.y0))
+        m = fc.k * d[1]
+        const = torch.abs(m) < 1e-6
+        safe_m = torch.where(const, 1.0, m)
+        base = torch.where(const, d0 * t, (d0 - d_end) / safe_m)
+        lb = t * torch.minimum(d0, d_end)
+        tau = torch.where(t >= 0.0, torch.maximum(base, lb),
+                          torch.minimum(base, lb))
+        tau = torch.clamp(tau, -TAU_CAP, TAU_CAP)
+        return sigma_t * tau
+    tau = None
+    for b in fc.blobs:
+        oc = [b.cx - o[0], b.cy - o[1], b.cz - o[2]]
+        a = dot3(oc, d)
+        b2 = torch.clamp_min(dot3(oc, oc) - a * a, 0.0)
+        amp = torch.exp(-0.5 * b2 * b.tau_c) * b.amp_c
+        hi = erf_poly((t - a) * b.kh)
+        lo = erf_poly(a * b.kh)
+        g = amp * (hi + lo)
+        tau = g if tau is None else tau + g
+    return sigma_t * tau
+
+
+def field_tr_toward(fc: FieldConsts, sigma_t, x, target_dir, dist):
+    """exp(-tau) from x along unit target_dir for dist."""
+    return torch.exp(-field_tau(fc, sigma_t, x, target_dir, dist))
+
+
+def field_tau_dk(fc: FieldConsts, o, d, t):
+    """d/dk of the exp_height optical path per unit sigma (the traced-k
+    pair's hook); the |m| < 1e-6 limit is -(a0 + a1)/2 d0 t."""
+    a0 = o[1] - fc.y0
+    a1 = o[1] + t * d[1] - fc.y0
+    d0 = _exp_clip(-fc.k * a0)
+    d1 = _exp_clip(-fc.k * a1)
+    m = fc.k * d[1]
+    const = torch.abs(m) < 1e-6
+    safe_m = torch.where(const, 1.0, m)
+    inv_m = 1.0 / safe_m
+    gen = ((a1 * d1 - a0 * d0) - (d0 - d1) * d[1] * inv_m) * inv_m
+    lim = -0.5 * (a0 + a1) * d0 * t
+    return torch.clamp(torch.where(const, lim, gen), -TAU_CAP, TAU_CAP)
+
+
+def field_blob_tau_grads(blobs, o, d, t):
+    """Per-blob 5-tuples (d/dcx, d/dcy, d/dcz, d/dr, d/dw) of the blobs
+    optical path per unit sigma along unit d (the traced-blob pair's
+    hook)."""
+    dI = []
+    for b in blobs:
+        oc = [b.cx - o[0], b.cy - o[1], b.cz - o[2]]
+        a = dot3(oc, d)
+        b2 = torch.clamp_min(dot3(oc, oc) - a * a, 0.0)
+        inv_r = b.inv_r
+        g = torch.exp(-0.5 * b2 * b.tau_c)
+        amp = g * b.ramp
+        k = b.kh
+        xh = (t - a) * k
+        xl = a * k
+        S = erf_poly(xh) + erf_poly(xl)
+        dphi_h = _TWO_OVER_SQRTPI * torch.exp(-xh * xh)
+        dphi_l = _TWO_OVER_SQRTPI * torch.exp(-xl * xl)
+        dcs = []
+        for j in range(3):
+            db2 = 2.0 * oc[j] - 2.0 * a * d[j]
+            damp = amp * (-0.5 * inv_r * inv_r) * db2
+            dhi = -d[j] * k * dphi_h
+            dlo = d[j] * k * dphi_l
+            dcs.append(b.w * (damp * S + amp * (dhi + dlo)))
+        dr = b.w * (amp * (inv_r + b2 * inv_r * inv_r * inv_r) * S
+                    + amp * (dphi_h * (-xh * inv_r)
+                             + dphi_l * (-xl * inv_r)))
+        dI.append((dcs[0], dcs[1], dcs[2], dr, amp * S))
+    return dI
+
+
+def field_blob_dens_grads(blobs, x):
+    """(dens, per-blob 5-tuples of d dens / d(cx, cy, cz, r, w)) at x."""
+    dens = None
+    dd = []
+    for b in blobs:
+        dx = [x[0] - b.cx, x[1] - b.cy, x[2] - b.cz]
+        q2 = dot3(dx, dx)
+        inv_r2 = b.dens_c
+        e = torch.exp(-0.5 * q2 * inv_r2)
+        dens = b.w * e if dens is None else dens + b.w * e
+        dd.append((b.w * e * (dx[0] * inv_r2), b.w * e * (dx[1] * inv_r2),
+                   b.w * e * (dx[2] * inv_r2), b.w * e * (q2 * inv_r2 / b.r),
+                   e))
+    return dens, dd
+
+
+def field_sample_free(fc: FieldConsts, sigma_t, inv_maj_rate, o, d, u, rng,
+                      t_cap, active=None, work=None):
+    """Heterogeneous free-flight distance: closed-form inversion for
+    exp_height (the uniform u); delta tracking for blobs, which takes 2
+    draws from `rng` on each of fc.max_null steps whether or not the lane
+    has accepted. Returns t on acceptance, the overshooting t when a step
+    passes t_cap (a surface event), BIG when the steps run out.
+    inv_maj_rate is 1/(sigma_t majorant) in the caller's arithmetic.
+    `work`, a 1-element int64 tensor, gains the steps the kernel's threads
+    take: a thread stops at acceptance, on the lanes in `active`."""
+    if fc.kind == "exp_height":
+        d0 = _exp_clip(-fc.k * (o[1] - fc.y0))
+        m = fc.k * d[1]
+        tau_star = -torch.log1p(-u)
+        a = torch.clamp_min(sigma_t * d0, 1e-30)
+        const = torch.abs(m) < 1e-6
+        safe_m = torch.where(const, 1.0, m)
+        arg = -tau_star * safe_m / a
+        escapes = ~const & (arg <= -1.0)
+        t_gen = -torch.log1p(torch.where(escapes, -0.5, arg)) / safe_m
+        t_const = tau_star / a
+        t_fin = torch.where(escapes, BIG,
+                            torch.where(const, t_const, t_gen))
+        return torch.clamp_max(t_fin, BIG)
+    t = torch.zeros_like(o[0])
+    done = torch.zeros_like(o[0], dtype=torch.bool)
+    for _ in range(fc.max_null):
+        if work is not None:
+            work += (~done & active).sum()
+        u1 = rng()
+        u2 = rng()
+        step = -torch.log1p(-u1) * inv_maj_rate
+        t_new = t + step
+        x = [o[j] + t_new * d[j] for j in range(3)]
+        accept = u2 < field_density(fc, x) * fc.inv_maj
+        t = torch.where(done, t, t_new)
+        done = done | accept | (t_new > t_cap)
+    return torch.where(done, t, BIG)

@@ -20,7 +20,11 @@ integrator name in KERNEL_INTEGRATORS): free-flight or equi-angular
 next-event estimation, and the textbook RR compensation (``physical``). The
 kernel is compiled once per (nee, distance) pair it serves, in its own
 source (csrc/wavefront*.cu); physical, the Henyey-Greenstein g and the
-material-3 shells are launch parameters.
+material-3 shells are launch parameters. A medium with an analytic density
+field (exp_height or blobs, media/density.py) runs in a second set of
+instantiations, one per pair again (csrc/wavefront_field*.cu): the field
+is a compile-time parameter, so the homogeneous kernels keep their code,
+and exp_height against blobs is a uniform switch inside them.
 
 Draw-order contract (what makes per-pixel parity with vpt possible): every
 iteration takes every draw the vpt body takes, in the same order, whether
@@ -31,6 +35,10 @@ BSDF draws (u1, u2, u_choice); the continuation BSDF draws (u1, u2,
 u_choice), the phase draws (u_p1, u_p2) and, with NEE, the two medium-NEE
 cone draws. Without NEE the MIS and medium-NEE draws do not exist. The "ld"
 sampler's offsets come from a second PCG stream drawn once before the loop.
+A blobs field's free flight takes 2 * max_null more draws right after
+u_dist (delta tracking's u1, u2 per null step, taken whether or not the
+lane has accepted); exp_height takes none, and neither does equi-angular
+sampling in a field.
 
 Lanes and pixels: a lane renders pixel min(lane, npix - 1) and seeds its
 PCG streams with the lane id, as vpt's tiles do. ``render_raw`` returns
@@ -38,8 +46,7 @@ per-lane radiance sums for contiguous tiles (vpt's ``make_raw``) or for a
 list of tile bases in one launch (``make_raw_scatter``, the second pass of
 adaptive sampling). A tile is LANES_PER_TILE lanes.
 
-Not here: vpt's heterogeneous fields and voxel grids (ROADMAP Queue 1
-items 6 and 7).
+Not here: vpt's voxel grids (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -53,12 +60,15 @@ from ..scene.scene import (DIELECTRIC, MICROFACET, VOLUME_BOUNDARY, Scene)
 from . import prims as pr
 from .prims import BIG, F32EPS, INV_4PI, TWO_PI, f32
 
-__all__ = ["MAX_SPHERES", "KERNEL_INTEGRATORS", "LANES_PER_TILE", "Packed",
+__all__ = ["MAX_SPHERES", "MAX_BLOBS", "KERNEL_INTEGRATORS",
+           "LANES_PER_TILE", "Packed",
            "pack_scene", "render_tile_plain", "render_raw_plain",
            "render_tile", "render_raw", "render_kernel", "LAUNCHES",
            "LAUNCHES_BY"]
 
 MAX_SPHERES = 16        # VPT_MAX_SPHERES in csrc/path.cuh
+MAX_BLOBS = 16          # VPT_MAX_BLOBS in csrc/path.cuh
+FIELD_KINDS = {"exp_height": 1, "blobs": 2}     # FieldParams.kind
 
 # integrator name -> (nee, distance, physical): vpt's PALLAS_INTEGRATORS
 KERNEL_INTEGRATORS = {
@@ -82,6 +92,9 @@ KERNEL_ENTRIES = {
     (True, "equiangular"): "vpt_wavefront_ea_nee",
     (False, "ea_clamped"): "vpt_wavefront_eac_implicit",
 }
+# the same pairs in an analytic density field (csrc/wavefront_field*.cu)
+FIELD_ENTRIES = {key: entry + "_field"
+                 for key, entry in KERNEL_ENTRIES.items()}
 
 # Lanes per tile: the unit in which render_raw renders tiles and adaptive
 # sampling selects them. vpt's tile is one Pallas program, (32, 128) lanes
@@ -168,6 +181,10 @@ class Packed:
     hg_1mg2: float
     hg_1mg: float
     hg_inv2g: float
+    # the analytic density field (None: homogeneous) and 1/(sigma_t
+    # majorant) folded in float64 (delta tracking's step scale)
+    field: pr.FieldConsts | None
+    inv_maj_rate: float
 
     ATTR_KEYS = ("cx", "cy", "cz", "ar", "ag", "ab", "rr", "rg", "rb",
                  "er", "eg", "eb", "kr", "kg", "kb", "alpha",
@@ -233,7 +250,27 @@ class Packed:
         pad_f(self.alpha)
         for tab in (self.c, self.alb, self.rad, self.eta, self.kap):
             pad_f(tab, 3)
+        buf.extend(field_words(self.field, self.inv_maj_rate).tobytes())
         return np.frombuffer(bytes(buf), np.int32).copy()
+
+
+BLOB_KEYS = ("cx", "cy", "cz", "r", "w", "dens_c", "tau_c", "amp_c", "kh",
+             "inv_r", "ramp")
+
+
+def field_words(fc: pr.FieldConsts | None, inv_maj_rate: float) -> np.ndarray:
+    """csrc/path.cuh's FieldParams as 32-bit words: kind, n_blobs,
+    max_null, then k, y0, majorant, 1/majorant, 1/(sigma_t majorant), then
+    MAX_BLOBS rows of BLOB_KEYS (zero-padded). All zeros when homogeneous."""
+    ints = np.zeros(3, np.int32)
+    fl = np.zeros(5 + MAX_BLOBS * len(BLOB_KEYS), np.float32)
+    if fc is not None:
+        ints[:] = (FIELD_KINDS[fc.kind], len(fc.blobs), fc.max_null)
+        fl[:5] = (float(fc.k), fc.y0, fc.maj, fc.inv_maj, inv_maj_rate)
+        for i, b in enumerate(fc.blobs):
+            fl[5 + i * len(BLOB_KEYS):5 + (i + 1) * len(BLOB_KEYS)] = [
+                float(getattr(b, key)) for key in BLOB_KEYS]
+    return np.concatenate([ints, fl.view(np.int32)])
 
 
 def _f32_tuple(a) -> tuple:
@@ -275,6 +312,15 @@ def pack_scene(scene: Scene, camera: Camera, width: int, height: int,
     inv_cp = 1.0 / cp
     n_em = len(scene.emitter_idx)
     cx, cy = screen_basis(camera, width, height)
+    fld = scene.medium.density
+    field, inv_maj_rate = None, 0.0
+    if fld is not None:
+        if fld.kind == "blobs" and fld.params.shape[0] > MAX_BLOBS:
+            raise ValueError(f"{fld.params.shape[0]} blobs; the kernels take "
+                             f"at most {MAX_BLOBS} (VPT_MAX_BLOBS)")
+        field = pr.field_consts(fld.kind, f64(fld.params), fld.majorant,
+                                fld.max_null)
+        inv_maj_rate = f32(1.0 / (sigma_t * float(fld.majorant)))
 
     def rows3(t):
         return tuple(_f32_tuple(row) for row in f64(t).reshape(-1, 3))
@@ -305,6 +351,7 @@ def pack_scene(scene: Scene, camera: Camera, width: int, height: int,
         n_em_f=f32(n_em), nee_phase=f32(INV_4PI * TWO_PI),
         slack=f32(1.0 - 1024.0 * F32EPS),
         ss_cp=f32(sigma_s * inv_cp), g=f32(g), **pr.hg_consts(g),
+        field=field, inv_maj_rate=inv_maj_rate,
     )
 
 
@@ -323,8 +370,11 @@ def _render_lanes(pk: Packed, seed: torch.Tensor, lane: torch.Tensor,
     row first, and seeds its streams with the lane id. Returns (N, 3)
     float32 radiance sums. `stats`, if given, gains the work it took: the
     thread-iterations (lanes still short of spp, summed over iterations)
-    and the surface-shading and medium-scattering events."""
+    and the surface-shading and medium-scattering events, and in a density
+    field the optical depths ("taus"), the densities and the delta-tracking
+    null steps ("null_steps") the kernel's threads evaluate."""
     dev = seed.device
+    fc = pk.field
     W, H, spp = pk.width, pk.height, pk.spp
     N = lane.shape[0]
     n_em = len(pk.emitters)
@@ -395,7 +445,10 @@ def _render_lanes(pk: Packed, seed: torch.Tensor, lane: torch.Tensor,
             visible = hit & (sid == e)
             fr = pr.eval_fr_nee(at, n, d, wi)
             fpdf_inv = TWO_PI * torch.clamp_min(1.0 - cos_max, 1e-12)
-            tr = torch.exp(-pk.sigma_t * normcx)
+            if fc is None:
+                tr = torch.exp(-pk.sigma_t * normcx)
+            else:
+                tr = pr.field_tr_toward(fc, pk.sigma_t, xs, wc, normcx)
             w_vis = torch.where(visible, tr * pr.dot3(n, wi) * fpdf_inv, 0.0)
             gpdf = pr.bsdf_pdf_for_dir(at, n, wo, wi, rng())
             wf = pr.power_h_invf(fpdf_inv, gpdf)
@@ -472,7 +525,10 @@ def _render_lanes(pk: Packed, seed: torch.Tensor, lane: torch.Tensor,
             phase_2pi = pr.hg_phase_const(pk, pr.dot3(d, wl)) * TWO_PI
         else:
             phase_2pi = pk.nee_phase
-        tr_l = torch.exp(-pk.sigma_t * t)
+        if fc is None:
+            tr_l = torch.exp(-pk.sigma_t * t)
+        else:
+            tr_l = pr.field_tr_toward(fc, pk.sigma_t, xt, wl, t)
         w = torch.where(visible,
                         tr_l * phase_2pi
                         * torch.clamp_min(1.0 - cos_max, 1e-12), 0.0)
@@ -493,16 +549,38 @@ def _render_lanes(pk: Packed, seed: torch.Tensor, lane: torch.Tensor,
         nrm = pr.normalize3([xs[0] - at["cx"], xs[1] - at["cy"],
                              xs[2] - at["cz"]])
         lc, lrad, lr, lid = light_attrs(u_pick)
+        act = samples < spp         # the kernel's threads still looping
 
         u_dist = rng()
         if pk.ld:
             u_dist = torch.where(
                 depth == 0, strat(A3, off_w, samples.to(torch.float32)),
                 u_dist)
-        tr_actual = torch.where(hit, torch.exp(-pk.sigma_t * t), 0.0)
+        if fc is None:
+            tr_actual = torch.where(hit, torch.exp(-pk.sigma_t * t), 0.0)
+        elif distance == "free":
+            tr_actual = torch.where(hit, torch.exp(
+                -pr.field_tau(fc, pk.sigma_t, o, d, t_eff)), 0.0)
+        else:
+            t_det = torch.where(hit, t, 0.0)
+            tr_actual = torch.where(hit, torch.exp(
+                -pr.field_tau(fc, pk.sigma_t, o, d, t_det)), 0.0)
+            if stats is not None:
+                counts[3] += (hit & act).sum()
         if distance == "free":
-            d_s = -torch.log1p(-u_dist) * pk.inv_sigma_t
+            if fc is None:
+                d_s = -torch.log1p(-u_dist) * pk.inv_sigma_t
+            else:
+                # analytic inversion (exp_height) or delta tracking (blobs)
+                d_s = pr.field_sample_free(
+                    fc, pk.sigma_t, pk.inv_maj_rate, o, d, u_dist, rng,
+                    t_eff, active=act,
+                    work=counts[5:6] if stats is not None else None)
             surface = (d_s > t_eff) & hit
+            if fc is not None:
+                # an escaped flight (d_s == BIG off any surface) kills the
+                # lane instead of scattering at a far point
+                alive = alive & ((d_s < 0.5 * BIG) | surface)
             xt = [o[i] + d_s * d[i] for i in range(3)]
         else:
             # equi-angular (equiAngularParams2 + sample/pdf,
@@ -534,7 +612,13 @@ def _render_lanes(pk: Packed, seed: torch.Tensor, lane: torch.Tensor,
                 xt = [x0[i] + sample_t * d[i] for i in range(3)]
             dist_pdf = D / (torch.clamp_min(torch.abs(th_b - th_a), 1e-12)
                             * (sample_t * sample_t + D * D))
-            t_xt = torch.exp(-pk.sigma_t * torch.abs(d_along))
+            if fc is None:
+                t_xt = torch.exp(-pk.sigma_t * torch.abs(d_along))
+            else:
+                # the field's optical depth is odd in t: |tau| is the
+                # segment's depth when the sample lies behind the origin
+                t_xt = torch.exp(-torch.abs(
+                    pr.field_tau(fc, pk.sigma_t, o, d, d_along)))
             u_ev = rng()
             surface = (u_ev <= tr_actual) & hit
             # pSuccess = pdf * (1 - Tr), floored twice: the product can
@@ -556,7 +640,12 @@ def _render_lanes(pk: Packed, seed: torch.Tensor, lane: torch.Tensor,
 
         if nee:
             ldp, dist_l = plight_term(at, xs, nrm, d, lc, lrad)
-            trs = torch.exp(-pk.sigma_t * dist_l)
+            if fc is None:
+                trs = torch.exp(-pk.sigma_t * dist_l)
+            else:
+                inv_dl = 1.0 / torch.clamp_min(dist_l, 1e-20)
+                wlight = [(lc[i] - xs[i]) * inv_dl for i in range(3)]
+                trs = pr.field_tr_toward(fc, pk.sigma_t, xs, wlight, dist_l)
             ldm = mis_v2(rng, at, xs, nrm, d)
             for i in range(3):
                 ld = ldp[i] * (trs * pk.n_em_f) + ldm[i]
@@ -597,6 +686,9 @@ def _render_lanes(pk: Packed, seed: torch.Tensor, lane: torch.Tensor,
             # (vptShadeMethods.h:1134-1146)
             inv_pdf_s = 1.0 / pdf_success
             w_med = pk.ss_cp * t_xt * inv_pdf_s
+            if fc is not None:
+                # sigma_s(xt) = sigma_s dens(xt)
+                w_med = w_med * pr.field_density(fc, xt)
             if nee:
                 ld_med = medium_nee(rng, d, xt, lc, lrad, lr, lid)
                 scale = w_med * pk.n_em_f
@@ -608,6 +700,18 @@ def _render_lanes(pk: Packed, seed: torch.Tensor, lane: torch.Tensor,
         if stats is not None:
             counts[1] += shade.sum()
             counts[2] += medium.sum()
+            if fc is not None:
+                # the kernel's other field evaluations: pLight and one per
+                # MIS light on shading lanes, medium NEE, the implicit
+                # (1 - Tr) and the equi-angular T on medium lanes
+                n_sh = shade.sum() * (1 + len(pk.mis_lights)) if nee else 0
+                n_md = medium.sum() * (
+                    int(nee) + int(distance != "free")
+                    + int(distance == "free" and not nee
+                          and not pk.physical))
+                counts[3] += n_sh + n_md
+                if distance != "free":
+                    counts[4] += medium.sum()
         o = pr.sel3(shade, xs, pr.sel3(medium, xt, o))
         d = pr.sel3(shade, wi_s, pr.sel3(medium, wi_m, d))
         tp = pr.sel3(shade, tp_surface, pr.sel3(medium, tp_medium, tp))
@@ -625,7 +729,7 @@ def _render_lanes(pk: Packed, seed: torch.Tensor, lane: torch.Tensor,
     samples = torch.zeros(N, dtype=torch.int64, device=dev)
     cam_o = _const3(pk.cam_o, z)
     one = torch.ones_like(z)
-    counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    counts = torch.zeros(6, dtype=torch.int64, device=dev)
     it = 0
     while it < pk.max_iters and bool((samples < spp).any()):
         need = ~alive & (samples < spp)
@@ -643,7 +747,9 @@ def _render_lanes(pk: Packed, seed: torch.Tensor, lane: torch.Tensor,
         samples = samples + (was_alive & ~alive).to(torch.int64)
         it += 1
     if stats is not None:
-        for k, v in zip(("thread_iters", "shade", "medium"), counts.tolist()):
+        keys = ("thread_iters", "shade", "medium", "taus", "densities",
+                "null_steps")
+        for k, v in zip(keys, counts.tolist()):
             stats[k] = stats.get(k, 0) + v
     return torch.stack(L, dim=-1)
 
@@ -687,9 +793,11 @@ def _check_seed(seed: torch.Tensor) -> None:
 
 def _launch(pk: Packed, seed: torch.Tensor, bases, n_lanes: int,
             sums: bool) -> torch.Tensor:
-    """One launch of the kernel instantiation for (pk.nee, pk.distance) on
-    seed.device's current stream, without synchronising."""
-    entry = KERNEL_ENTRIES.get((pk.nee, pk.distance))
+    """One launch of the kernel instantiation for (pk.nee, pk.distance),
+    in a density field its field instantiation, on seed.device's current
+    stream, without synchronising."""
+    entries = KERNEL_ENTRIES if pk.field is None else FIELD_ENTRIES
+    entry = entries.get((pk.nee, pk.distance))
     if entry is None:
         raise NotImplementedError(
             f"no render kernel is built for nee={pk.nee}, distance="

@@ -14,8 +14,10 @@
 
 Values are written as exact python floats, so a scene saved by either
 package rebuilds the same f32 values in the other, and both render the same
-thing. Scenes with a "density" field need the heterogeneous media of ROADMAP
-Queue 1 item 6 and are refused.
+thing. A heterogeneous medium rides in an optional "density" entry,
+{"kind", "majorant", "max_null", "params"}, as vpt/scene/io.py:68-133 writes
+it (params: [[k, y0]] for exp_height, one [cx, cy, cz, r, w] row per blob).
+Voxel grids (kind "grid") are ROADMAP Queue 1 item 7 and are refused.
 """
 from __future__ import annotations
 
@@ -60,6 +62,14 @@ def scene_to_dict(scene: Scene, camera: Camera | None = None) -> dict:
     g = float(_f64(scene.medium.g))
     if g != 0.0:
         out["g"] = g      # HG anisotropy; omitted when isotropic
+    fld = scene.medium.density
+    if fld is not None:   # omitted when homogeneous
+        p = _f64(fld.params)
+        out["density"] = {
+            "kind": fld.kind, "majorant": float(fld.majorant),
+            "max_null": int(fld.max_null),
+            "params": [list(map(float, row)) for row in p.reshape(
+                -1, p.shape[-1] if p.ndim > 1 else p.shape[0])]}
     if camera is not None:
         out["camera"] = {
             "origin": list(map(float, _f64(camera.origin))),
@@ -72,10 +82,6 @@ def scene_to_dict(scene: Scene, camera: Camera | None = None) -> dict:
 def scene_from_dict(d: dict, dtype=torch.float32, device="cpu"):
     """(Scene, Camera | None) from a scene dict. Missing per-sphere fields
     default like the reference Sphere constructor (zeros; material 0)."""
-    if "density" in d:
-        raise NotImplementedError(
-            "scene has a density field: heterogeneous media are not ported "
-            "yet (ROADMAP Queue 1 item 6)")
     spheres = []
     for s in d["spheres"]:
         spheres.append((
@@ -88,9 +94,22 @@ def scene_from_dict(d: dict, dtype=torch.float32, device="cpu"):
             tuple(s.get("kappa", (0.0, 0.0, 0.0))),
             float(s.get("alpha", 0.0)),
         ))
+    density = None
+    if "density" in d:
+        from ..media.density import EXP_HEIGHT, DensityField
+
+        dd = d["density"]
+        p = np.asarray(dd["params"], np.float64)
+        if dd["kind"] == EXP_HEIGHT:
+            p = p.reshape(-1)[:2]
+        density = DensityField(
+            params=torch.as_tensor(p).to(dtype), kind=str(dd["kind"]),
+            majorant=float(dd.get("majorant", 1.0)),
+            max_null=int(dd.get("max_null", 64)))
     scene = make_scene(spheres, sigma_a=float(d.get("sigma_a", 0.001)),
                        sigma_s=float(d.get("sigma_s", 0.009)),
-                       g=float(d.get("g", 0.0)), dtype=dtype, device=device)
+                       g=float(d.get("g", 0.0)), density=density,
+                       dtype=dtype, device=device)
     camera = None
     if "camera" in d:
         c = d["camera"]

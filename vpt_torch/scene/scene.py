@@ -9,8 +9,10 @@ reference (include/Sphere.h:18-21):
   0 = Lambertian, 1 = Beckmann microfacet conductor, 2 = smooth dielectric,
   3 = volumetric boundary (participating-medium shell).
 
-Only homogeneous media exist in this package so far: the heterogeneous
-density fields and the scenes built on them are ROADMAP Queue 1 item 6.
+A medium is homogeneous, or scaled by one of vpt's analytic density
+fields (media/density.py: exp_height ground fog, Gaussian blobs); the scenes
+foggy_cornell and blob_cloud carry one each. Voxel grids are ROADMAP Queue 1
+item 7.
 """
 from __future__ import annotations
 
@@ -33,25 +35,20 @@ MICROFACET = 1
 DIELECTRIC = 2
 VOLUME_BOUNDARY = 3
 
-_FIELDS_TODO = ("heterogeneous density fields are not ported yet "
-                "(ROADMAP Queue 1 item 6)")
-
 
 @dataclasses.dataclass(frozen=True)
 class Medium:
-    """Homogeneous participating medium.
+    """Participating medium: sigma_a(x) = sigma_a * d(x), sigma_s(x) =
+    sigma_s * d(x) with d the density field, or d == 1 (homogeneous) when
+    density is None.
 
-    g: Henyey-Greenstein anisotropy; 0 is isotropic. density must be None:
-    spatially-varying fields are ROADMAP Queue 1 item 6."""
+    g: Henyey-Greenstein anisotropy; 0 is isotropic.
+    density: a media.density.DensityField (exp_height or blobs) or None."""
 
     sigma_a: torch.Tensor
     sigma_s: torch.Tensor
     g: torch.Tensor | float = 0.0
-    density: None = None
-
-    def __post_init__(self):
-        if self.density is not None:
-            raise NotImplementedError(_FIELDS_TODO)
+    density: "DensityField | None" = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,9 +83,8 @@ def make_scene(
 ) -> Scene:
     """Build a Scene from (radius, center, albedo, radiance, material, eta,
     kappa, alpha) tuples — the reference Sphere constructor order
-    (include/Sphere.h:23)."""
-    if density is not None:
-        raise NotImplementedError(_FIELDS_TODO)
+    (include/Sphere.h:23). density: a media.density.DensityField or None
+    (homogeneous)."""
     n = len(spheres)
     radius = np.zeros((n,), np.float64)
     center = np.zeros((n, 3), np.float64)
@@ -120,7 +116,7 @@ def make_scene(
         radiance=as_(radiance),
         material=torch.as_tensor(material, device=device),
         eta=as_(eta), kappa=as_(kappa), alpha=as_(alpha),
-        medium=Medium(as_(sigma_a), as_(sigma_s), as_(g)),
+        medium=Medium(as_(sigma_a), as_(sigma_s), as_(g), density),
         emitter_idx=emitter_idx, mis_light_idx=mis_light_idx,
         point_idx=point_idx,
     )
@@ -255,13 +251,43 @@ def medium_shell(dtype=torch.float32, device="cpu") -> Scene:
 
 
 def foggy_cornell(dtype=torch.float32, device="cpu") -> Scene:
-    """Ground-fog Cornell box (exp_height density field)."""
-    raise NotImplementedError(f"foggy_cornell: {_FIELDS_TODO}")
+    """vpt's heterogeneous capability scene (vpt/scene/scene.py:300-314):
+    the reference's active Cornell geometry in ground fog, an exp_height
+    field d(x) = exp(-k (y - y0)) anchored at the floor (y0 = -40.8, k =
+    0.06: density 1.0 at the floor, ~0.007 at the ceiling), with a denser
+    medium (sigma_t = 0.04). The majorant 1.01 covers the floor sphere's
+    dip of ~0.012 below y = -40.8 at the side walls."""
+    from ..media.density import exp_height
+
+    return make_scene(
+        list(CORNELL_VPT_SPHERES), sigma_a=0.004, sigma_s=0.036,
+        density=exp_height(k=0.06, y0=-40.8, majorant=1.01, dtype=dtype),
+        dtype=dtype, device=device)
 
 
 def blob_cloud(dtype=torch.float32, device="cpu") -> Scene:
-    """Gaussian-blob smoke scene (blobs density field)."""
-    raise NotImplementedError(f"blob_cloud: {_FIELDS_TODO}")
+    """vpt's Gaussian-blob capability scene (vpt/scene/scene.py:317-347):
+    three overlapping density blobs between the camera and two spheres
+    (the light_near_camera geometry, Sphere.cpp:49-62), lit by a sphere
+    light (a point light's medium NEE is zero by the reference's
+    missing-else quirk). Free flight is delta tracking against the
+    majorant 1.8."""
+    from ..media.density import blobs
+
+    return make_scene(
+        [
+            (12.0, (-18, -8, 150), (0.75, 0.3, 0.2), _Z3, LAMBERT, _Z3, _Z3, 0.0),
+            (12.0, (18, -8, 160), (0.2, 0.4, 0.75), _Z3, LAMBERT, _Z3, _Z3, 0.0),
+            (3.0, (0, 35, 190), _Z3, (130, 130, 115), LAMBERT, _Z3, _Z3, 0.0),
+        ],
+        sigma_a=0.004, sigma_s=0.04,
+        density=blobs([
+            # cx, cy, cz, radius, weight
+            (-8.0, 2.0, 178.0, 9.0, 0.9),
+            (8.0, -2.0, 170.0, 12.0, 0.7),
+            (0.0, 10.0, 162.0, 8.0, 1.0),
+        ], majorant=1.8, dtype=dtype),
+        dtype=dtype, device=device)
 
 
 SCENES = {
