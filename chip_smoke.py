@@ -62,10 +62,32 @@ plain torch version on the card:
      shape at 256x192; Adam at 0.15 with only the blob rows kept), then
      K2/K3 with the blobs traced at that trainer's shape (256x192, 16 spp
      per render, 16 bounces) against their plain versions, and blob 0's gradients against
-     common-random-number central differences.
+     common-random-number central differences;
+ 15. the Henyey-Greenstein phase in the pair and the multi-view trainer:
+     ptxas of K2/K3's HG instantiations (the isotropic ones held to their
+     registers); each against its plain version at 64x32x8 (cornell_vpt at
+     a baked g = 0.5 under both samplers, the traced diff_g, foggy_cornell
+     with diff_g + diff_field; seeds 3 and 11) and at
+     examples/recover_fog_multiview.py's shape (192x192, 16 spp per render,
+     32 bounces, "ld"); the fog pair with diff_g + diff_field and the
+     homogeneous pair at the baked g through make_diff_renderer at
+     1024x1024x64 "ld", fwd+bwd timed, K2 bit-equal to plain there; then
+     the examples at their own settings through the port's API:
+     examples/recover_sigma.py (256x256, 200 steps),
+     examples/recover_all.py --seed 0 --views 2 (1024x1024; the material
+     block through make_multiview_train_step with per-leaf Adam groups,
+     the geometry block through fit_geom_fd; 3 rounds) against
+     BASELINE.md's tolerances, and FOG_MV_STEPS of
+     examples/recover_fog_multiview.py's 2400 steps through fit_multiview.
 
-Each main path (phases 4, 7, 8, 10, 11, 12, 13 and 14) runs with every launch
-count set to 0 just before it and read just after. The line before the last is the
+The main-frame plain versions (phases 4, 7, 10, 12, 14 and 15) and phase
+15's plain checks run in worker processes on the same card while the
+kernels build (PlainPool); they are collected before the first timing.
+`--recover-fog-multiview STEPS` runs the card, the build and that
+example's fit alone.
+
+Each main path (phases 4, 7, 8, 10, 11, 12, 13, 14 and 15) runs with every
+launch count set to 0 just before it and read just after. The line before the last is the
 per-kernel JSON record, the last line the device record. Any failed phase
 raises and the script exits non-zero; without a CUDA device it exits
 non-zero before printing any result.
@@ -309,6 +331,173 @@ def bound(kernel: str, stats: dict, dp: df.DiffPacked) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+# ---- the plain versions at the main frame, in worker processes
+#
+# A plain version is host-bound: one Python thread issues thousands of small
+# CUDA kernels per loop iteration, 13-34 s at the main frame, and leaves the
+# card nearly idle. The main-frame runs (each an oracle for a kernel's
+# output there and the counter of the work its bound reads) go to
+# PLAIN_WORKERS spawned processes on the same card, submitted before the
+# build and collected before the first kernel timing, so that no timing
+# shares the card with them. A job rebuilds its inputs from a hashable spec
+# at MAIN_CFG's frame and seed, and times the plain call alone; its time is
+# that of one of PLAIN_WORKERS concurrent processes (a record says so with
+# "plain_alone": false), which phase 5 sets beside K1's plain version run
+# alone (NVIDIA H100 80GB HBM3: 18.5 s alone, 60.3 s in a pool started
+# after the build, so the workers slow each other, not the build):
+#   ("k1", scene, g, integrator): the render kernel's plain version;
+#   ("k2", scene, g, traced): the pair's forward, traced a tuple of
+#     make_diff_renderer flags (diff_g, diff_field);
+#   ("k4", sphere, primal_only, spp): the dual kernel's at spp;
+#   ("pair", scene, g, traced, frame): the pair's image and K3's per-pixel
+#     rows at a pair_inputs frame.
+PLAIN_WORKERS = 6
+PLAIN_TIMEOUT_S = 600   # the pool took 211.6 s in all (NVIDIA H100 80GB HBM3)
+
+
+def pair_inputs(name: str, g: float, traced: tuple, frame: tuple, camera,
+                dev: torch.device) -> tuple:
+    """The pair's inputs on SCENES[name] at HG g, traced a tuple of
+    make_diff_renderer flags, frame (width, height, spp, max_bounces,
+    sampler, seed): (packed, P-vector, seed tensor, cotangent drawn from
+    np.random.default_rng(seed)). The kernels and their plain versions
+    are both fed from here."""
+    w, h, spp, mb, sampler, s = frame
+    sc = with_g(SCENES[name](), g)
+    kw = dict.fromkeys(traced, True)
+    dp = df.pack_diff(sc, camera, w, h, spp, max_bounces=mb, sampler=sampler,
+                      **kw)
+    pvec = df._flatten(df.pack_params(
+        sc, with_g="diff_g" in kw, with_field="diff_field" in kw),
+        sc.count).to(dev)
+    seed = torch.tensor([s], dtype=torch.int32, device=dev)
+    gbar = torch.from_numpy(np.random.default_rng(s).standard_normal(
+        (dp.npix, 3)).astype(np.float32)).to(dev)
+    return dp, pvec, seed, gbar
+
+
+def main_frame() -> tuple:
+    """MAIN_CFG as a pair_inputs frame."""
+    c = vpt_torch.RenderConfig(**MAIN_CFG)
+    return (c.width, c.height, c.spp, c.max_bounces, c.sampler, c.seed)
+
+
+def plain_job(spec: tuple) -> tuple:
+    """Run one plain version on the card; (output as numpy, the work
+    counters, ms of the plain call alone, its inputs built before)."""
+    torch.set_num_threads(1)
+    dev = torch.device("cuda", 0)
+    cfg = vpt_torch.RenderConfig(**MAIN_CFG)
+    cam = vpt_torch.default_camera()
+    seed = torch.tensor([cfg.seed], dtype=torch.int32, device=dev)
+    kind, name = spec[:2]
+    stats = {}
+    if kind in ("pair", "k2"):
+        frame = spec[4] if kind == "pair" else main_frame()
+        dp, pvec, seed, gbar = pair_inputs(name, spec[2], spec[3], frame,
+                                           cam, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = df.diff_fwd_plain(dp, pvec, seed, stats=stats)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if kind == "k2":
+            return out.cpu().numpy(), stats, ms
+        t0 = time.perf_counter()
+        G = df.diff_bwd_plain(dp, pvec, seed, gbar, per_lane=True)
+        torch.cuda.synchronize()
+        stats["plain_bwd_ms"] = (time.perf_counter() - t0) * 1e3
+        return (out.cpu().numpy(), G.cpu().numpy()), stats, ms
+    if kind == "k1":
+        _, _, g, integrator = spec
+        pk = wf.pack_config(with_g(SCENES[name](), g), cam,
+                            dataclasses.replace(cfg, integrator=integrator))
+        t0 = time.perf_counter()
+        out = wf.render_tile_plain(pk, seed, stats)
+    else:
+        _, _, sphere, primal, spp = spec
+        sc = SCENES[name]()
+        gp = gm.pack_geom(sc, cam, cfg.width, cfg.height, spp,
+                          sphere=sphere, primal_only=primal,
+                          max_bounces=cfg.max_bounces)
+        th = gm.flatten_theta(gm.pack_theta(sc, cam, sphere)).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gm.geom_fwd_plain(gp, th, seed, stats=stats)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out.cpu().numpy(), stats, ms
+
+
+class PlainPool:
+    """The main-frame plain versions, computed ahead in worker processes."""
+
+    def __init__(self, specs: list):
+        import multiprocessing
+        self.t0 = time.perf_counter()
+        self.pool = multiprocessing.get_context("spawn").Pool(PLAIN_WORKERS)
+        self.jobs = {spec: self.pool.apply_async(plain_job, (spec,))
+                     for spec in dict.fromkeys(specs)}
+
+    def wait(self) -> None:
+        """Block until every job is done, then stop the workers."""
+        deadline = self.t0 + PLAIN_TIMEOUT_S
+        for spec, job in self.jobs.items():
+            job.wait(max(0.0, deadline - time.perf_counter()))
+            if not job.ready():
+                raise TimeoutError(f"plain version {spec}: not done "
+                                   f"{PLAIN_TIMEOUT_S} s after the start")
+        self.pool.close()
+        self.pool.join()
+        ms = sorted(j.get()[2] for j in self.jobs.values())
+        print(f"plain versions: {len(self.jobs)} main-frame runs in "
+              f"{PLAIN_WORKERS} worker processes, "
+              f"{time.perf_counter() - self.t0:.1f} s wall (each "
+              f"{ms[0] / 1e3:.1f}-{ms[-1] / 1e3:.1f} s, "
+              f"{sum(ms) / 1e3:.1f} s in all)", flush=True)
+
+    def get(self, spec: tuple, dev: torch.device) -> tuple:
+        """(output on dev, work counters, ms) of one job; a pair job's
+        output is (image, per-pixel rows)."""
+        out, stats, ms = self.jobs[spec].get()
+        if isinstance(out, tuple):
+            return tuple(torch.from_numpy(o).to(dev) for o in out), stats, ms
+        return torch.from_numpy(out).to(dev), stats, ms
+
+    def terminate(self) -> None:
+        self.pool.terminate()
+        self.pool.join()
+
+
+def k1_spec(integrator: str, scene: str = "cornell_vpt",
+            g: float = 0.0) -> tuple:
+    """The spec of K1's plain version under `integrator`, named by the
+    first integrator with the same flags (one run serves them all)."""
+    flags = wf.KERNEL_INTEGRATORS[integrator]
+    first = next(n for n, f in wf.KERNEL_INTEGRATORS.items() if f == flags)
+    return ("k1", scene, g, first)
+
+
+def pair_spec(scene: str = "cornell_vpt", g: float = 0.0,
+              traced: tuple = ()) -> tuple:
+    return ("k2", scene, g, traced)
+
+
+GEOM0_SPEC = ("k4", "cornell_vpt", 8, True, MAIN_CFG["spp"])
+GEOM7_SPEC = ("k4", "cornell_vpt", 8, False, 2)       # GEOM_CHECK_SPP
+
+
+def plain_specs() -> list:
+    """The plain runs of phases 4-15."""
+    k1 = [k1_spec(integ, sname, g) for _, integ, sname, g in VARIANTS]
+    k1 += [k1_spec(integ, sname) for integ, sname in FIELD_VARIANTS]
+    return [k1_spec("explicit_free"), pair_spec(), GEOM0_SPEC, GEOM7_SPEC,
+            *k1, pair_spec("foggy_cornell", 0.0, ("diff_field",)),
+            pair_spec("foggy_cornell", 0.5, ("diff_g", "diff_field")),
+            pair_spec("cornell_vpt", 0.5), *HG_CHECKS, HG_TRAINER_CHECK,
+            *HG_MAIN_CHECKS.values()]
+
+
 # ---- phase 14: analytic density fields (exp_height, blobs) in K1 and the pair
 
 # registers and spill stores ptxas gives the homogeneous instantiations
@@ -319,8 +508,8 @@ HOMOGENEOUS_PTXAS = {
     "vpt_wavefront6kernelILb1ELi1ELb0E": (119, 0),   # EA + NEE
     "vpt_wavefront6kernelILb0ELi0ELb0E": (61, 0),    # free
     "vpt_wavefront6kernelILb0ELi2ELb0E": (68, 0),    # clamped EA
-    "vpt_diff10fwd_kernelILb0E": (118, 0),           # K2
-    "vpt_diff10bwd_kernelILb0E": (128, 56),          # K3
+    "vpt_diff10fwd_kernelILb0ELb0E": (118, 0),       # K2
+    "vpt_diff10bwd_kernelILb0ELb0E": (128, 56),      # K3
 }
 FIELD_SCENES = ("foggy_cornell", "blob_cloud")
 # K1's field instantiations: (integrator, its first variant's scene at the
@@ -392,10 +581,9 @@ def field_variant_bound(stats: dict, pk: wf.Packed) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def field_pair_bound(kernel: str, stats: dict,
-                     dp: df.DiffPacked) -> tuple[float, str]:
-    """bound() plus the field's operations: K2 as K1's free-flight NEE
-    field terms; K3 replays them, evaluates one more optical depth per
+def field_pair_ops(kernel: str, stats: dict, dp: df.DiffPacked) -> float:
+    """ops_lower_bound plus the field's operations: K2 as K1's free-flight
+    NEE field terms; K3 replays them, evaluates one more optical depth per
     shading or medium event (the sigma score), and with traced field
     parameters at least one derivative (>= an optical depth's operations)
     per optical depth it evaluates."""
@@ -407,13 +595,18 @@ def field_pair_bound(kernel: str, stats: dict,
         ops += events * field_tau_ops(pk)
         if dp.n_fp:
             ops += (stats["taus"] + events) * field_tau_ops(pk)
-    t_ops = ops / PEAK_F32 * 1e3
+    return ops
+
+
+def field_pair_bound(kernel: str, stats: dict,
+                     dp: df.DiffPacked) -> tuple[float, str]:
+    t_ops = field_pair_ops(kernel, stats, dp) / PEAK_F32 * 1e3
     t_bytes = bytes_moved(kernel, dp) / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def field_phases(card: str, dev: torch.device, camera, cfg,
-                 seed_t: torch.Tensor) -> list:
+                 seed_t: torch.Tensor, plains: PlainPool) -> list:
     """Phase 14; returns the field instantiations' kernel records."""
     t14 = time.perf_counter()
     # -- build and registers
@@ -439,8 +632,8 @@ def field_phases(card: str, dev: torch.device, camera, cfg,
         k = {"free": 0, "equiangular": 1, "ea_clamped": 2}[dist]
         field_ptxas[entry] = find(
             f"vpt_wavefront6kernelILb{int(nee)}ELi{k}ELb1E")
-    field_ptxas["vpt_diff_fwd_field"] = find("vpt_diff10fwd_kernelILb1E")
-    field_ptxas["vpt_diff_bwd_field"] = find("vpt_diff10bwd_kernelILb1E")
+    field_ptxas["vpt_diff_fwd_field"] = find("vpt_diff10fwd_kernelILb1ELb0E")
+    field_ptxas["vpt_diff_bwd_field"] = find("vpt_diff10bwd_kernelILb1ELb0E")
     for entry, (regs, spill, stack) in field_ptxas.items():
         print(f"phase 14 ptxas {entry}: {regs} registers, {spill} B spill "
               f"stores, {stack} B stack", flush=True)
@@ -487,9 +680,7 @@ def field_phases(card: str, dev: torch.device, camera, cfg,
             raise AssertionError(f"{name} {integrator}: render launched "
                                  f"{launched}")
         pk = wf.pack_config(scenes[name], camera, vcfg)
-        stats = {}
-        plain, p_ms = cuda_ms(lambda: wf.render_tile_plain(pk, seed_t,
-                                                            stats))
+        plain, stats, p_ms = plains.get(k1_spec(integrator, name), dev)
         flat = img.reshape(-1, 3)
         equal = bool(torch.equal(flat, plain))
         err = float((flat - plain).abs().max())
@@ -589,9 +780,8 @@ def field_phases(card: str, dev: torch.device, camera, cfg,
     k3_ms, k3_times = median_ms(lambda: df.diff_bwd(dp, pvec, seed_t,
                                                     gmean))
     k2 = df.diff_fwd(dp, pvec, seed_t)
-    pstats = {}
-    k2p, k2p_ms = cuda_ms(lambda: df.diff_fwd_plain(dp, pvec, seed_t,
-                                                    stats=pstats))
+    k2p, pstats, k2p_ms = plains.get(
+        pair_spec("foggy_cornell", 0.0, ("diff_field",)), dev)
     k2_equal = bool(torch.equal(k2, k2p))
     k2_err = float((k2 - k2p).abs().max())
     del k2p
@@ -814,7 +1004,8 @@ def field_phases(card: str, dev: torch.device, camera, cfg,
             "replaces": "vpt/kernels/wavefront.py:465",
             "launches": sum(r["launches"] for r in rows),
             "max_abs_err": rows[0]["max_abs_err"], "ms": rows[0]["ms"],
-            "plain_ms": rows[0]["plain_ms"], "bound_ms": rows[0]["bound_ms"],
+            "plain_ms": rows[0]["plain_ms"], "plain_alone": False,
+            "bound_ms": rows[0]["bound_ms"],
             "bound_by": rows[0]["bound_by"], "variants": rows,
             "ptxas": {"registers": regs, "spill_stores": spill,
                       "stack": stack},
@@ -835,6 +1026,7 @@ def field_phases(card: str, dev: torch.device, camera, cfg,
             "launches_recover_fog": launched_fog["vpt_" + name],
             "launches_recover_blobs": launched_blob["vpt_" + name],
             "max_abs_err": err, "ms": ms, "plain_ms": p_ms,
+            "plain_alone": "bwd" in name,
             "bound_ms": b_ms, "bound_by": b_by,
             "ptxas": {"registers": regs, "spill_stores": spill,
                       "stack": stack},
@@ -846,11 +1038,566 @@ def field_phases(card: str, dev: torch.device, camera, cfg,
     return records
 
 
+# ---- phase 15: the HG phase in the pair, the multi-view trainer and the
+# recovery examples
+
+# the pair's HG instantiations (kernel <kField, kHG>) and the isotropic
+# field ones, whose registers phase 14 reported (NVIDIA H100 80GB HBM3, this
+# toolkit): the HG code must leave them as they were
+FIELD_PAIR_PTXAS = {
+    "vpt_diff10fwd_kernelILb1ELb0E": (121, 0),       # field K2
+    "vpt_diff10bwd_kernelILb1ELb0E": (160, 0),       # field K3
+}
+HG_ENTRIES = {"vpt_diff_fwd_hg": "vpt_diff10fwd_kernelILb0ELb1E",
+              "vpt_diff_bwd_hg": "vpt_diff10bwd_kernelILb0ELb1E",
+              "vpt_diff_fwd_field_hg": "vpt_diff10fwd_kernelILb1ELb1E",
+              "vpt_diff_bwd_field_hg": "vpt_diff10bwd_kernelILb1ELb1E"}
+HG_SOURCES = {"vpt_diff_fwd_hg": "diff_hg.cu", "vpt_diff_bwd_hg": "diff_hg.cu",
+              "vpt_diff_fwd_field_hg": "diff_field_hg_fwd.cu",
+              "vpt_diff_bwd_field_hg": "diff_field_hg_bwd.cu"}
+# examples/recover_fog_multiview.py: its four cameras (:73-78), at 192x192;
+# phase 15 runs FOG_MV_STEPS of its 2400 steps (the whole fit is
+# `python3 chip_smoke.py --recover-fog-multiview 2400`)
+FOG_MV_CAMS = [((0.0, 0.0, 0.0), None),
+               ((35.0, 30.0, 180.0), (0.0, -10.0, 0.0)),
+               ((-38.0, -20.0, 150.0), (10.0, 0.0, -40.0)),
+               ((0.0, 25.0, 60.0), (0.0, -10.0, 200.0))]
+FOG_MV_STEPS = 1200
+# K2/K3 against their plain versions: at 64x32x8 (the baked g under both
+# samplers, the traced g, the fog with the traced g and falloff; seeds 3 and
+# 11), and at recover_fog_multiview's shape (192x192, 16 spp per render, 32
+# bounces, "ld": the fog at its truth, g = 0.5, the fit's first seed)
+HG_CHECKS = [("pair", name, 0.5, traced, (64, 32, 8, 8, sampler, seed))
+             for name, traced, sampler in (
+                 ("cornell_vpt", (), "random"), ("cornell_vpt", (), "ld"),
+                 ("cornell_vpt", ("diff_g",), "random"),
+                 ("foggy_cornell", ("diff_g", "diff_field"), "random"))
+             for seed in (3, 11)]
+HG_TRAINER_CHECK = ("pair", "foggy_cornell", 0.5, ("diff_g", "diff_field"),
+                    (192, 192, 16, 32, "ld", 0))
+# and at the main frame with CHECK_SPP samples, as phases 7 and 14 hold the
+# isotropic K3s: (label, check) for the two pairs phase 15 times there
+HG_MAIN_CHECKS = {
+    label: ("pair", name, 0.5, traced,
+            (MAIN_CFG["width"], MAIN_CFG["height"], CHECK_SPP,
+             MAIN_CFG["max_bounces"], MAIN_CFG["sampler"], 0))
+    for label, name, traced in (
+        ("homogeneous", "cornell_vpt", ()),
+        ("fog", "foggy_cornell", ("diff_g", "diff_field")))}
+# K1 (explicit_free) at MAIN_CFG before the HG pair (PERF.md; NVIDIA H100
+# 80GB HBM3, 700.00 W)
+FREE_MS_BEFORE_HG = 81.565
+
+
+# HG on top of the pair's counts, as variant_ops_lower_bound counts K1's:
+# per medium event 30 for the HG direction and 12 for the phase value; K3
+# replays them, and with the traced g adds two dlog_hg_dg of 11 with their
+# cosines (5) and the 4 accumulations of the g slot: 36
+def hg_pair_bound(kernel: str, stats: dict,
+                  dp: df.DiffPacked) -> tuple[float, str]:
+    ops = (ops_lower_bound(kernel, stats, dp) if dp.pk.field is None
+           else field_pair_ops(kernel, stats, dp))
+    extra = 42
+    if kernel == "diff_bwd" and dp.hg_mode == df.HG_TRACED:
+        extra += 36
+    t_ops = (ops + stats["medium"] * extra) / PEAK_F32 * 1e3
+    t_bytes = bytes_moved(kernel, dp) / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def pair_vs_plain(spec: tuple, plains: PlainPool, camera,
+                  dev: torch.device) -> dict:
+    """K2 and K3 against their plain versions (a "pair" job of the pool)
+    on the same inputs: the image bit for bit, K3's per-pixel rows by
+    lane_q99 (and their bit-equal share), the block-summed vector within
+    GVEC_TOL of sum |G|."""
+    _, name, g_, traced, frame = spec
+    w, h, spp, mb, sampler, seed = frame
+    dp, pvec, s, gbar = pair_inputs(name, g_, traced, frame, camera, dev)
+    k = df.diff_fwd(dp, pvec, s)
+    g = df.diff_bwd(dp, pvec, s, gbar)
+    G = df.diff_bwd(dp, pvec, s, gbar, per_lane=True)
+    (p, Gp), pstats, p_ms = plains.get(spec, dev)
+    gp_ms = pstats["plain_bwd_ms"]
+    label = (f"{w}x{h}x{spp} {sampler} {mb} bounces {name} g={g_} "
+             f"{traced or 'baked'}")
+    res = dict(
+        equal=bool(torch.equal(k, p)), err=float((k - p).abs().max()),
+        rows=float((G == Gp).all(1).float().mean()), q_lane=lane_q99(G, Gp),
+        over=int(((g - Gp.sum(0)).abs() > GVEC_TOL * Gp.abs().sum(0)).sum()),
+        g_err=float((g - Gp.sum(0)).abs().max()), plain_ms=p_ms,
+        plain_bwd_ms=gp_ms, finite=bool(torch.isfinite(G).all()
+                                         and torch.isfinite(k).all()))
+    res.update(dp=dp, pvec=pvec, seed=s, gbar=gbar)
+    print(f"phase 15 K2/K3 check {label} seed {seed}: image bit-equal "
+          f"{res['equal']}, per-pixel gradient q99 {res['q_lane']:.3e}, "
+          f"bit-equal rows {res['rows']:.4f}, summed entries over bound "
+          f"{res['over']} of {dp.P}", flush=True)
+    if not (res["equal"] and res["over"] == 0 and res["q_lane"] < Q99_TOL
+            and res["finite"]):
+        raise AssertionError(f"K2/K3 {label} seed {seed}: disagree with "
+                             f"their plain versions")
+    return res
+
+
+def falls(losses: list, frac: float = 0.25) -> tuple:
+    """(whether the mean of the last frac of the losses is below that of
+    the first, the two means): A/B losses are noisy step to step."""
+    n = max(1, int(len(losses) * frac))
+    first, last = float(np.mean(losses[:n])), float(np.mean(losses[-n:]))
+    return last < first, first, last
+
+
+def recover_fog_multiview(camera, steps: int, card: str) -> dict:
+    """examples/recover_fog_multiview.py at its own settings through the
+    port: 4 cameras, 192x192 targets at 4096 spp through K1 (foggy_cornell
+    at g = 0.5, 32 bounces, "ld", seed 123; divided by the spp once more,
+    as the example does), fit_multiview with diff_g + diff_field from
+    (0.010, 0.020, g 0, k 0.12), 32 spp, lr 2.5e-3, the materials frozen,
+    a Polyak tail of steps / 8."""
+    from vpt_torch.media.density import exp_height
+    from vpt_torch.scene.camera import look_at
+    fog = SCENES["foggy_cornell"]()
+    truth = with_g(fog, 0.5)
+    cams = [camera if tgt is None else look_at(org, tgt)
+            for org, tgt in FOG_MV_CAMS]
+    size, tspp = 192, 4096
+    reset_counts()
+    t0 = time.perf_counter()
+    tcfg = vpt_torch.RenderConfig(width=size, height=size, spp=tspp,
+                                  max_bounces=32, sampler="ld", seed=123)
+    targets = [vpt_torch.render(truth, c, tcfg, device="cuda") / tspp
+               for c in cams]
+    torch.cuda.synchronize()
+    t_targets = time.perf_counter() - t0
+    wrong = dataclasses.replace(truth, medium=dataclasses.replace(
+        truth.medium, sigma_a=torch.tensor(0.010),
+        sigma_s=torch.tensor(0.020), g=torch.tensor(0.0),
+        density=exp_height(k=0.12, y0=-40.8, majorant=1.01)))
+
+    def freeze_materials(p, p0):
+        out = dict(p)
+        for k in ("albedo", "radiance"):
+            out[k] = p0[k]
+        return out
+
+    t0 = time.perf_counter()
+    params, losses = vpt_torch.dist.fit_multiview(
+        wrong, cams, targets, steps=steps, spp=32, learning_rate=2.5e-3,
+        max_bounces=32, sampler="ld", diff_g=True, diff_field=True,
+        param_filter=freeze_materials, polyak_tail=max(steps // 8, 1),
+        device="cuda")
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launched = {**wf.LAUNCHES_BY, **df.LAUNCHES_BY}
+    rec = {k: float(params[k]) for k in ("sigma_a", "sigma_s", "g", "fog_k")}
+    print(f"phase 15 recover_fog_multiview (4 views, 192x192, targets 4096 "
+          f"spp in {t_targets:.3f} s, 32 spp, lr 2.5e-3, {steps} steps, "
+          f"Polyak tail {max(steps // 8, 1)}): recovered sa "
+          f"{rec['sigma_a']:.6f} ss {rec['sigma_s']:.6f} g {rec['g']:.6f} "
+          f"k {rec['fog_k']:.6f} (truth 0.004 0.036 0.5 0.06); loss "
+          f"{losses[0]:.6g} -> {losses[-1]:.6g}; {fit_s:.3f} s wall "
+          f"({1e3 * fit_s / steps:.3f} ms per step); launches {launched} "
+          f"on {card}", flush=True)
+    # each step: 4 views x an A and a B render, each K2 then K3
+    want = {"vpt_diff_fwd_field_hg": 8 * steps,
+            "vpt_diff_bwd_field_hg": 8 * steps,
+            "vpt_wavefront_free_nee_field": 4}
+    if launched != want or not (all(np.isfinite(list(rec.values())))
+                                and np.isfinite(losses).all()
+                                and falls(losses)[0]):
+        raise AssertionError(f"recover_fog_multiview: launches {launched}, "
+                             f"params {rec}, loss {losses[0]} -> "
+                             f"{losses[-1]}")
+    return dict(steps=steps, recovered=rec, loss=[losses[0], losses[-1]],
+                wall_s=fit_s, targets_s=t_targets, launches=launched)
+
+
+def recover_all(camera, card: str, dev: torch.device) -> dict:
+    """examples/recover_all.py --seed 0 --views 2 at its own settings
+    through the port: 1024x1024 targets at 64 spp, 16 bounces, "ld", seeds
+    99 and 77 (the main and the close-up view); 3 rounds of block
+    coordinate descent: the material block through
+    make_multiview_train_step (sigma at exponential_decay(1.5e-3 dec, 25,
+    0.7), albedo at 2.5e-2, radiance frozen: per-leaf groups; 80, 40, 40
+    steps at 16 spp; only sphere 6's albedo kept), then the geometry block
+    through fit_geom_fd (light 8's centre, exponential_decay(max(0.5 dec,
+    0.3), 25, 0.85); 120, 60, 60 steps at 16 spp), dec = 0.5^round."""
+    from vpt_torch.dist.train_fast import adam, exponential_decay
+    from vpt_torch.scene.camera import look_at
+    W = H = 1024
+    spp_t, spp_m, spp_g, n_m, n_g = 64, 16, 16, 80, 60
+    LIGHT, SPHERE, SEED = 8, 6, 0
+    truth = vpt_torch.cornell_vpt()
+    t0 = time.perf_counter()
+    tcfg = vpt_torch.RenderConfig(width=W, height=H, spp=spp_t,
+                                  max_bounces=16, sampler="ld", seed=99 + SEED)
+    reset_counts()
+    target = vpt_torch.render(truth, camera, tcfg, device="cuda")
+    sc_c = truth.center[SPHERE].double().numpy()
+    cam2 = look_at(tuple(sc_c + np.asarray([-20.0, 18.0, 50.0])),
+                   tuple(sc_c))
+    target2 = vpt_torch.render(truth, cam2, dataclasses.replace(
+        tcfg, seed=77 + SEED), device="cuda")
+    est = dataclasses.replace(truth, medium=dataclasses.replace(
+        truth.medium, sigma_a=torch.tensor(0.003),
+        sigma_s=torch.tensor(0.025)))
+    albedo = est.albedo.clone()
+    albedo[SPHERE] = torch.tensor([0.5, 0.5, 0.35])
+    center = est.center.clone()
+    center[LIGHT, 1] += 8.0
+    est = dataclasses.replace(est, albedo=albedo, center=center)
+    tgt_flat = torch.stack([target.reshape(-1, 3), target2.reshape(-1, 3)])
+    log = []
+
+    def matl_block(r, steps, dec):
+        sched = exponential_decay(1.5e-3 * dec, 25, 0.7)
+        params = {k: v.to(dev).requires_grad_()
+                  for k, v in df.pack_params(est).items()}
+        opt = adam(params, {"sigma_a": sched, "sigma_s": sched,
+                            "albedo": 2.5e-2})
+        step = vpt_torch.dist.make_multiview_train_step(
+            est, [camera, cam2], W, H, spp_m, opt, max_bounces=16,
+            sampler="ld", log_medium=False, device="cuda")
+        alb0 = params["albedo"].detach().clone()
+        losses = []
+        for i in range(steps):
+            losses.append(step(params, tgt_flat, None,
+                               10000 * SEED + 2000 * r + i))
+            with torch.no_grad():       # only sphere 6's albedo is unknown
+                keep = params["albedo"][SPHERE].clone()
+                params["albedo"].copy_(alb0)
+                params["albedo"][SPHERE] = keep
+        losses = [float(v) for v in losses]
+        alb = est.albedo.clone()
+        alb[SPHERE] = params["albedo"][SPHERE].detach().cpu()
+        return dataclasses.replace(
+            est, medium=dataclasses.replace(
+                est.medium, sigma_a=params["sigma_a"].detach().cpu(),
+                sigma_s=params["sigma_s"].detach().cpu()),
+            albedo=alb), losses
+
+    def geom_filter(th, init):
+        out = dict(init)
+        out["center"] = th["center"]
+        return out
+
+    def geom_block(r, steps, dec):
+        theta, losses = vpt_torch.dist.fit_geom_fd(
+            est, camera, target, sphere=LIGHT, cam_grads=False, sigma=False,
+            steps=steps, spp=spp_g,
+            learning_rate=exponential_decay(max(0.5 * dec, 0.3), 25, 0.85),
+            max_bounces=16, sampler="ld", seed=100 + 17 * SEED + r,
+            param_filter=geom_filter, device="cuda")
+        c = est.center.clone()
+        c[LIGHT] = theta["center"].detach().cpu()
+        return dataclasses.replace(est, center=c), losses
+
+    def report(tag, t_block):
+        c_err = float((est.center[LIGHT] - truth.center[LIGHT]).norm())
+        a = [round(float(v), 4) for v in est.albedo[SPHERE]]
+        log.append((tag, float(est.medium.sigma_a),
+                    float(est.medium.sigma_s), a, c_err, t_block))
+        print(f"phase 15 recover_all [{tag}] sigma_a "
+              f"{float(est.medium.sigma_a):.5f} sigma_s "
+              f"{float(est.medium.sigma_s):.5f} albedo[6] {a} |light dc| "
+              f"{c_err:.3f} ({t_block:.3f} s)", flush=True)
+
+    block_losses = []
+    for r in range(3):
+        dec = 0.5 ** r
+        tb = time.perf_counter()
+        est, lm = matl_block(r, n_m if r == 0 else n_m // 2, dec)
+        torch.cuda.synchronize()
+        report(f"round {r + 1} matl", time.perf_counter() - tb)
+        tb = time.perf_counter()
+        est, lg = geom_block(r, n_g * 2 if r == 0 else n_g, dec)
+        torch.cuda.synchronize()
+        report(f"round {r + 1} geom", time.perf_counter() - tb)
+        block_losses += [lm, lg]
+    wall = time.perf_counter() - t0
+    launched = {**wf.LAUNCHES_BY, **df.LAUNCHES_BY, "geom_fwd": gm.LAUNCHES}
+    sa, ss = float(est.medium.sigma_a), float(est.medium.sigma_s)
+    alb = [float(v) for v in est.albedo[SPHERE]]
+    light = float((est.center[LIGHT] - truth.center[LIGHT]).norm())
+    true_alb = [float(v) for v in truth.albedo[SPHERE]]
+    met = {"sigma_a": abs(sa - 0.001) <= 1.2e-3,
+           "sigma_s": abs(ss - 0.009) <= 1.3e-3,
+           "albedo": all(abs(a - t) <= 0.10 for a, t in zip(alb, true_alb)),
+           "light": light <= 5.4}
+    print(f"phase 15 recover_all --seed 0 --views 2 (1024x1024): sigma_a "
+          f"{sa:.6f} (true 0.001), sigma_s {ss:.6f} (true 0.009), albedo[6] "
+          f"{[round(a, 4) for a in alb]} (true {true_alb}), light error "
+          f"{light:.4f}; BASELINE.md tolerances met {met}; wall {wall:.3f} "
+          f"s; launches {launched} on {card}", flush=True)
+    # the losses of each block over its 3 rounds: first and last quarters.
+    # The material block's falls as sigma and the albedo approach the
+    # truth; the geometry block's CRN-FD loss at 16 spp is the A/B noise
+    # (flat within it while the light closes from 8 units), so that block
+    # is held to its parameter, the light error, instead
+    matl = falls(sum(block_losses[0::2], []))
+    geom = falls(sum(block_losses[1::2], []))
+    rounds = [(round(falls(b)[1], 6), round(falls(b)[2], 6))
+              for b in block_losses]
+    print(f"phase 15 recover_all losses (first quarter -> last quarter): "
+          f"material {matl[1]:.6g} -> {matl[2]:.6g}, geometry {geom[1]:.6g} "
+          f"-> {geom[2]:.6g}; per round {rounds}", flush=True)
+    # 3 rounds: 160 material steps of 2 views x (2 K2 + 2 K3), 240
+    # geometry steps of 12 K4 launches; the two targets through K1
+    want = {"vpt_wavefront_free_nee": 2, "vpt_diff_fwd": 640,
+            "vpt_diff_bwd": 640, "geom_fwd": 240 * 12}
+    finite = np.isfinite([sa, ss, light, *alb]).all()
+    if launched != want or not finite or not (matl[0] and light < 8.0):
+        raise AssertionError(f"recover_all: launches {launched}, finite "
+                             f"{finite}, material losses {matl}, light "
+                             f"error 8 -> {light}")
+    return dict(sigma_a=sa, sigma_s=ss, albedo=alb, light_err=light,
+                wall_s=wall, met=met, rounds=log, launches=launched)
+
+
+def hg_phases(card: str, dev: torch.device, camera, cfg,
+              seed_t: torch.Tensor, free_ms: float,
+              plains: PlainPool) -> list:
+    """Phase 15; returns the HG instantiations' kernel records. free_ms:
+    phase 12's explicit_free time, set beside FREE_MS_BEFORE_HG."""
+    t15 = time.perf_counter()
+    print(f"phase 15 explicit_free {free_ms:.3f} ms = "
+          f"{100.0 * (free_ms / FREE_MS_BEFORE_HG - 1.0):+.2f} % on the "
+          f"{FREE_MS_BEFORE_HG} ms before the HG pair (within 3 %: "
+          f"{free_ms <= 1.03 * FREE_MS_BEFORE_HG})", flush=True)
+    # -- registers: the new instantiations, and the isotropic ones kept
+    rep = ptxas_report()
+
+    def find(name):
+        hits = [v for k, v in rep.items() if name in k]
+        if len(hits) != 1:
+            raise AssertionError(f"ptxas reports {len(hits)} kernels for "
+                                 f"{name}")
+        return hits[0]
+
+    # (phase 14 holds the homogeneous ones)
+    for prefix, (regs, spill) in FIELD_PAIR_PTXAS.items():
+        got = find(prefix)
+        print(f"phase 15 ptxas isotropic {prefix}: {got[0]} registers, "
+              f"{got[1]} B spill stores, {got[2]} B stack (expected {regs}, "
+              f"{spill})", flush=True)
+        if got[:2] != (regs, spill):
+            raise AssertionError(f"{prefix} changed: {got} against "
+                                 f"{(regs, spill)}")
+    hg_ptxas = {entry: find(fn) for entry, fn in HG_ENTRIES.items()}
+    for entry, (regs, spill, stack) in hg_ptxas.items():
+        print(f"phase 15 ptxas {entry}: {regs} registers, {spill} B spill "
+              f"stores, {stack} B stack", flush=True)
+
+    # -- K2/K3 against their plain versions at 64x32x8
+    hg = with_g(vpt_torch.cornell_vpt(), 0.5)
+    fog = with_g(SCENES["foggy_cornell"](), 0.5)
+    t0 = time.perf_counter()
+    for spec in HG_CHECKS:
+        pair_vs_plain(spec, plains, camera, dev)
+    print(f"phase 15 pair checks 64x32x8 {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # -- the same at recover_fog_multiview's shape
+    t0 = time.perf_counter()
+    shape_chk = pair_vs_plain(HG_TRAINER_CHECK, plains, camera, dev)
+    fdp, fvec, s0, gb = (shape_chk.pop(k)
+                         for k in ("dp", "pvec", "seed", "gbar"))
+    shape_k2_ms, _ = median_ms(lambda: df.diff_fwd(fdp, fvec, s0))
+    shape_k3_ms, _ = median_ms(lambda: df.diff_bwd(fdp, fvec, s0, gb))
+    print(f"phase 15 trainer-shape check {time.perf_counter() - t0:.1f} s; "
+          f"K2 {shape_k2_ms:.3f} ms (plain {shape_chk['plain_ms']:.3f}), K3 "
+          f"{shape_k3_ms:.3f} ms (plain per-lane "
+          f"{shape_chk['plain_bwd_ms']:.3f})", flush=True)
+
+    # -- the two pairs at the main frame: the fog with diff_g + diff_field,
+    # the homogeneous one at the baked g; fwd+bwd through
+    # make_diff_renderer, K2 and K3 by CUDA events, K2 against its plain
+    # version there (whose counters give the bounds' work)
+    n_paths = cfg.width * cfg.height * cfg.spp
+    timed = {}
+    for label, sc, kw, spec in (
+            ("fog", fog, dict(diff_g=True, diff_field=True),
+             pair_spec("foggy_cornell", 0.5, ("diff_g", "diff_field"))),
+            ("homogeneous", hg, {}, pair_spec("cornell_vpt", 0.5))):
+        render = df.make_diff_renderer(sc, camera, cfg.width, cfg.height,
+                                       cfg.spp, max_bounces=cfg.max_bounces,
+                                       sampler=cfg.sampler, device="cuda",
+                                       **kw)
+        dp = render.packed
+        params = {k: v.to(dev).requires_grad_() for k, v in df.pack_params(
+            sc, with_g="diff_g" in kw, with_field="diff_field" in kw).items()}
+        reset_counts()
+        render(params, cfg.seed).mean().backward()
+        torch.cuda.synchronize()
+        launched = dict(df.LAUNCHES_BY)
+        if launched != {dp.entries[0]: 1, dp.entries[1]: 1}:
+            raise AssertionError(f"{label} HG fwd+bwd launched {launched}")
+        grads = {k: float(v.grad.abs().sum()) for k, v in params.items()}
+        if not all(np.isfinite(list(grads.values()))):
+            raise AssertionError(f"{label} HG gradient not finite: {grads}")
+
+        def fwd_bwd():
+            for v in params.values():
+                v.grad = None
+            render(params, cfg.seed).mean().backward()
+
+        pair_ms, pair_times = median_ms(fwd_bwd)
+        pvec = df._flatten({k: v.detach() for k, v in params.items()},
+                           sc.count)
+        gmean = torch.full((dp.npix, 3), 1.0 / (3 * dp.npix), device=dev)
+        k2_ms, k2_times = median_ms(lambda: df.diff_fwd(dp, pvec, seed_t))
+        k3_ms, k3_times = median_ms(lambda: df.diff_bwd(dp, pvec, seed_t,
+                                                        gmean))
+        k2 = df.diff_fwd(dp, pvec, seed_t)
+        k2p, stats, k2p_ms = plains.get(spec, dev)
+        equal = bool(torch.equal(k2, k2p))
+        err = float((k2 - k2p).abs().max())
+        del k2p
+        b2 = hg_pair_bound("diff_fwd", stats, dp)
+        b3 = hg_pair_bound("diff_bwd", stats, dp)
+        timed[label] = dict(
+            entries=dp.entries, launches=launched, pair_ms=pair_ms,
+            k2_ms=k2_ms, k3_ms=k3_ms, k2_plain_ms=k2p_ms, k2_err=err,
+            bound=(b2, b3), work=stats, grads=grads,
+            paths_per_sec=n_paths / (pair_ms / 1e3))
+        print(f"phase 15 {label} HG pair {kw or 'baked g=0.5'} "
+              f"{cfg.width}x{cfg.height}x{cfg.spp} {cfg.sampler}: launches "
+              f"{launched}; |grad| sums {grads}; fwd+bwd {pair_ms:.3f} ms "
+              f"(median of {pair_times}), {n_paths / (pair_ms / 1e3):.6e} "
+              f"camera paths/s; K2 {k2_ms:.3f} ms ({k2_times}), bit-equal to "
+              f"plain {equal} ({k2p_ms:.3f} ms), bound {b2[0]:.3f} ms "
+              f"({b2[1]}); K3 {k3_ms:.3f} ms ({k3_times}), bound "
+              f"{b3[0]:.3f} ms ({b3[1]}); work {stats} on {card}",
+              flush=True)
+        if not equal:
+            raise AssertionError(f"{label} HG K2 is not bit-equal to its "
+                                 f"plain version at the main frame")
+        # K3 against its plain version at the main frame, CHECK_SPP samples
+        chk = pair_vs_plain(HG_MAIN_CHECKS[label], plains, camera, dev)
+        k3c_ms, k3c_times = median_ms(lambda: df.diff_bwd(
+            chk["dp"], chk["pvec"], chk["seed"], chk["gbar"]))
+        print(f"phase 15 {label} HG K3 at {cfg.width}x{cfg.height}x"
+              f"{CHECK_SPP}: kernel {k3c_ms:.3f} ms (median of {k3c_times}),"
+              f" plain per-lane {chk['plain_bwd_ms']:.3f} ms", flush=True)
+        for key in ("dp", "pvec", "seed", "gbar"):
+            del chk[key]
+        timed[label].update(check=chk, k3_check_ms=k3c_ms)
+
+    # -- the examples at their own settings
+    # examples/recover_sigma.py: 256x256, a target at 512 spp (16 bounces,
+    # seed 99), sigma_s x 2.78, 200 fit_kernel steps at 32 spp, lr 1.5e-3
+    scene = vpt_torch.cornell_vpt()
+    reset_counts()
+    t0 = time.perf_counter()
+    starget = vpt_torch.render(scene, camera, vpt_torch.RenderConfig(
+        width=256, height=256, spp=512, max_bounces=16, seed=99),
+        device="cuda")
+    swrong = dataclasses.replace(scene, medium=dataclasses.replace(
+        scene.medium, sigma_s=scene.medium.sigma_s * 2.78))
+    sfit, slosses = vpt_torch.dist.fit_kernel(
+        swrong, camera, starget, steps=200, spp=32, learning_rate=1.5e-3,
+        max_bounces=16, device="cuda")
+    torch.cuda.synchronize()
+    sigma_s_time = time.perf_counter() - t0
+    launched_sigma = {**wf.LAUNCHES_BY, **df.LAUNCHES_BY}
+    ss0, ss1 = float(swrong.medium.sigma_s), float(sfit["sigma_s"])
+    print(f"phase 15 recover_sigma (256x256, target 512 spp, 32 spp, 200 "
+          f"steps, lr 1.5e-3): sigma_s start {ss0:.5f} true 0.00900 "
+          f"recovered {ss1:.5f} (|err| {abs(ss1 - 0.009):.5f}); loss "
+          f"{slosses[0]:.6g} -> {slosses[-1]:.6g}; {sigma_s_time:.3f} s "
+          f"wall; launches {launched_sigma} on {card}", flush=True)
+    if launched_sigma != {"vpt_wavefront_free_nee": 1, "vpt_diff_fwd": 400,
+                          "vpt_diff_bwd": 400} or not (
+            np.isfinite(slosses).all() and falls(slosses)[0]
+            and abs(ss1 - 0.009) < abs(ss0 - 0.009)):
+        raise AssertionError(f"recover_sigma: sigma_s {ss0} -> {ss1}, "
+                             f"launches {launched_sigma}")
+    flagship = recover_all(camera, card, dev)
+    fog_mv = recover_fog_multiview(camera, FOG_MV_STEPS, card)
+    print(f"phase 15 {time.perf_counter() - t15:.1f} s", flush=True)
+
+    # -- the records
+    common = {"route": "cuda", "library_ms": None, "card": card}
+    records = []
+    for label, k in (("homogeneous", 0), ("fog", 1)):
+        row = timed[label]
+        for j, kernel in enumerate(("diff_fwd", "diff_bwd")):
+            entry = row["entries"][j]
+            regs, spill, stack = hg_ptxas[entry]
+            rec = {
+                "name": entry[4:], **common,
+                "source": f"vpt_torch/csrc/{HG_SOURCES[entry]}",
+                "replaces": ("vpt/kernels/diff.py:1274" if j == 0
+                             else "vpt/kernels/diff.py:1303"),
+                "launches": row["launches"][entry],
+                "ms": row["k2_ms"] if j == 0 else row["k3_ms"],
+                "bound_ms": row["bound"][j][0],
+                "bound_by": row["bound"][j][1],
+                "fwd_bwd_ms": row["pair_ms"], "work": row["work"],
+                "ptxas": {"registers": regs, "spill_stores": spill,
+                          "stack": stack},
+                "mode": "diff_g + diff_field" if k else "baked g = 0.5"}
+            if j == 0:
+                rec.update(max_abs_err=row["k2_err"],
+                           plain_ms=row["k2_plain_ms"])
+            else:
+                # K3 and its plain version at the main frame, CHECK_SPP
+                # samples; at the trainer's shape beside (fog)
+                chk = row["check"]
+                rec.update(max_abs_err=chk["g_err"],
+                           per_pixel_q99_rel_err=chk["q_lane"],
+                           plain_ms=chk["plain_bwd_ms"],
+                           checked_spp=CHECK_SPP,
+                           ms_at_checked_spp=row["k3_check_ms"])
+                if k:
+                    rec.update(trainer_shape_192x192x16={
+                        "max_abs_err": shape_chk["g_err"],
+                        "per_pixel_q99_rel_err": shape_chk["q_lane"],
+                        "ms": shape_k3_ms,
+                        "plain_ms": shape_chk["plain_bwd_ms"]})
+            rec.update(plain_alone=False)
+            if k:
+                rec.update(launches_recover_fog_multiview=fog_mv[
+                    "launches"].get(entry, 0),
+                    recover_fog_multiview=fog_mv,
+                    trainer_shape_k2_ms=shape_k2_ms)
+            records.append(rec)
+    records[0].update(recover_all=flagship)
+    return records
+
+
+def parse_args(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of the vpt_torch "
+                                 "port on one NVIDIA GPU (no arguments: "
+                                 "every phase)")
+    ap.add_argument("--recover-fog-multiview", type=int, default=None,
+                    metavar="STEPS",
+                    help="the card, the build and "
+                         "examples/recover_fog_multiview.py's fit at its "
+                         "own settings for STEPS steps (2400: the whole "
+                         "example)")
+    return ap.parse_args(argv)
+
+
 def main() -> int:
-    t_start = time.perf_counter()
-    # ---- phase 1: the card
+    args = parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; no result")
+    plains = None
+    if args.recover_fog_multiview is None:
+        plains = PlainPool(plain_specs())
+    try:
+        return run(args, plains)
+    finally:
+        if plains is not None:
+            plains.terminate()
+
+
+def run(args, plains: PlainPool | None) -> int:
+    t_start = time.perf_counter()
+    # ---- phase 1: the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -875,6 +1622,12 @@ def main() -> int:
     scene = vpt_torch.cornell_vpt()
     camera = vpt_torch.default_camera()
     S = scene.count
+    if args.recover_fog_multiview is not None:
+        res = recover_fog_multiview(camera, args.recover_fog_multiview, card)
+        print(json.dumps({"recover_fog_multiview": res, "card": card}))
+        print(f"chip_smoke: partial run, {time.perf_counter() - t_start:.1f}"
+              f" s", flush=True)
+        return 0
 
     # ---- phase 3: K1 against its plain version, small frame
     for sampler in ("random", "ld"):
@@ -892,6 +1645,8 @@ def main() -> int:
             if not bool(torch.isfinite(k).all()) or not q < Q99_TOL:
                 raise AssertionError(f"K1 disagrees with its plain version: "
                                      f"q99 {q} (tolerance {Q99_TOL})")
+    # the main-frame plain versions are done before the first timing
+    plains.wait()
 
     # ---- phase 4: the forward main path through the public API
     cfg = vpt_torch.RenderConfig(**MAIN_CFG)
@@ -910,9 +1665,7 @@ def main() -> int:
                        max_bounces=cfg.max_bounces, sampler=cfg.sampler,
                        jitter=cfg.jitter)
     seed_t = torch.tensor([cfg.seed], dtype=torch.int32, device=dev)
-    k1_stats = {}
-    plain, plain_ms = cuda_ms(lambda: wf.render_tile_plain(pk, seed_t,
-                                                           k1_stats))
+    plain, k1_stats, plain_ms = plains.get(k1_spec("explicit_free"), dev)
     # the same call again, warm: the first one above carries one-time costs
     warm_ms, warm_times = median_ms(lambda: vpt_torch.render(
         scene, camera, cfg, device="cuda"))
@@ -931,13 +1684,18 @@ def main() -> int:
 
     # ---- phase 5: K1 throughput (CUDA events; median of 3 after a warm-up)
     kernel_ms, times = median_ms(lambda: wf.render_tile(pk, seed_t))
+    # K1's plain version once more, alone on the card and the host: the
+    # pool's time of it beside this one gives the share of its
+    # PLAIN_WORKERS concurrent processes
+    _, plain_alone_ms = cuda_ms(lambda: wf.render_tile_plain(pk, seed_t))
     n_paths = cfg.width * cfg.height * cfg.spp
     dp_main = df.pack_diff(scene, camera, cfg.width, cfg.height, cfg.spp,
                            max_bounces=cfg.max_bounces, sampler=cfg.sampler)
     k1_bound, k1_by = bound("wavefront_fwd", k1_stats, dp_main)
     print(f"phase 5 K1: {n_paths / (kernel_ms / 1e3):.6e} camera paths/s "
-          f"({kernel_ms:.3f} ms median of {times}); plain {plain_ms:.3f} ms "
-          f"(one run); bound {k1_bound:.3f} ms ({k1_by}) on {card}",
+          f"({kernel_ms:.3f} ms median of {times}); plain {plain_alone_ms:.3f}"
+          f" ms alone, {plain_ms:.3f} ms in {PLAIN_WORKERS} concurrent "
+          f"processes; bound {k1_bound:.3f} ms ({k1_by}) on {card}",
           flush=True)
     records = [{
         "name": "wavefront_fwd", "route": "cuda",
@@ -945,8 +1703,9 @@ def main() -> int:
         "replaces": "vpt/kernels/wavefront.py:230",
         "launches": launched["wavefront_fwd"],
         "max_abs_err": err_main, "q99_rel_err": q_main,
-        "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
+        "ms": kernel_ms, "plain_ms": plain_alone_ms, "plain_alone": True,
+        "plain_pool_ms": plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
+        "library_ms": None,
         "main_path_ms": main_ms, "main_path_warm_ms": warm_ms,
         "card": card,
     }]
@@ -1026,9 +1785,7 @@ def main() -> int:
 
     pair_ms, pair_times = median_ms(fwd_bwd)
     k2 = df.diff_fwd(dp, pvec, seed_t)
-    pair_stats = {}
-    k2_plain, k2_plain_ms = cuda_ms(lambda: df.diff_fwd_plain(
-        dp, pvec, seed_t, stats=pair_stats))
+    k2_plain, pair_stats, k2_plain_ms = plains.get(pair_spec(), dev)
     q_k2 = q99_rel(k2, k2_plain)
     err_k2 = float((k2 - k2_plain).abs().max())
     print(f"phase 7 K2 {k2_ms:.3f} ms (median of {k2_times}), K3 "
@@ -1177,9 +1934,7 @@ def main() -> int:
     # and timed beside K1 with the same sampler
     gp0 = gm.pack_geom(scene, camera, sphere=8, primal_only=True, **G_CFG)
     k0_out = gm.geom_fwd(gp0, thv, seed_t)
-    geom_stats = {}
-    k0_plain, k0_plain_ms = cuda_ms(lambda: gm.geom_fwd_plain(
-        gp0, thv, seed_t, stats=geom_stats))
+    k0_plain, geom_stats, k0_plain_ms = plains.get(GEOM0_SPEC, dev)
     q_k0, err_k0, share_k0 = plane_check(k0_out, k0_plain, 0)
     del k0_plain
     k0_ms, k0_times = median_ms(lambda: gm.geom_fwd(gp0, thv, seed_t))
@@ -1199,7 +1954,7 @@ def main() -> int:
                        sphere=8, max_bounces=cfg.max_bounces)
     k7_2_ms, k7_2_times = median_ms(lambda: gm.geom_fwd(gp2, thv, seed_t))
     k7_2 = gm.geom_fwd(gp2, thv, seed_t)
-    k7_2p, k7_plain_ms = cuda_ms(lambda: gm.geom_fwd_plain(gp2, thv, seed_t))
+    k7_2p, _, k7_plain_ms = plains.get(GEOM7_SPEC, dev)
     q_k7, err_k7, share_k7 = plane_check(k7_2, k7_2p, 7)
     del k7_2, k7_2p
     print(f"phase 10 K4 check {cfg.width}x{cfg.height}x{GEOM_CHECK_SPP} K=7: "
@@ -1322,8 +2077,6 @@ def main() -> int:
     # each variant through the public API at the main frame, held to its
     # plain version there bit for bit (whose counters give the frame's work:
     # phase 4's for explicit_free), then timed
-    main_key = (*wf.KERNEL_INTEGRATORS[cfg.integrator], "cornell_vpt", 0.0)
-    plains = {main_key: (plain, k1_stats, plain_ms)}
     var_rows = []
     for label, integrator, sname, g in VARIANTS:
         nee, dist, phys = wf.KERNEL_INTEGRATORS[integrator]
@@ -1338,12 +2091,8 @@ def main() -> int:
             raise AssertionError(f"{label}: render launched {launched_v}")
         pk = wf.pack_config(sc_v, camera, vcfg)
         key = (nee, dist, phys, sname, g)
-        if key not in plains:
-            vstats = {}
-            vplain, vp_ms = cuda_ms(lambda: wf.render_tile_plain(pk, seed_t,
-                                                                 vstats))
-            plains[key] = (vplain, vstats, vp_ms)
-        vplain, vstats, vp_ms = plains[key]
+        vplain, vstats, vp_ms = plains.get(k1_spec(integrator, sname, g),
+                                           dev)
         vflat = vimg.reshape(-1, 3)
         v_equal = bool(torch.equal(vflat, vplain))
         v_err = float((vflat - vplain).abs().max())
@@ -1367,7 +2116,7 @@ def main() -> int:
               f"{v_times}), {row['paths_per_sec']:.6e} camera paths/s; bound "
               f"{b_ms:.3f} ms ({b_by}); work {vstats}; channel means "
               f"{row['mean']} on {card}", flush=True)
-    del plains, vplain
+    del vplain
     free_ms = var_rows[0]["ms"]
     print(f"phase 12 explicit_free {free_ms:.3f} ms = "
           f"{100.0 * (free_ms / K1_FREE_ONLY_MS - 1.0):+.2f} % on the "
@@ -1501,7 +2250,7 @@ def main() -> int:
          "launches": launched_pair["diff_fwd"],
          "launches_train": launched_train["diff_fwd"],
          "max_abs_err": err_k2, "q99_rel_err": q_k2,
-         "ms": k2_ms, "plain_ms": k2_plain_ms,
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "plain_alone": False,
          "bound_ms": k2_bound, "bound_by": k2_by,
          "fwd_bwd_ms": pair_ms},
         {"name": "diff_bwd", **common, "source": "vpt_torch/csrc/diff.cu",
@@ -1509,7 +2258,7 @@ def main() -> int:
          "launches": launched_pair["diff_bwd"],
          "launches_train": launched_train["diff_bwd"],
          "max_abs_err": err_k3, "per_pixel_q99_rel_err": q_k3,
-         "ms": k3_ms, "plain_ms": k3_plain_ms,
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "plain_alone": True,
          "checked_spp": CHECK_SPP, "ms_at_checked_spp": k3_4_ms,
          "bound_ms": k3_bound, "bound_by": k3_by},
         {"name": "geom_fwd", **common, "source": "vpt_torch/csrc/geom.cu",
@@ -1518,7 +2267,8 @@ def main() -> int:
          "launches_fit_geom": launched_fit["geom_fwd"],
          "launches_fit_geom_fd": launched_fd["geom_fwd"],
          "max_abs_err": err_k7, "worst_plane_q99": q_k7,
-         "ms": k4k_ms, "plain_ms": k7_plain_ms, "main_path_ms": k4_ms,
+         "ms": k4k_ms, "plain_ms": k7_plain_ms, "plain_alone": False,
+         "main_path_ms": k4_ms,
          "checked_spp": GEOM_CHECK_SPP, "ms_at_checked_spp": k7_2_ms,
          "bound_ms": k4_bound, "bound_by": k4_by,
          "paths_per_sec": n_paths / (k4_ms / 1e3),
@@ -1547,7 +2297,8 @@ def main() -> int:
             "replaces": "vpt/kernels/wavefront.py:230",
             "launches": fields["phase12_launches"],
             "max_abs_err": rows[0]["max_abs_err"], "ms": rows[0]["ms"],
-            "plain_ms": rows[0]["plain_ms"], "bound_ms": rows[0]["bound_ms"],
+            "plain_ms": rows[0]["plain_ms"], "plain_alone": False,
+            "bound_ms": rows[0]["bound_ms"],
             "bound_by": rows[0]["bound_by"], **fields})
     records.append({
         "name": "wavefront_free_nee_scatter", **common,
@@ -1555,6 +2306,7 @@ def main() -> int:
         "replaces": "vpt/kernels/wavefront.py:799",
         "launches": launched_a["vpt_wavefront_free_nee_scatter"],
         "max_abs_err": s_err, "ms": sc_ms, "plain_ms": sp_ms,
+        "plain_alone": True,
         "bound_ms": sc_bound, "bound_by": sc_by, "adaptive_ms": a_ms,
         "adaptive_tiles": [go.k, pk1.num_tiles, pk2.spp],
         "noise_spp": n_spp, "noise_rel_se": n_se, "noise_s": n_s,
@@ -1562,7 +2314,12 @@ def main() -> int:
     print(f"phases 1-13: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---- phase 14: the density fields
-    records += field_phases(card, dev, camera, cfg, seed_t)
+    records += field_phases(card, dev, camera, cfg, seed_t, plains)
+    print(f"phases 1-14: {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- phase 15: the HG phase in the pair, the multi-view trainer and
+    # the recovery examples
+    records += hg_phases(card, dev, camera, cfg, seed_t, free_ms, plains)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

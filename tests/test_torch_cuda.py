@@ -2,7 +2,8 @@
 render kernel K1 (every instantiation and its raw and scatter modes, with
 the adaptive and noise-target entry points), the differentiable pair K2/K3
 and the dual kernel K4; K1's and the pair's field instantiations on
-foggy_cornell and blob_cloud.
+foggy_cornell and blob_cloud; the pair's HG instantiations (a baked g and
+the traced diff_g) and fit_multiview.
 
 Run on a machine with an NVIDIA GPU (--noconftest: tests/conftest.py
 imports jax, which the port's machines need not have):
@@ -314,3 +315,72 @@ def test_field_pair_matches_plain_on_card(cuda, name, traced):
     assert torch.isfinite(G).all() and torch.equal(k, p)
     assert torch.equal(G, Gp)
     assert bool(((g - Gp.sum(0)).abs() <= 1e-5 * Gp.abs().sum(0)).all())
+
+
+HG_PAIRS = [("cornell_vpt", 0.5, "ld", {}),
+            ("cornell_vpt", 0.5, "random", {"diff_g": True}),
+            ("foggy_cornell", 0.5, "random",
+             {"diff_g": True, "diff_field": True}),
+            ("blob_cloud", -0.3, "random", {"diff_g": True,
+                                            "diff_blobs": True})]
+
+
+@pytest.mark.parametrize("name,g,sampler,kw", HG_PAIRS, ids=[
+    f"{c[0]}-{'-'.join(c[3]) or 'baked'}" for c in HG_PAIRS])
+def test_hg_pair_bit_equal_to_plain_on_card(cuda, name, g, sampler, kw):
+    """K2/K3's HG instantiations (csrc/diff_hg.cu, diff_field_hg_*.cu):
+    the image bit for bit, K3's per-pixel vectors row for row (the g slot
+    included), the block-summed vector within 1e-5 of sum_lanes |G_lane,
+    k|."""
+    import dataclasses
+
+    sc = vpt_torch.SCENES[name]()
+    sc = dataclasses.replace(sc, medium=dataclasses.replace(
+        sc.medium, g=torch.tensor(g)))
+    dp = df.pack_diff(sc, vpt_torch.default_camera(), 64, 32, 8,
+                      max_bounces=8, sampler=sampler, **kw)
+    pvec = df._flatten(df.pack_params(
+        sc, with_g=kw.get("diff_g", False),
+        with_field=kw.get("diff_field", False),
+        with_blobs=kw.get("diff_blobs", False)), sc.count).to(cuda)
+    seed = torch.tensor([3], dtype=torch.int32, device=cuda)
+    gbar = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (dp.npix, 3)).astype(np.float32)).to(cuda)
+    df.LAUNCHES_BY.clear()
+    k = df.diff_fwd(dp, pvec, seed)
+    g_ = df.diff_bwd(dp, pvec, seed, gbar)
+    G = df.diff_bwd(dp, pvec, seed, gbar, per_lane=True)
+    fwd, bwd = dp.entries
+    assert fwd.endswith("_hg") and df.LAUNCHES_BY == {fwd: 1, bwd: 2}
+    p = df.diff_fwd_plain(dp, pvec, seed)
+    Gp = df.diff_bwd_plain(dp, pvec, seed, gbar, per_lane=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(G).all() and torch.equal(k, p)
+    assert torch.equal(G, Gp)
+    assert bool(((g_ - Gp.sum(0)).abs() <= 1e-5 * Gp.abs().sum(0)).all())
+
+
+def test_fit_multiview_goes_through_the_hg_kernels(cuda):
+    """Two views of the fog at g = 0.5 with diff_g + diff_field: each step
+    launches K2 and K3 twice per view, and the medium moves."""
+    import dataclasses
+
+    from vpt_torch.scene.camera import look_at
+
+    fog = vpt_torch.SCENES["foggy_cornell"]()
+    fog = dataclasses.replace(fog, medium=dataclasses.replace(
+        fog.medium, g=torch.tensor(0.5)))
+    cams = [vpt_torch.default_camera(),
+            look_at((35.0, 30.0, 180.0), (0.0, -10.0, 0.0))]
+    cfg = vpt_torch.RenderConfig(width=32, height=24, spp=16, max_bounces=8,
+                                 sampler="ld")
+    targets = [vpt_torch.render(fog, c, cfg, device="cuda") for c in cams]
+    df.LAUNCHES_BY.clear()
+    params, losses = vpt_torch.dist.fit_multiview(
+        fog, cams, targets, steps=3, spp=8, learning_rate=2.5e-3,
+        max_bounces=8, sampler="ld", diff_g=True, diff_field=True,
+        device="cuda")
+    assert df.LAUNCHES_BY == {"vpt_diff_fwd_field_hg": 12,
+                              "vpt_diff_bwd_field_hg": 12}
+    assert np.isfinite(losses).all()
+    assert all(torch.isfinite(v).all() for v in params.values())

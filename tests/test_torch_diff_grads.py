@@ -152,8 +152,12 @@ def test_project_params_clamps_like_vpt():
         assert np.array_equal(ours[k].numpy(), np.asarray(theirs[k])), k
 
 
+# the traced and baked HG g run (tests/test_torch_hg_diff.py,
+# test_torch_multiview.py); their cases check what stays refused with
+# them: equi-angular, physical, material-3 shells, grids
 REFUSED = {
     "diff_g": lambda: df.make_diff_renderer(SCENE, CAM, 8, 4, 1, diff_g=True,
+                                            distance="equiangular",
                                             device="cpu"),
     "diff_field": lambda: df.make_diff_renderer(SCENE, CAM, 8, 4, 1,
                                                 diff_field=True, device="cpu"),
@@ -165,18 +169,19 @@ REFUSED = {
         SCENE, CAM, 8, 4, 1, distance="equiangular", device="cpu"),
     "physical": lambda: df.make_diff_renderer(SCENE, CAM, 8, 4, 1,
                                               physical=True, device="cpu"),
-    "with_g": lambda: df.pack_params(SCENE, with_g=True),
+    "with_g": lambda: df.pack_params(SCENE, with_g=True, with_grid=True),
     "with_grid": lambda: df.pack_params(SCENE, with_grid=True),
     "hg_scene": lambda: df.make_diff_renderer(
         vpt_torch.make_scene(list(vpt_torch.scene.scene.CORNELL_VPT_SPHERES),
-                             g=0.3), CAM, 8, 4, 1, device="cpu"),
+                             g=0.3), CAM, 8, 4, 1, physical=True,
+        device="cpu"),
     "medium_shell": lambda: df.make_diff_renderer(
         vpt_torch.scene.scene.medium_shell(), CAM, 8, 4, 1, device="cpu"),
     "make_shard": lambda: df.make_diff_renderer(
         SCENE, CAM, 8, 4, 1, device="cpu").make_shard(1),
     "fit_kernel_diff_g": lambda: vpt_torch.dist.fit_kernel(
-        SCENE, CAM, torch.zeros(4, 8, 3), steps=1, diff_g=True,
-        device="cpu"),
+        vpt_torch.scene.scene.medium_shell(), CAM, torch.zeros(4, 8, 3),
+        steps=1, diff_g=True, device="cpu"),
     # the traced field parameters need their field kind
     "diff_field_blob_scene": lambda: df.make_diff_renderer(
         vpt_torch.scene.scene.blob_cloud(), CAM, 8, 4, 1, diff_field=True,

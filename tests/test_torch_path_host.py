@@ -18,6 +18,7 @@ catches a fault in the kernels' path code where there is no card; the card
 itself is checked by chip_smoke.py and tests/test_torch_cuda.py.
 """
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -242,7 +243,40 @@ def test_host_build_of_field_pair_matches_plain(host_lib, case):
                      {traced: True} if traced else {}, max_flips=1)
 
 
-def _check_host_pair(host_lib, scene, sampler, jitter, kw, max_flips=0):
+# the pair's HG instantiations (diff_pixel<kGrads, kField, true>): the
+# baked g and the traced diff_g, homogeneous and in the fog, and the traced
+# g at 0 (the isotropic snap of the scatter draw)
+HG_DIFF_CASES = [("cornell_vpt", 0.5, "ld", {}),
+                 ("cornell_vpt", -0.3, "random", {}),
+                 ("cornell_vpt", 0.5, "random", {"diff_g": True}),
+                 ("cornell_vpt", 0.0, "ld", {"diff_g": True}),
+                 ("foggy_cornell", 0.5, "ld",
+                  {"diff_g": True, "diff_field": True}),
+                 ("foggy_cornell", 0.5, "random", {}),
+                 ("blob_cloud", 0.5, "random",
+                  {"diff_g": True, "diff_blobs": True})]
+
+
+@pytest.mark.parametrize("case", HG_DIFF_CASES, ids=[
+    f"{c[0]}-g{c[1]}-{c[2]}-{'-'.join(c[3]) or 'baked'}"
+    for c in HG_DIFF_CASES])
+def test_host_build_of_hg_pair_matches_plain(host_lib, case):
+    """The HG phase in medium NEE and the scatter draw, and with diff_g the
+    g slot's pathwise NEE term and deferred phase-draw scores. The g slot
+    folds as A_g L - B_g and cancels like sigma's: on a lane whose phase
+    draws add nothing later, an ulp of libm's exp against torch's leaves
+    2.3e-10 in one build and 0 in the other (lane 479 of the fog case), so
+    its zero pattern is checked above 1e-7 of the column's scale."""
+    name, g, sampler, kw = case
+    scene = vpt_torch.SCENES[name]()
+    scene = dataclasses.replace(scene, medium=dataclasses.replace(
+        scene.medium, g=torch.tensor(g)))
+    _check_host_pair(host_lib, scene, sampler, True, kw,
+                     max_flips=int(name != "cornell_vpt"), zero_tol=1e-7)
+
+
+def _check_host_pair(host_lib, scene, sampler, jitter, kw, max_flips=0,
+                     zero_tol=0.0):
     """The host build of K2/K3 against the plain pair. max_flips: lanes
     whose path may take the other branch of a discrete event (libm's and
     torch's exp / log1p differ by an ulp on some inputs): more than 1e-4 of
@@ -254,7 +288,8 @@ def _check_host_pair(host_lib, scene, sampler, jitter, kw, max_flips=0):
     words = np.ascontiguousarray(dp.words())
     assert words.size == host_lib.vpt_diff_params_words()   # struct layout
     pvec = df._flatten(df.pack_params(
-        scene, with_field=kw.get("diff_field", False),
+        scene, with_g=kw.get("diff_g", False),
+        with_field=kw.get("diff_field", False),
         with_blobs=kw.get("diff_blobs", False)), scene.count).contiguous()
     seed = torch.tensor([SEED], dtype=torch.int32)
     out = np.full((W * H, 3), np.nan, np.float32)
@@ -278,7 +313,8 @@ def _check_host_pair(host_lib, scene, sampler, jitter, kw, max_flips=0):
     assert np.isfinite(G).all()
     rel = (np.abs(G - Gp) / np.maximum(1.0, np.abs(Gp).max(0))).max(1)
     assert np.quantile(rel, 0.99) < 1e-4, np.quantile(rel, 0.99)
-    assert np.array_equal(G[~flips] == 0.0, Gp[~flips] == 0.0)
+    tiny = zero_tol * np.maximum(1.0, np.abs(Gp).max(0))
+    assert np.array_equal(np.abs(G[~flips]) > tiny, np.abs(Gp[~flips]) > tiny)
 
 
 # K4 at every tangent count the host build is tested for, both samplers:

@@ -80,6 +80,32 @@ def test_cli_writes_the_ppm_vpt_writes(tmp_path):
     assert out2.read_bytes() == out.read_bytes()
 
 
+def test_cli_takes_vpt_chunk_pixels(tmp_path, monkeypatch):
+    """A vpt command line with --chunk-pixels parses as vpt's does, reaches
+    RenderConfig.chunk_pixels, and renders the image it renders without
+    the flag (the kernel ignores it)."""
+    import vpt.cli as vpt_cli
+
+    argv = ["4", "--width", "16", "--height", "8", "--max-bounces", "4",
+            "--seed", "7", "--chunk-pixels", "4096"]
+    theirs = vpt_cli.build_parser().parse_args(argv)
+    ours = cli.build_parser().parse_args(argv)
+    assert ours.chunk_pixels == theirs.chunk_pixels == 4096
+    seen = []
+    real = vpt_torch.render
+
+    def spy(scene, camera, cfg, **kw):
+        seen.append(cfg)
+        return real(scene, camera, cfg, **kw)
+
+    monkeypatch.setattr(vpt_torch, "render", spy)
+    out, plain = tmp_path / "chunk.ppm", tmp_path / "plain.ppm"
+    assert cli.main(argv + ["--device", "cpu", "-o", str(out)]) == 0
+    assert cli.main(argv[:-2] + ["--device", "cpu", "-o", str(plain)]) == 0
+    assert [c.chunk_pixels for c in seen] == [4096, 65536]
+    assert out.read_bytes() == plain.read_bytes()
+
+
 def test_cli_equiangular_hg_writes_the_ppm_vpt_writes(tmp_path):
     args = ["--width", "16", "--height", "8", "--spp", "2", "--max-bounces",
             "4", "--seed", "5", "--integrator", "explicit_equiangular",

@@ -45,6 +45,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-bounces", type=int, default=32)
     p.add_argument("--continue-prob", type=float, default=0.6)
     p.add_argument("--seed", type=int, default=0)
+    # vpt's engine renderers dispatch this many pixels at a time; the
+    # kernel renders the frame in one launch and ignores it
+    p.add_argument("--chunk-pixels", type=int, default=65536)
     p.add_argument("--no-jitter", action="store_true")
     p.add_argument("--renderer", default="auto",
                    help="auto | kernel (vpt's 'pallas' is read as kernel)")
@@ -120,7 +123,7 @@ def main(argv=None) -> int:
         width=args.width, height=args.height, spp=args.spp,
         integrator=args.integrator, max_bounces=args.max_bounces,
         continue_prob=args.continue_prob, seed=args.seed,
-        jitter=not args.no_jitter, renderer=args.renderer,
+        chunk_pixels=args.chunk_pixels, jitter=not args.no_jitter, renderer=args.renderer,
         sampler=args.sampler,
     )
 

@@ -11,11 +11,14 @@
 // Instantiations, one per source so that nvcc builds them in parallel:
 // csrc/diff.cu (both kernels, homogeneous medium) and csrc/diff_field_fwd.cu,
 // csrc/diff_field_bwd.cu (kField = true: an analytic density field, with the
-// fog falloff or the blob rows traced or not). The field is a compile-time
-// parameter so that the homogeneous kernels keep their code and their
-// accumulators (K3 already spills there).
+// fog falloff or the blob rows traced or not); with a Henyey-Greenstein
+// phase (kHG = true: the scene's baked g or the traced diff_g, a runtime
+// mode) csrc/diff_hg.cu (homogeneous) and csrc/diff_field_hg_fwd.cu,
+// csrc/diff_field_hg_bwd.cu. The field and the phase are compile-time
+// parameters so that the isotropic homogeneous kernels keep their code and
+// their accumulators (K3 already spills there).
 //
-// The parameter vector pvec (float32[P], P = 2 + 6S + n_fp) lives in device
+// The parameter vector pvec (float32[P], P = 2 + 6S [+ 1 g] + n_fp) lives in device
 // memory, so a training step never copies parameters to the host or
 // synchronises; each block stages it in shared memory once. In a field the
 // block also stages the field: the host's constants (folded in double, as
@@ -53,9 +56,9 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 
 // the packed vector's largest size for an instantiation
-template <bool kField>
+template <bool kField, bool kHG>
 __host__ __device__ constexpr int max_params() {
-  return kField ? VPT_MAX_PARAMS + VPT_MAX_FP : VPT_MAX_PARAMS;
+  return VPT_MAX_PARAMS + (kHG ? 1 : 0) + (kField ? VPT_MAX_FP : 0);
 }
 
 // Stage the parameter vector in shared memory; returns the field the
@@ -77,28 +80,28 @@ __device__ __forceinline__ const FieldParams& stage(const DiffParams& D,
   }
 }
 
-template <bool kField>
+template <bool kField, bool kHG>
 __global__ void __launch_bounds__(kThreads)
     fwd_kernel(const __grid_constant__ DiffParams D, const float* __restrict__ pvec,
                const int* __restrict__ seed, float* __restrict__ out) {
-  __shared__ float pv[max_params<kField>()];
+  __shared__ float pv[max_params<kField, kHG>()];
   const FieldParams& F = stage<kField>(D, pvec, pv);
   const int npix = D.base.width * D.base.height;
   const int pixel = blockIdx.x * kThreads + threadIdx.x;
   if (pixel >= npix) return;
   float L[3];
-  vpt::diff_pixel<false, kField>(D, pv, F, pixel, seed[0], nullptr, L, nullptr);
+  vpt::diff_pixel<false, kField, kHG>(D, pv, F, pixel, seed[0], nullptr, L, nullptr);
   out[3 * pixel + 0] = L[0];
   out[3 * pixel + 1] = L[1];
   out[3 * pixel + 2] = L[2];
 }
 
-template <bool kField>
+template <bool kField, bool kHG>
 __global__ void __launch_bounds__(kThreads)
     bwd_kernel(const __grid_constant__ DiffParams D, const float* __restrict__ pvec,
                const int* __restrict__ seed, const float* __restrict__ gbar,
                float* __restrict__ partials, float* __restrict__ per_lane) {
-  constexpr int kMaxP = max_params<kField>();
+  constexpr int kMaxP = max_params<kField, kHG>();
   __shared__ float pv[kMaxP];
   __shared__ float warp_sum[kWarps][kMaxP];
   const FieldParams& F = stage<kField>(D, pvec, pv);
@@ -107,7 +110,7 @@ __global__ void __launch_bounds__(kThreads)
   const int pixel = blockIdx.x * kThreads + threadIdx.x;
   float g[kMaxP];
   if (pixel < npix) {
-    vpt::diff_pixel<true, kField>(D, pv, F, pixel, seed[0], gbar + 3 * pixel, nullptr, g);
+    vpt::diff_pixel<true, kField, kHG>(D, pv, F, pixel, seed[0], gbar + 3 * pixel, nullptr, g);
     if (per_lane != nullptr)
       for (int k = 0; k < P; ++k) per_lane[(size_t)pixel * P + k] = g[k];
   } else {
@@ -129,29 +132,31 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// A DiffParams this instantiation takes: P = 2 + 6S + n_fp within its
-// limit, a field exactly where kField
-template <bool kField>
+// A DiffParams this instantiation takes: P = 2 + 6S [+ 1] + n_fp within
+// its limit, a field exactly where kField, an HG mode exactly where kHG
+template <bool kField, bool kHG>
 bool read_params(const void* params, DiffParams& D) {
   memcpy(&D, params, sizeof D);
   const bool field_ok = kField ? D.base.field.kind != 0 : (D.base.field.kind == 0 && D.n_fp == 0);
-  return field_ok && D.n_fp >= 0 && D.n_fp <= VPT_MAX_FP && D.n_params > 0 &&
-         D.n_params <= max_params<kField>() &&
-         D.n_params == 2 + 6 * D.base.n_spheres + D.n_fp;
+  const bool hg_ok = kHG ? (D.hg_mode == vpt::kHgBaked || D.hg_mode == vpt::kHgTraced)
+                         : D.hg_mode == 0;
+  return field_ok && hg_ok && D.n_fp >= 0 && D.n_fp <= VPT_MAX_FP && D.n_params > 0 &&
+         D.n_params <= max_params<kField, kHG>() &&
+         D.n_params == vpt::field_slot0(D) + D.n_fp;
 }
 
 // params: host pointer to a DiffParams (copied into the launch);
 // pvec: device float32[P]; seed: device int32[1]; out: device float32[npix * 3]
 // (radiance sums over the samples; the wrapper divides by spp).
 // Returns cudaGetLastError() right after the launch; does not synchronise.
-template <bool kField>
+template <bool kField, bool kHG = false>
 int launch_fwd(const void* params, const void* pvec, const void* seed, void* out, void* stream) {
   DiffParams D;
-  if (!read_params<kField>(params, D)) return (int)cudaErrorInvalidValue;
+  if (!read_params<kField, kHG>(params, D)) return (int)cudaErrorInvalidValue;
   const int npix = D.base.width * D.base.height;
   if (npix <= 0) return 0;
   const int blocks = (npix + kThreads - 1) / kThreads;
-  fwd_kernel<kField><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  fwd_kernel<kField, kHG><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       D, (const float*)pvec, (const int*)seed, (float*)out);
   return (int)cudaGetLastError();
 }
@@ -160,15 +165,15 @@ int launch_fwd(const void* params, const void* pvec, const void* seed, void* out
 // image; partials: device float32[n_blocks * P], one row per block of
 // kThreads pixels; per_lane: NULL, or device float32[npix * P] to receive
 // each pixel's own gradient vector as well.
-template <bool kField>
+template <bool kField, bool kHG = false>
 int launch_bwd(const void* params, const void* pvec, const void* seed, const void* gbar,
                void* partials, void* per_lane, void* stream) {
   DiffParams D;
-  if (!read_params<kField>(params, D)) return (int)cudaErrorInvalidValue;
+  if (!read_params<kField, kHG>(params, D)) return (int)cudaErrorInvalidValue;
   const int npix = D.base.width * D.base.height;
   if (npix <= 0) return 0;
   const int blocks = (npix + kThreads - 1) / kThreads;
-  bwd_kernel<kField><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  bwd_kernel<kField, kHG><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       D, (const float*)pvec, (const int*)seed, (const float*)gbar, (float*)partials,
       (float*)per_lane);
   return (int)cudaGetLastError();

@@ -3,10 +3,12 @@
 // (kGrads = true) in one body, as vpt's make_kernel(grads) is one body.
 //
 // Thread-scalar transcription of vpt/kernels/diff.py:290-1251 for the
-// free-flight NEE estimator (nee, distance "free", not physical), isotropic
-// phase, no material-3 shells, samplers "random" and "ld", in a homogeneous
-// medium or (kField) an analytic density field with vpt's diff_field /
-// diff_blobs traced parameters. It reuses csrc/path.cuh's primitives and its parity rules (uint32
+// free-flight NEE estimator (nee, distance "free", not physical), no
+// material-3 shells, samplers "random" and "ld", in a homogeneous medium or
+// (kField) an analytic density field with vpt's diff_field / diff_blobs
+// traced parameters, with an isotropic phase or (kHG) a Henyey-Greenstein
+// one at the scene's baked g or at vpt's traced diff_g. It reuses
+// csrc/path.cuh's primitives and its parity rules (uint32
 // PCG, every draw in vpt's order, no FMA contraction), and follows diff.py's
 // arithmetic rather than the forward kernel's: sigma_t = sa + ss, 1/sigma_t
 // and (sigma_s/sigma_t)/cp are f32 operations on the parameter vector, the
@@ -14,10 +16,16 @@
 // writes them.
 //
 // Parameters: pv[0] = sigma_a, pv[1] = sigma_s, pv[2 + 3s + c] = albedo,
-// pv[2 + 3S + 3s + c] = radiance, then n_fp traced field parameters from IK =
-// 2 + 6S: fog_k (1) or the blob rows (5K: cx, cy, cz, r, w per blob); P =
-// 2 + 6S + n_fp. The scene's own radiance (DiffParams.base.rad) still
-// decides which spheres are emitters, as in vpt.
+// pv[2 + 3S + 3s + c] = radiance, with diff_g the HG g at IG = 2 + 6S, then
+// n_fp traced field parameters from IK = 2 + 6S (+ 1 with diff_g): fog_k
+// (1) or the blob rows (5K: cx, cy, cz, r, w per blob); P = 2 + 6S (+ 1) +
+// n_fp. The scene's own radiance (DiffParams.base.rad) still decides which
+// spheres are emitters, as in vpt.
+//
+// The HG phase's arithmetic: at a baked g, K1's constants folded in double
+// (VptParams.hg_*, a multiply by 1/(2g)); at a traced g, f32 operations on
+// pv[IG] with a true division by 2g (hg_phase_traced, hg_dir_traced). The
+// two agree within 1e-5 of the image's scale, not bit for bit.
 //
 // The field's arithmetic: without traced field parameters its constants are
 // K1's (folded in double on the host); with them, f32 operations on the
@@ -41,11 +49,18 @@ struct DiffParams {
   int lam_mask;    // bit s: sphere s has deferred lambert-albedo terms
   int n_fp;        // traced field-parameter slots (0, 1 or 5K)
   int fp_kind;     // 0 none, kFpFogK, kFpBlobs
+  int hg_mode;     // 0 isotropic, kHgBaked (the scene's g), kHgTraced (diff_g)
 };
 
 namespace vpt {
 
 enum FpKind { kFpFogK = 1, kFpBlobs = 2 };
+enum HgMode { kHgBaked = 1, kHgTraced = 2 };
+
+// the packed index of the first traced field parameter: after the traced g
+VPT_HD int field_slot0(const DiffParams& D) {
+  return 2 + 6 * D.base.n_spheres + (D.hg_mode == kHgTraced ? 1 : 0);
+}
 
 // A traced blob's constants from its row (cx, cy, cz, r, w) of the vector,
 // in f32 as vpt's traced field forms compute them
@@ -68,7 +83,7 @@ VPT_HD void traced_blob(const float* row, FieldBlob& B) {
 // launch's, with the traced entries recomputed from the vector
 VPT_HD void pair_field(const DiffParams& D, const float* pv, FieldParams& F) {
   F = D.base.field;
-  const int ik = 2 + 6 * D.base.n_spheres;
+  const int ik = field_slot0(D);
   if (D.fp_kind == kFpFogK) F.k = pv[ik];
   if (D.fp_kind == kFpBlobs)
     for (int b = 0; b < F.n_blobs; ++b) traced_blob(pv + ik + 5 * b, F.blob[b]);
@@ -253,11 +268,14 @@ VPT_HD void diff_mis_v2(const VptParams& P, const float* pv, const FieldParams& 
 // freeSingleScattering with the point-source kill (diff.py medium_nee):
 // radiance, its weight w (d/dlrad), the optical path per unit sigma att
 // (d/dsigma_t of the transmittance is -att * value), the cone direction wl
-// and the shadow distance t_sh
-template <bool kField>
-VPT_HD void diff_medium_nee(const VptParams& P, const FieldParams& F, float sigma_t, V3 xt,
-                            V3 lc, const float lrad[3], float lr, int lid, float u1, float u2,
-                            float out[3], float& w, float& att, V3& wl, float& t_sh) {
+// and the shadow distance t_sh. kHG: the phase toward wl from the incoming
+// direction d at the baked g, or at the traced g gph with dlogp = d/dg log
+// phase (the pathwise dL/dg factor of this NEE value)
+template <bool kField, bool kHG>
+VPT_HD void diff_medium_nee(const VptParams& P, const FieldParams& F, float sigma_t, int hg_mode,
+                            float gph, V3 d, V3 xt, V3 lc, const float lrad[3], float lr,
+                            int lid, float u1, float u2, float out[3], float& w, float& att,
+                            V3& wl, float& t_sh, float& dlogp) {
   V3 wc = sub3(lc, xt);
   float inv_mag = vrsqrt(vmax(dot3(wc, wc), 1e-20f));
   V3 wc_n = scale3(wc, inv_mag);
@@ -272,7 +290,18 @@ VPT_HD void diff_medium_nee(const VptParams& P, const FieldParams& F, float sigm
   else
     att = t;
   t_sh = t;
-  w = visible ? expf(-sigma_t * att) * P.nee_phase * vmax(1.0f - cos_max, 1e-12f) : 0.0f;
+  float phase_2pi = P.nee_phase;
+  dlogp = 0.0f;
+  if constexpr (kHG) {
+    const float cos_nee = dot3(d, wl);
+    if (hg_mode == kHgTraced) {
+      phase_2pi = hg_phase_traced(cos_nee, gph) * TWO_PI;
+      dlogp = dlog_hg_dg(cos_nee, gph);
+    } else {
+      phase_2pi = hg_phase_const(P, cos_nee) * TWO_PI;
+    }
+  }
+  w = visible ? expf(-sigma_t * att) * phase_2pi * vmax(1.0f - cos_max, 1e-12f) : 0.0f;
   for (int i = 0; i < 3; ++i) out[i] = lrad[i] * w;
 }
 
@@ -289,7 +318,13 @@ VPT_HD void diff_medium_nee(const VptParams& P, const FieldParams& F, float sigm
 // sigma score takes the field's optical paths per unit sigma, and the n_fp
 // traced slots gain vpt's pathwise terms (pLight, MIS light strategy, medium
 // NEE) and deferred event-score pairs.
-template <bool kGrads, bool kField = false>
+//
+// kHG: the Henyey-Greenstein phase (D.hg_mode: the baked g or the traced g
+// at IG) in medium NEE and the scatter draw, which takes the same u_p1,
+// u_p2. With the traced g, K3 gains the pathwise NEE term gx * dlogp and the
+// phase-draw score as a deferred pair (A_g, B_g), folded as A_g L - B_g into
+// slot IG.
+template <bool kGrads, bool kField = false, bool kHG = false>
 VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& F, int pixel,
                        int seed, const float* gbar, float out[3], float* gout) {
   const VptParams& P = D.base;
@@ -307,7 +342,11 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
   // the traced field-parameter slots and delta tracking's step scale
   const int n_fp = kField ? D.n_fp : 0;
   const int fp_kind = D.fp_kind;
-  const int IK = 2 + 6 * S;
+  const int IG = 2 + 6 * S;
+  const int IK = kHG ? field_slot0(D) : IG;
+  const int hg_mode = kHG ? D.hg_mode : 0;
+  const bool traced_g = kHG && hg_mode == kHgTraced;
+  const float gph = traced_g ? pv[IG] : 0.0f;
   float inv_mr = 0.0f;
   if constexpr (kField) inv_mr = 1.0f / (sigma_t * F.maj);
   constexpr int kFp = (kGrads && kField) ? VPT_MAX_FP : 1;
@@ -333,8 +372,10 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
   float wt[3] = {0.0f, 0.0f, 0.0f};
   float g_st = 0.0f, g_ssx = 0.0f, A_st = 0.0f, B_st = 0.0f, A_ssx = 0.0f, B_ssx = 0.0f;
   // (gv[IK + f] the immediate field-parameter terms, A_fp / B_fp their
-  // deferred event-score pairs)
-  float gv[kGrads ? (kField ? VPT_MAX_PARAMS + VPT_MAX_FP : VPT_MAX_PARAMS) : 1];
+  // deferred event-score pairs; gv[IG] the traced g's immediate terms,
+  // A_g / B_g its phase-draw scores)
+  float A_g = 0.0f, B_g = 0.0f;
+  float gv[kGrads ? VPT_MAX_PARAMS + (kHG ? 1 : 0) + (kField ? VPT_MAX_FP : 0) : 1];
   float A_alb[kGrads ? VPT_MAX_SPHERES : 1][3], B_alb[kGrads ? VPT_MAX_SPHERES : 1][3];
   float A_fp[kFp], B_fp[kFp];
   if constexpr (kGrads) {
@@ -562,11 +603,11 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
         }
       }
     } else if (medium) {
-      float ld_med[3], w_med, att_nee, t_nee;
+      float ld_med[3], w_med, att_nee, t_nee, dlogp_nee;
       V3 wl_nee;
-      diff_medium_nee<kField>(P, F, sigma_t, xt, lc, lrad, lr, lid, m1, m2, ld_med, w_med,
-                              att_nee, wl_nee, t_nee);
-      float adds[3];
+      diff_medium_nee<kField, kHG>(P, F, sigma_t, hg_mode, gph, d, xt, lc, lrad, lr, lid, m1,
+                                   m2, ld_med, w_med, att_nee, wl_nee, t_nee, dlogp_nee);
+      float adds[3], wL1 = 0.0f;
       for (int i = 0; i < 3; ++i) {
         adds[i] = ld_med[i] * inv_ps * tp[i] * ar_cp;
         L[i] = L[i] + adds[i];
@@ -588,12 +629,13 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
               gv[IK + f] = gv[IK + f] + gx * (-sigma_t * dI_nee[f]);
           }
         }
+        if (traced_g) gv[IG] = gv[IG] + gx * dlogp_nee;  // the NEE phase value
         if (lid >= 0)
           for (int i = 0; i < 3; ++i)
             gv[rad0 + 3 * lid + i] =
                 gv[rad0 + 3 * lid + i] + wt[i] * w_med * inv_ps * tp[i] * ar_cp;
         // deferred medium-factor terms vs the L-prefix after this bounce
-        float wL1 = wt[0] * Lps[0] + wt[1] * Lps[1] + wt[2] * Lps[2];
+        wL1 = wt[0] * Lps[0] + wt[1] * Lps[1] + wt[2] * Lps[2];
         A_st = A_st + med_dsig;
         B_st = B_st + med_dsig * wL1;
         A_ssx = A_ssx + inv_ss;
@@ -601,7 +643,18 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
       }
       for (int i = 0; i < 3; ++i) tp[i] = tp[i] * ar_cp;
       o = xt;
-      d = uniform_sphere(u_p1, u_p2);
+      if constexpr (kHG) {  // the scatter direction at the baked or traced g
+        V3 wi_m = traced_g ? hg_dir_traced(d, gph, u_p1, u_p2) : hg_dir(P, d, u_p1, u_p2);
+        if (kGrads && traced_g) {
+          // the phase draw's score reweights later contributions only
+          float k_g = dlog_hg_dg(dot3(d, wi_m), gph);
+          A_g = A_g + k_g;
+          B_g = B_g + k_g * wL1;
+        }
+        d = wi_m;
+      } else {
+        d = uniform_sphere(u_p1, u_p2);
+      }
     }
     alive = (shade || medium) && depth + 1 < P.max_bounces;
     if (alive) {
@@ -614,6 +667,10 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
         g_st = g_st + (A_st * WL - B_st);
         g_ssx = g_ssx + (A_ssx * WL - B_ssx);
         A_st = B_st = A_ssx = B_ssx = 0.0f;
+        if (traced_g) {
+          gv[IG] = gv[IG] + (A_g * WL - B_g);
+          A_g = B_g = 0.0f;
+        }
         for (int f = 0; f < n_fp; ++f) {
           gv[IK + f] = gv[IK + f] + (A_fp[f] * WL - B_fp[f]);
           A_fp[f] = B_fp[f] = 0.0f;
@@ -637,6 +694,7 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
     float wt_sum = wt[0] * Lps[0] + wt[1] * Lps[1] + wt[2] * Lps[2];
     g_st = g_st + A_st * wt_sum - B_st;
     g_ssx = g_ssx + A_ssx * wt_sum - B_ssx;
+    if (traced_g) gv[IG] = gv[IG] + A_g * wt_sum - B_g;
     for (int f = 0; f < n_fp; ++f) gv[IK + f] = gv[IK + f] + A_fp[f] * wt_sum - B_fp[f];
     for (int s = 0; s < S; ++s) {
       if (!((D.lam_mask >> s) & 1)) continue;

@@ -115,6 +115,7 @@ namespace vpt {
 constexpr double kPi = 3.141592653589793;
 constexpr float BIG = 1e8f;
 constexpr float INV_PI = (float)(1.0 / kPi);
+constexpr float INV_4PI = (float)(1.0 / (4.0 * kPi));
 constexpr float TWO_PI = (float)(2.0 * kPi);
 constexpr float ETA_T = 1.5f;                           // glass, ETA_I = 1
 constexpr float INV_RATIO2 = (float)((1.0 / 1.5) * (1.0 / 1.5));
@@ -502,6 +503,30 @@ VPT_COLD V3 hg_dir(const VptParams& P, V3 d, float u1, float u2) {
   float sin_t = sqrtf(vmax(1.0f - cos_t * cos_t, 0.0f));
   float phi = TWO_PI * u2;
   return normalize3(from_local(d, mk(sin_t * cosf(phi), sin_t * sinf(phi), cos_t)));
+}
+
+// The same at a traced g (the pair's diff_g, vpt's hg_phase_const on the
+// vector, hg_dir_traced and dlog_hg_dg): f32 operations on g, a true
+// division by 2g, the isotropic snap at |g| <= 1e-3 on the same draws
+VPT_HD float hg_phase_traced(float cos_t, float g) {
+  float den = vmax(1.0f + g * g - 2.0f * g * cos_t, 1e-12f);
+  float rs = vrsqrt(den);
+  return (INV_4PI * (1.0f - g * g)) * rs * rs * rs;
+}
+
+VPT_HD V3 hg_dir_traced(V3 d, float g, float u1, float u2) {
+  if (!(fabsf(g) > 1e-3f)) return uniform_sphere(u1, u2);
+  float s = (1.0f - g * g) / (1.0f - g + 2.0f * g * u1);
+  float cos_t = vclip((1.0f + g * g - s * s) / (2.0f * g), -1.0f, 1.0f);
+  float sin_t = sqrtf(vmax(1.0f - cos_t * cos_t, 0.0f));
+  float phi = TWO_PI * u2;
+  return normalize3(from_local(d, mk(sin_t * cosf(phi), sin_t * sinf(phi), cos_t)));
+}
+
+// d/dg log hg(cos, g): the phase-draw score of the dL/dg estimator
+VPT_HD float dlog_hg_dg(float cos_t, float g) {
+  float den = vmax(1.0f + g * g - 2.0f * g * cos_t, 1e-12f);
+  return (-2.0f * g) / vmax(1.0f - g * g, 1e-6f) - (3.0f * (g - cos_t)) / den;
 }
 
 VPT_HD V3 beckmann_wh(float alpha, float u1, float u2) {

@@ -45,39 +45,50 @@ extern "C" int vpt_render_host(const void* params, int variant, int seed, const 
   return 0;
 }
 
-// K2's path code (its field instantiation when the scene has a field).
-// params: a DiffParams; pvec: float32[P]; out: float32[npix * 3], the
-// radiance sums divided by spp
-extern "C" void vpt_diff_fwd_host(const void* params, const float* pvec, int seed, float* out) {
+// The pair's pixels through the instantiation the kernels' wrapper picks:
+// kField where the scene has a field, kHG where D.hg_mode is set
+template <bool kGrads, bool kField, bool kHG>
+static void pair_host(const DiffParams& D, const float* pvec, const FieldParams& F, int seed,
+                      const float* gbar, float* out) {
+  const int npix = D.base.width * D.base.height;
+  for (int p = 0; p < npix; ++p) {
+    if constexpr (kGrads)
+      vpt::diff_pixel<true, kField, kHG>(D, pvec, F, p, seed, gbar + 3 * p, nullptr,
+                                         out + (size_t)D.n_params * p);
+    else
+      vpt::diff_pixel<false, kField, kHG>(D, pvec, F, p, seed, nullptr, out + 3 * p, nullptr);
+  }
+}
+
+template <bool kGrads>
+static void pair_host(const void* params, const float* pvec, int seed, const float* gbar,
+                      float* out) {
   DiffParams D;
   memcpy(&D, params, sizeof D);
   FieldParams F;
   vpt::pair_field(D, pvec, F);
-  const int npix = D.base.width * D.base.height;
-  for (int p = 0; p < npix; ++p) {
-    if (F.kind != 0)
-      vpt::diff_pixel<false, true>(D, pvec, F, p, seed, nullptr, out + 3 * p, nullptr);
-    else
-      vpt::diff_pixel<false, false>(D, pvec, F, p, seed, nullptr, out + 3 * p, nullptr);
-  }
+  const bool field = F.kind != 0, hg = D.hg_mode != 0;
+  if (field && hg)
+    pair_host<kGrads, true, true>(D, pvec, F, seed, gbar, out);
+  else if (field)
+    pair_host<kGrads, true, false>(D, pvec, F, seed, gbar, out);
+  else if (hg)
+    pair_host<kGrads, false, true>(D, pvec, F, seed, gbar, out);
+  else
+    pair_host<kGrads, false, false>(D, pvec, F, seed, gbar, out);
+}
+
+// K2's path code. params: a DiffParams; pvec: float32[P]; out:
+// float32[npix * 3], the radiance sums divided by spp
+extern "C" void vpt_diff_fwd_host(const void* params, const float* pvec, int seed, float* out) {
+  pair_host<false>(params, pvec, seed, nullptr, out);
 }
 
 // K3's path code. gbar: float32[npix * 3]; gout: float32[npix * P], each
 // pixel's own gradient vector (the kernel sums them by block)
 extern "C" void vpt_diff_bwd_host(const void* params, const float* pvec, int seed,
                                   const float* gbar, float* gout) {
-  DiffParams D;
-  memcpy(&D, params, sizeof D);
-  FieldParams F;
-  vpt::pair_field(D, pvec, F);
-  const int npix = D.base.width * D.base.height;
-  for (int p = 0; p < npix; ++p) {
-    float* g = gout + (size_t)D.n_params * p;
-    if (F.kind != 0)
-      vpt::diff_pixel<true, true>(D, pvec, F, p, seed, gbar + 3 * p, nullptr, g);
-    else
-      vpt::diff_pixel<true, false>(D, pvec, F, p, seed, gbar + 3 * p, nullptr, g);
-  }
+  pair_host<true>(params, pvec, seed, gbar, gout);
 }
 
 extern "C" int vpt_geom_params_words(void) { return (int)(sizeof(GeomParams) / 4); }

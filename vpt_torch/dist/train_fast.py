@@ -17,15 +17,18 @@ common-random-number central differences of the A/B loss on K4's
 primal_only mode (4 launches per differentiated dimension), which keeps the
 boundary terms the dual estimator drops.
 
-optax.adam becomes torch.optim.Adam with optax's defaults, and the
-optimizer keeps its own state: the step updates the params dict in place
-and returns the loss. Param groups stand in for optax.multi_transform: a
-leaf outside the optimizer stays frozen (fit_kernel's param_filter does
-the same: examples/recover_blobs.py's Adam at 0.15 on "blobs" and
-set_to_zero elsewhere is learning_rate=0.15 with a filter that keeps only
-the updated "blobs"; Adam is per element). A learning rate may be a float or
-a schedule count -> lr (exponential_decay). The multi-view and sharded
-trainers of vpt's module are ROADMAP Queue 1 items 5 and 8.
+make_multiview_train_step / fit_multiview run V pairs, one per camera,
+that share one parameter dict and average their A/B losses, optionally
+with the medium block in log space and target-relMSE pixel weights.
+
+optax.adam becomes torch.optim.Adam with optax's defaults (adam()), and
+the optimizer keeps its own state: the step updates the params dict in
+place and returns the loss. A learning rate may be a float, a schedule
+count -> lr (exponential_decay), or a dict {leaf: rate} that stands in for
+optax.multi_transform: one param group per leaf with its own rate or
+schedule, and a leaf absent from the dict or mapped to None
+(optax.set_to_zero) is not in the optimizer and never moves. The sharded
+trainers of vpt's module are ROADMAP Queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -40,9 +43,57 @@ from ..scene.camera import Camera
 from ..scene.scene import Scene
 from .train import project_params
 
-__all__ = ["make_kernel_train_step", "fit_kernel", "exponential_decay",
+__all__ = ["adam", "exponential_decay", "make_kernel_train_step",
+           "fit_kernel", "make_multiview_train_step", "fit_multiview",
            "make_geom_train_step", "fit_geom", "make_fd_geom_train_step",
            "fit_geom_fd"]
+
+
+def exponential_decay(init_value: float, transition_steps: int,
+                      decay_rate: float):
+    """optax.exponential_decay (no staircase, no delay): the learning rate
+    of update `count` (0 for the first) is
+    init_value * decay_rate ** (count / transition_steps)."""
+    def schedule(count: int) -> float:
+        return init_value * decay_rate ** (count / transition_steps)
+
+    return schedule
+
+
+def adam(params: dict, learning_rate) -> torch.optim.Adam:
+    """optax.adam(learning_rate) over every leaf of params; a dict
+    {leaf: rate} is optax.multi_transform with one adam per leaf (each its
+    own param group) and set_to_zero for the leaves it leaves out or maps
+    to None. A rate is a float or a schedule count -> lr, which rides in
+    its group and is advanced by _optimizer_step."""
+    def group(leaves, rate):
+        schedule = rate if callable(rate) else None
+        lr0 = float(schedule(0)) if schedule else float(rate)
+        return {"params": leaves, "lr": lr0, "schedule": schedule,
+                "count": 0}
+
+    if isinstance(learning_rate, dict):
+        unknown = set(learning_rate) - set(params)
+        if unknown:
+            raise ValueError(f"rates for leaves {sorted(unknown)} that the "
+                             f"params do not have")
+        groups = [group([params[k]], r) for k, r in learning_rate.items()
+                  if r is not None]
+    else:
+        groups = [group(list(params.values()), learning_rate)]
+    if not groups:
+        raise ValueError("every leaf is frozen: no rate to optimize with")
+    return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)
+
+
+def _optimizer_step(optimizer: torch.optim.Optimizer) -> None:
+    """optimizer.step(), first setting each group's learning rate from its
+    schedule for this update, where the group has one."""
+    for group in optimizer.param_groups:
+        if group.get("schedule") is not None:
+            group["lr"] = float(group["schedule"](group["count"]))
+            group["count"] += 1
+    optimizer.step()
 
 
 def make_kernel_train_step(scene: Scene, camera: Camera, width: int,
@@ -53,12 +104,13 @@ def make_kernel_train_step(scene: Scene, camera: Camera, width: int,
                            diff_field: bool = False, diff_blobs: bool = False,
                            diff_grid: bool = False, device="cuda"):
     """Build step(params, target_flat, seed) -> loss. `params` is the
-    pack_params dict whose tensors `optimizer` holds (leaves on `device`
-    that require grad); target_flat is (npix, 3) on `device`. One step
-    renders A and B at spp // 2 with seeds 2*seed and 2*seed + 1, takes
-    the gradient of mean((A - t)(B - t)), updates the params in place and
-    projects them onto their domain. The loss comes back detached, without
-    a synchronisation."""
+    pack_params dict (leaves on `device` that require grad) whose tensors
+    `optimizer` holds, all or some (adam()); target_flat is (npix, 3) on
+    `device`. One step renders A and B at spp // 2 with seeds 2*seed and
+    2*seed + 1, takes the gradient of mean((A - t)(B - t)), updates the
+    params in place (each group's schedule advanced) and projects them onto
+    their domain. The loss comes back detached, without a
+    synchronisation."""
     render = make_diff_renderer(
         scene, camera, width, height, max(spp // 2, 1), distance=distance,
         max_bounces=max_bounces, sampler=sampler, diff_g=diff_g,
@@ -66,12 +118,13 @@ def make_kernel_train_step(scene: Scene, camera: Camera, width: int,
         device=device)
 
     def step(params: dict, target_flat: torch.Tensor, seed: int):
-        optimizer.zero_grad(set_to_none=True)
+        for v in params.values():       # frozen leaves included
+            v.grad = None
         a = render(params, 2 * seed)
         b = render(params, 2 * seed + 1)
         loss = torch.mean((a - target_flat) * (b - target_flat))
         loss.backward()
-        optimizer.step()
+        _optimizer_step(optimizer)
         project_params(params)
         return loss.detach()
 
@@ -123,8 +176,7 @@ def fit_kernel(scene: Scene, camera: Camera, target, *, steps: int = 100,
                                       with_field=diff_field,
                                       with_blobs=diff_blobs,
                                       with_grid=diff_grid).items()}
-    optimizer = torch.optim.Adam(list(params.values()), lr=learning_rate,
-                                 betas=(0.9, 0.999), eps=1e-8)
+    optimizer = adam(params, learning_rate)
     step = make_kernel_train_step(scene, camera, width, height, spp,
                                   optimizer, distance=distance,
                                   max_bounces=max_bounces, sampler=sampler,
@@ -136,40 +188,142 @@ def fit_kernel(scene: Scene, camera: Camera, target, *, steps: int = 100,
 
 
 # ---------------------------------------------------------------------------
+# multi-view training on the pair (vpt/dist/train_fast.py:460-600)
+# ---------------------------------------------------------------------------
+
+# the leaves fit_multiview(log_medium=True) optimizes as logs: Adam's
+# unit-scale steps become multiplicative for the positive medium block, and
+# cannot throw a sigma of 1e-3 across orders of magnitude in one step
+_LOG_LEAVES = ("sigma_a", "sigma_s", "fog_k")
+
+
+def _to_log(p: dict) -> dict:
+    q = dict(p)
+    for k in _LOG_LEAVES:
+        if k in q:
+            q[k] = torch.log(torch.clamp_min(q[k], 1e-8))
+    return q
+
+
+def _from_log(q: dict) -> dict:
+    p = dict(q)
+    for k in _LOG_LEAVES:
+        if k in p:
+            p[k] = torch.exp(p[k])
+    return p
+
+
+def make_multiview_train_step(scene: Scene, cameras, width: int,
+                              height: int, spp: int,
+                              optimizer: torch.optim.Optimizer, *,
+                              distance: str = "free", max_bounces: int = 32,
+                              sampler: str = "random", diff_g: bool = False,
+                              diff_field: bool = False,
+                              log_medium: bool = False, device="cuda"):
+    """Build step(qparams, targets_flat, weights, seed) -> loss: one pair
+    per camera (V renderers at spp // 2) sharing one parameter dict, the
+    loss the mean over views of mean((A - t)(B - t) w) with view v's seeds
+    seed * 2V + 2v and + 1. qparams is the dict in optimizer space (the
+    medium block as logs with log_medium=True) whose leaves `optimizer`
+    holds; targets_flat is (V, npix, 3), weights None or (V, npix, 1),
+    fixed (they must not depend on the renders). The step updates qparams
+    in place, then projects them in raw space: to_opt(project_params(
+    from_opt(q))). step.to_opt / step.from_opt convert."""
+    renders = [make_diff_renderer(
+        scene, c, width, height, max(spp // 2, 1), distance=distance,
+        max_bounces=max_bounces, sampler=sampler, diff_g=diff_g,
+        diff_field=diff_field, device=device) for c in cameras]
+    V = len(renders)
+    to_opt = _to_log if log_medium else dict
+    from_opt = _from_log if log_medium else dict
+
+    def step(qp: dict, targets_flat: torch.Tensor, weights, seed: int):
+        for v in qp.values():
+            v.grad = None
+        p = from_opt(qp)
+        tot = 0.0
+        for v, render in enumerate(renders):
+            a = render(p, seed * (2 * V) + 2 * v)
+            b = render(p, seed * (2 * V) + 2 * v + 1)
+            e = (a - targets_flat[v]) * (b - targets_flat[v])
+            if weights is not None:
+                e = e * weights[v]
+            tot = tot + torch.mean(e)
+        loss = tot / V
+        loss.backward()
+        _optimizer_step(optimizer)
+        with torch.no_grad():
+            raw = project_params(from_opt({k: v.detach().clone()
+                                           for k, v in qp.items()}))
+            for k, v in to_opt(raw).items():
+                qp[k].copy_(v)
+        return loss.detach()
+
+    step.to_opt = to_opt
+    step.from_opt = from_opt
+    return step
+
+
+def fit_multiview(scene: Scene, cameras, targets, *, steps: int = 200,
+                  spp: int = 16, learning_rate=6e-3, distance: str = "free",
+                  max_bounces: int = 32, sampler: str = "random",
+                  seed: int = 0, diff_g: bool = False,
+                  diff_field: bool = False, log_medium: bool = True,
+                  relmse_weights: bool = True, relmse_eps: float = 0.05,
+                  polyak_tail: int = 0, param_filter=None,
+                  log_every: int = 0, device="cuda"):
+    """Recover the medium and material dict (with "g" when diff_g, "fog_k"
+    when diff_field) from V target (H, W, 3) images, one per camera, with
+    the pair on `device`. Pixel weights 1 / (mean_c(t) + relmse_eps)^2
+    from the targets (relmse_weights); `param_filter(updated, initial)`
+    works in raw space against the raw initial params; polyak_tail > 0
+    returns the mean of the last N raw iterates. learning_rate: a float, a
+    schedule or a per-leaf dict (adam()). Returns (params, losses)."""
+    if len(cameras) != len(targets):
+        raise ValueError("one target image per camera")
+    dev = torch.device(device)
+    height, width = targets[0].shape[:2]
+    init = {k: v.to(dev) for k, v in pack_params(
+        scene, with_g=diff_g, with_field=diff_field).items()}
+    to_opt = _to_log if log_medium else dict
+    qp = {k: v.clone().requires_grad_() for k, v in to_opt(init).items()}
+    optimizer = adam(qp, learning_rate)
+    step = make_multiview_train_step(
+        scene, cameras, width, height, spp, optimizer, distance=distance,
+        max_bounces=max_bounces, sampler=sampler, diff_g=diff_g,
+        diff_field=diff_field, log_medium=log_medium, device=dev)
+    targets_flat = torch.stack([
+        torch.as_tensor(t, dtype=torch.float32).to(dev).reshape(
+            width * height, 3) for t in targets])
+    weights = (1.0 / (targets_flat.mean(-1, keepdim=True) + relmse_eps) ** 2
+               if relmse_weights else None)
+    losses, tail = [], []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        loss = step(qp, targets_flat, weights, seed + i)
+        if param_filter is not None:
+            with torch.no_grad():
+                raw = step.from_opt({k: v.detach().clone()
+                                     for k, v in qp.items()})
+                for k, v in step.to_opt(param_filter(raw, init)).items():
+                    qp[k].copy_(v)
+        losses.append(float(loss))          # waits for the step
+        if polyak_tail and i >= steps - polyak_tail:
+            tail.append(step.from_opt({k: v.detach().clone()
+                                       for k, v in qp.items()}))
+        if log_every and i % log_every == 0:
+            print(f"step {i:4d}  loss {losses[-1]:.6g}  "
+                  f"({time.perf_counter() - t0:.3f} s)", flush=True)
+    out = step.from_opt({k: v.detach() for k, v in qp.items()})
+    if tail:
+        out = {k: sum(t[k] for t in tail) / len(tail) for k in out}
+    return out, losses
+
+
+# ---------------------------------------------------------------------------
 # geometric inverse rendering on K4 (vpt/dist/train_fast.py:155-188,
 # 210-302, 411-458)
 # ---------------------------------------------------------------------------
-
-def exponential_decay(init_value: float, transition_steps: int,
-                      decay_rate: float):
-    """optax.exponential_decay (no staircase, no delay): the learning rate
-    of update `count` (0 for the first) is
-    init_value * decay_rate ** (count / transition_steps)."""
-    def schedule(count: int) -> float:
-        return init_value * decay_rate ** (count / transition_steps)
-
-    return schedule
-
-
-def _adam(theta: dict, learning_rate) -> torch.optim.Adam:
-    """optax.adam(learning_rate) over every leaf of theta; a schedule rides
-    in the param group (see _optimizer_step)."""
-    schedule = learning_rate if callable(learning_rate) else None
-    lr0 = float(schedule(0)) if schedule else float(learning_rate)
-    return torch.optim.Adam(
-        [{"params": list(theta.values()), "lr": lr0, "schedule": schedule,
-          "count": 0}], lr=lr0, betas=(0.9, 0.999), eps=1e-8)
-
-
-def _optimizer_step(optimizer: torch.optim.Optimizer) -> None:
-    """optimizer.step(), first setting each group's learning rate from its
-    schedule for this update, where the group has one."""
-    for group in optimizer.param_groups:
-        if group.get("schedule") is not None:
-            group["lr"] = float(group["schedule"](group["count"]))
-            group["count"] += 1
-    optimizer.step()
-
 
 def make_geom_train_step(scene: Scene, camera: Camera, width: int,
                          height: int, spp: int,
@@ -304,7 +458,7 @@ def fit_geom(scene: Scene, camera: Camera, target, *, sphere: int | None,
     float or a schedule. Returns (theta, losses)."""
     height, width = target.shape[:2]
     theta = _theta_on(scene, camera, sphere, device, True)
-    optimizer = _adam(theta, learning_rate)
+    optimizer = adam(theta, learning_rate)
     step = make_geom_train_step(scene, camera, width, height, spp, optimizer,
                                 sphere=sphere, cam_grads=cam_grads,
                                 dir_grads=dir_grads, distance=distance,
@@ -328,7 +482,7 @@ def fit_geom_fd(scene: Scene, camera: Camera, target, *,
     rate. Returns (theta, losses)."""
     height, width = target.shape[:2]
     theta = _theta_on(scene, camera, sphere, device, False)
-    optimizer = _adam(theta, learning_rate)
+    optimizer = adam(theta, learning_rate)
     step = make_fd_geom_train_step(
         scene, camera, width, height, spp, optimizer, sphere=sphere,
         cam_grads=cam_grads, sigma=sigma, dir_grads=dir_grads, h=h,

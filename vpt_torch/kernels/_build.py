@@ -112,8 +112,9 @@ def load() -> ctypes.CDLL:
     lib.vpt_params_words.argtypes = []
     lib.vpt_params_words.restype = ctypes.c_int
     # the differentiable pair (csrc/diff.cu; in a density field
-    # csrc/diff_field_fwd.cu and diff_field_bwd.cu)
-    for sfx in ("", "_field"):
+    # csrc/diff_field_fwd.cu and diff_field_bwd.cu; with an HG phase
+    # csrc/diff_hg.cu, diff_field_hg_fwd.cu and diff_field_hg_bwd.cu)
+    for sfx in ("", "_field", "_hg", "_field_hg"):
         fwd = getattr(lib, "vpt_diff_fwd" + sfx)
         fwd.argtypes = [vp] * 5
         fwd.restype = ci

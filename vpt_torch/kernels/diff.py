@@ -15,7 +15,9 @@ here the same estimator runs as
     ``make_diff_renderer``, which returns render(params, seed) -> (npix, 3).
 
 Differentiable parameters (vpt's pack_params): sigma_a, sigma_s, albedo
-(S, 3) and radiance (S, 3), flattened to P = 2 + 6S entries. The gradient
+(S, 3) and radiance (S, 3), flattened to P = 2 + 6S entries, then the HG
+anisotropy "g" (diff_g) at IG = 2 + 6S and the traced field parameters
+from IK = IG (+ 1 with diff_g). The gradient
 estimator is vpt's: sampled distances and events are detached, albedo and
 radiance are pathwise (exact per seed), and the sigma dependence of the
 free-flight sampling density enters through score-function terms. The
@@ -36,7 +38,20 @@ diff_field traces the exp_height falloff "fog_k" and diff_blobs the blob
 rows "blobs" (K, 5): n_fp = 1 or 5K slots after the 2 + 6S, each with a
 pathwise term (the transmittances' d/dtheta through fp_dI) and a deferred
 event-score pair (fp_dI and fp_dlogdens at the sampled distance). The
-field runs in the kernels' field instantiations (csrc/diff_field.cu).
+field runs in the kernels' field instantiations (csrc/diff_field_fwd.cu,
+diff_field_bwd.cu).
+
+The Henyey-Greenstein phase (vpt's baked g_hg and diff_g, diff.py:560-583,
+:931-941): medium NEE takes the phase toward the cone sample and the
+scatter draw samples HG with the same u_p1, u_p2. At the scene's baked g
+the constants are K1's, folded in float64; with diff_g the phase and the
+draw are f32 operations on the vector's g with a true division by 2g and
+the isotropic snap at |g| <= 1e-3 (prims.hg_phase_traced, hg_dir_traced),
+and dL/dg is the NEE value's pathwise term gx * dlog_hg_dg(cos_nee, g)
+plus the phase draw's score as a deferred (A_g, B_g) pair folded like the
+sigma scores. Both run in the kernels' HG instantiations (csrc/diff_hg.cu,
+diff_field_hg_fwd.cu, diff_field_hg_bwd.cu; the mode is a launch
+parameter).
 
 Arithmetic of the field: where no field parameter is traced, the field's
 constants are K1's, folded in float64 on the host; where one is, vpt's
@@ -45,9 +60,9 @@ expressions are f32 operations on the parameter vector (1/r, (1/r)^2,
 majorant) always, sigma_t being traced). So the pair matches K1 within
 vpt's 1e-5 of scale, not bit for bit.
 
-Scope: nee=True, distance="free", physical=False, g == 0, no material-3
-shell, samplers "random" and "ld". Everything else raises
-NotImplementedError naming its ROADMAP item.
+Scope: nee=True, distance="free", physical=False, no material-3 shell,
+samplers "random" and "ld". Everything else raises NotImplementedError
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -61,7 +76,7 @@ from ..scene.camera import Camera
 from ..scene.scene import LAMBERT, MICROFACET, Scene
 from . import prims as pr
 from .prims import BIG, INV_PI, TWO_PI, f32
-from .wavefront import _G_EPS, Packed, pack_scene
+from .wavefront import Packed, pack_scene
 
 __all__ = ["pack_params", "unpack_params", "DiffPacked", "pack_diff",
            "diff_fwd_plain", "diff_bwd_plain", "diff_fwd", "diff_bwd",
@@ -85,6 +100,8 @@ def __getattr__(name: str):
 
 # DiffParams.fp_kind: the traced field parameters
 FP_NONE, FP_FOG_K, FP_BLOBS = 0, 1, 2
+# DiffParams.hg_mode: the phase (csrc/diff_path.cuh HgMode)
+HG_NONE, HG_BAKED, HG_TRACED = 0, 1, 2
 
 def _todo(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
@@ -94,11 +111,10 @@ def _todo(what: str, item: str) -> NotImplementedError:
 def pack_params(scene: Scene, with_g: bool = False, with_field: bool = False,
                 with_grid: bool = False, with_blobs: bool = False) -> dict:
     """Differentiable parameters of a scene: a dict of float32 tensors
-    sigma_a (), sigma_s (), albedo (S, 3), radiance (S, 3); with_field adds
-    the exp_height falloff "fog_k" (), with_blobs the blob rows "blobs"
-    (K, 5) (pair them with diff_field / diff_blobs)."""
-    if with_g:
-        raise _todo("a traced HG g (with_g)", "4")
+    sigma_a (), sigma_s (), albedo (S, 3), radiance (S, 3); with_g adds the
+    HG anisotropy "g" (), with_field the exp_height falloff "fog_k" (),
+    with_blobs the blob rows "blobs" (K, 5) (pair them with diff_g,
+    diff_field / diff_blobs)."""
     if with_grid:
         raise _todo("traced voxel values (with_grid)", "7")
 
@@ -108,6 +124,8 @@ def pack_params(scene: Scene, with_g: bool = False, with_field: bool = False,
     p = {"sigma_a": t(scene.medium.sigma_a),
          "sigma_s": t(scene.medium.sigma_s),
          "albedo": t(scene.albedo), "radiance": t(scene.radiance)}
+    if with_g:
+        p["g"] = t(scene.medium.g)
     fld = scene.medium.density
     if with_field:
         if fld is None or fld.kind != "exp_height":
@@ -122,14 +140,17 @@ def pack_params(scene: Scene, with_g: bool = False, with_field: bool = False,
 
 
 def _flatten(params: dict, S: int) -> torch.Tensor:
-    """params -> packed (2 + 6S [+ 1 | + 5K],) vector, differentiable
-    (torch.cat): vpt's order, the field slots after the 2 + 6S."""
+    """params -> packed (2 + 6S [+ 1 g] [+ 1 | + 5K],) vector,
+    differentiable (torch.cat): vpt's order, g at 2 + 6S, then the field
+    slots."""
     extra = sorted(set(params) - {"sigma_a", "sigma_s", "albedo", "radiance",
-                                  "fog_k", "blobs"})
+                                  "g", "fog_k", "blobs"})
     if extra:
-        raise _todo(f"parameters {extra}", "4 and 7")
+        raise _todo(f"parameters {extra}", "7")
     parts = [params["sigma_a"].reshape(1), params["sigma_s"].reshape(1),
              params["albedo"].reshape(3 * S), params["radiance"].reshape(3 * S)]
+    if "g" in params:
+        parts.append(params["g"].reshape(1))
     if "fog_k" in params:
         parts.append(params["fog_k"].reshape(1))
     if "blobs" in params:
@@ -137,20 +158,23 @@ def _flatten(params: dict, S: int) -> torch.Tensor:
     return torch.cat(parts).to(torch.float32)
 
 
-def unpack_params(vec: torch.Tensor, S: int, *, with_field: bool = False,
-                  n_blobs: int = 0) -> dict:
-    """Packed vector -> params dict (views of vec); with_field reads the
-    "fog_k" slot, n_blobs > 0 a trailing (n_blobs, 5) "blobs" block."""
-    n = 2 + 6 * S + int(with_field) + 5 * n_blobs
+def unpack_params(vec: torch.Tensor, S: int, *, with_g: bool = False,
+                  with_field: bool = False, n_blobs: int = 0) -> dict:
+    """Packed vector -> params dict (views of vec); with_g reads the "g"
+    slot at 2 + 6S, with_field the "fog_k" slot after it, n_blobs > 0 a
+    trailing (n_blobs, 5) "blobs" block."""
+    n = 2 + 6 * S + int(with_g) + int(with_field) + 5 * n_blobs
     if vec.shape[0] != n:
         raise ValueError(f"a packed vector of {vec.shape[0]} entries; "
-                         f"{S} spheres, with_field={with_field} and "
-                         f"n_blobs={n_blobs} pack {n} (a traced g is "
-                         f"ROADMAP Queue 1 item 4)")
+                         f"{S} spheres, with_g={with_g}, with_field="
+                         f"{with_field} and n_blobs={n_blobs} pack {n}")
     p = {"sigma_a": vec[0], "sigma_s": vec[1],
          "albedo": vec[2:2 + 3 * S].reshape(S, 3),
          "radiance": vec[2 + 3 * S:2 + 6 * S].reshape(S, 3)}
     idx = 2 + 6 * S
+    if with_g:
+        p["g"] = vec[idx]
+        idx += 1
     if with_field:
         p["fog_k"] = vec[idx]
         idx += 1
@@ -172,6 +196,17 @@ class DiffPacked:
     alb_ids: tuple      # spheres with an albedo gradient
     lam_ids: tuple      # spheres with deferred lambert-albedo terms
     fp_kind: int = FP_NONE  # traced field parameters: none, fog_k, blobs
+    hg_mode: int = HG_NONE  # the phase: isotropic, the baked g, diff_g
+
+    @property
+    def IG(self) -> int:
+        """The packed index of the traced g (diff_g)."""
+        return 2 + 6 * self.pk.S
+
+    @property
+    def IK(self) -> int:
+        """The packed index of the first traced field parameter."""
+        return self.IG + int(self.hg_mode == HG_TRACED)
 
     @property
     def n_fp(self) -> int:
@@ -182,7 +217,7 @@ class DiffPacked:
 
     @property
     def P(self) -> int:
-        return 2 + 6 * self.pk.S + self.n_fp
+        return self.IK + self.n_fp
 
     @property
     def npix(self) -> int:
@@ -191,28 +226,30 @@ class DiffPacked:
     @property
     def entries(self) -> tuple:
         """The C entries of K2 and K3 for this scene: the field
-        instantiations (csrc/diff_field.cu) in a density field."""
-        sfx = "" if self.pk.field is None else "_field"
+        instantiations in a density field, the HG ones with a phase g."""
+        sfx = (("" if self.pk.field is None else "_field")
+               + ("" if self.hg_mode == HG_NONE else "_hg"))
         return "vpt_diff_fwd" + sfx, "vpt_diff_bwd" + sfx
 
     def words(self) -> np.ndarray:
         fl = np.asarray([self.cp, self.inv_spp], np.float32).view(np.int32)
         mask = lambda ids: sum(1 << s for s in ids)   # noqa: E731
         ints = np.asarray([self.P, mask(self.alb_ids), mask(self.lam_ids),
-                           self.n_fp, self.fp_kind], np.int32)
+                           self.n_fp, self.fp_kind, self.hg_mode], np.int32)
         return np.concatenate([self.pk.words(), fl, ints])
 
 
 def pack_diff(scene: Scene, camera: Camera, width: int, height: int,
               spp: int, *, continue_prob: float = 0.6, max_bounces: int = 32,
               sampler: str = "random", jitter: bool = True,
-              diff_field: bool = False,
+              diff_g: bool = False, diff_field: bool = False,
               diff_blobs: bool = False) -> DiffPacked:
     """Freeze scene, camera and frame for the pair. The geometry, the
-    emitter structure, the materials and the density field are baked, as
-    in vpt; sigma, albedo and radiance come from the parameter vector at
-    each call, and so do the fog falloff (diff_field) or the blob rows
-    (diff_blobs). vpt's guards (diff.py:220-237) carry over."""
+    emitter structure, the materials, the density field and the HG g are
+    baked, as in vpt; sigma, albedo and radiance come from the parameter
+    vector at each call, and so do the HG g (diff_g: the scene's g is then
+    ignored), the fog falloff (diff_field) or the blob rows (diff_blobs).
+    vpt's guards (diff.py:220-237) carry over."""
     fld = scene.medium.density
     if diff_field and diff_blobs:
         raise ValueError("diff_field and diff_blobs are mutually exclusive "
@@ -229,8 +266,6 @@ def pack_diff(scene: Scene, camera: Camera, width: int, height: int,
             "diff_field traces the exp_height fog falloff k; the scene needs "
             "Medium.density = exp_height(...) (blob parameters: diff_blobs; "
             "other fields train on vpt's engine: ROADMAP Queue 1 item 9)")
-    if abs(float(torch.as_tensor(scene.medium.g))) > _G_EPS:
-        raise _todo("a baked HG g != 0", "4 (with diff_g)")
     pk = pack_scene(scene, camera, width, height, spp,
                     continue_prob=continue_prob, max_bounces=max_bounces,
                     sampler=sampler, jitter=jitter)
@@ -244,8 +279,10 @@ def pack_diff(scene: Scene, camera: Camera, width: int, height: int,
     lam_ids = tuple(s for s in range(pk.S)
                     if pk.mat[s] == LAMBERT and not is_em[s])
     fp_kind = FP_FOG_K if diff_field else FP_BLOBS if diff_blobs else FP_NONE
+    hg_mode = HG_TRACED if diff_g else HG_BAKED if pk.g != 0.0 else HG_NONE
     return DiffPacked(pk=pk, cp=f32(continue_prob), inv_spp=f32(1.0 / spp),
-                      alb_ids=alb_ids, lam_ids=lam_ids, fp_kind=fp_kind)
+                      alb_ids=alb_ids, lam_ids=lam_ids, fp_kind=fp_kind,
+                      hg_mode=hg_mode)
 
 
 def traced_field(dp: DiffPacked, pv: torch.Tensor):
@@ -254,7 +291,7 @@ def traced_field(dp: DiffPacked, pv: torch.Tensor):
     blobs, every blob constant an f32 operation on its row of the vector,
     as vpt's traced forms compute them."""
     fc = dp.pk.field
-    ik = 2 + 6 * dp.pk.S
+    ik = dp.IK
     if dp.fp_kind == FP_FOG_K:
         return dataclasses.replace(fc, k=pv[ik])
     if dp.fp_kind != FP_BLOBS:
@@ -312,7 +349,10 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
     # d(optical path per unit sigma)/dtheta, fp_dlogdens(x) -> n_fp values
     # of d log(density)/dtheta
     fc = traced_field(dp, pv)
-    n_fp, IK = dp.n_fp, 2 + 6 * S
+    n_fp, IK = dp.n_fp, dp.IK
+    # the HG phase: the traced g (diff_g) at IG, or the scene's baked g
+    traced_g = dp.hg_mode == HG_TRACED
+    gph = pv[dp.IG] if traced_g else None
     if fc is not None:
         inv_mr = 1.0 / (sigma_t * fc.maj)   # delta tracking's step scale
     if dp.fp_kind == FP_FOG_K:
@@ -501,9 +541,11 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
         return acc, {"dsig": dsig, "drad": drad, "dalb": dalb, "dle": dle,
                      "sid2": sid2, "dk": dk}
 
-    def medium_nee(rng, xt, lc, lrad, lr, lid):
+    def medium_nee(rng, d, xt, lc, lrad, lr, lid):
         """freeSingleScattering; returns (radiance, weight, optical path
-        per unit sigma, the cone direction and the shadow distance)."""
+        per unit sigma, d/dg log phase (diff_g; else None), the cone
+        direction and the shadow distance). d: the incoming direction,
+        which the HG phase toward the cone sample reads."""
         wc = [lc[i] - xt[i] for i in range(3)]
         inv_mag = torch.rsqrt(torch.clamp_min(pr.dot3(wc, wc), 1e-20))
         wc_n = pr.scale3(wc, inv_mag)
@@ -515,10 +557,20 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
         hit, t, sid = pr.nearest_id_t(pk, xt, wl)
         visible = hit & (sid == lid) & (lr > 0.0)
         att = t if fc is None else pr.field_tau(fc, 1.0, xt, wl, t)
+        dlogp = None
+        if traced_g:
+            cos_nee = pr.dot3(d, wl)
+            phase_2pi = pr.hg_phase_traced(cos_nee, gph) * TWO_PI
+            if grads:
+                dlogp = pr.dlog_hg_dg(cos_nee, gph)
+        elif dp.hg_mode == HG_BAKED:
+            phase_2pi = pr.hg_phase_const(pk, pr.dot3(d, wl)) * TWO_PI
+        else:
+            phase_2pi = pk.nee_phase
         w = torch.where(visible,
-                        torch.exp(-sigma_t * att) * pk.nee_phase
+                        torch.exp(-sigma_t * att) * phase_2pi
                         * torch.clamp_min(1.0 - cos_max, 1e-12), 0.0)
-        return [lrad[i] * w for i in range(3)], w, att, wl, t
+        return [lrad[i] * w for i in range(3)], w, att, dlogp, wl, t
 
     acc = {}
     if grads:
@@ -537,6 +589,9 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
         for f in range(n_fp):
             for k in ("g_fp", "A_fp", "B_fp"):
                 acc[(k, f)] = z
+        if traced_g:
+            for k in ("g_g", "A_g", "B_g"):
+                acc[k] = z
 
     rng = pr.Pcg(pr.pcg_seed(lane, seed_i))
     o = [z, z, z]
@@ -703,11 +758,16 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
         tp_surface = [tp[i] * fs[i] * wscale for i in range(3)]
 
         u_p1, u_p2 = rng(), rng()
-        wi_m = pr.uniform_sphere(u_p1, u_p2)
+        if traced_g:
+            wi_m = pr.hg_dir_traced(d, gph, u_p1, u_p2)
+        elif dp.hg_mode == HG_BAKED:
+            wi_m = pr.hg_dir(pk, d, u_p1, u_p2)
+        else:
+            wi_m = pr.uniform_sphere(u_p1, u_p2)
         med_scale = ar_cp
         med_dsig = -inv_st
-        ld_med, w_med, att_nee, wl_nee, t_nee = medium_nee(rng, xt, lc, lrad,
-                                                           lr, lid)
+        ld_med, w_med, att_nee, dlogp_nee, wl_nee, t_nee = medium_nee(
+            rng, d, xt, lc, lrad, lr, lid)
         adds = [torch.where(medium, ld_med[i] * inv_ps * tp[i] * med_scale,
                             0.0) for i in range(3)]
         for i in range(3):
@@ -730,6 +790,10 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
                 for f in range(n_fp):
                     acc[("g_fp", f)] = acc[("g_fp", f)] + torch.where(
                         medium, gx * (-sigma_t * dI_nee[f]), 0.0)
+            if traced_g:
+                # the NEE value's phase(cos_nee | g) factor
+                acc["g_g"] = acc["g_g"] + torch.where(
+                    medium, gx * dlogp_nee, 0.0)
             for e in em:
                 m = medium & (lid == e)
                 for i in range(3):
@@ -747,6 +811,13 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
             acc["B_st"] = acc["B_st"] + k_med_st * wL1
             acc["A_ssx"] = acc["A_ssx"] + k_med_ssx
             acc["B_ssx"] = acc["B_ssx"] + k_med_ssx * wL1
+            if traced_g:
+                # the phase draw's score, deferred against later
+                # contributions
+                k_g = torch.where(medium,
+                                  pr.dlog_hg_dg(pr.dot3(d, wi_m), gph), 0.0)
+                acc["A_g"] = acc["A_g"] + k_g
+                acc["B_g"] = acc["B_g"] + k_g * wL1
             for s in dp.lam_ids:
                 m = shade & (at["sid"] == s)
                 for i in range(3):
@@ -776,6 +847,7 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
             WL = _wdot(wt, Lps)
             for g, a, b in (("g_st", "A_st", "B_st"),
                             ("g_ssx", "A_ssx", "B_ssx"),
+                            *((("g_g", "A_g", "B_g"),) if traced_g else ()),
                             *((("g_fp", f), ("A_fp", f), ("B_fp", f))
                               for f in range(n_fp))):
                 acc[g] = acc[g] + torch.where(
@@ -811,6 +883,8 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
     G = torch.zeros((N, dp.P), dtype=torch.float32, device=dev)
     G[:, 0] = g_st
     G[:, 1] = g_st + g_ssx
+    if traced_g:
+        G[:, dp.IG] = acc["g_g"] + acc["A_g"] * wt_sum - acc["B_g"]
     for f in range(n_fp):
         G[:, IK + f] = (acc[("g_fp", f)] + acc[("A_fp", f)] * wt_sum
                         - acc[("B_fp", f)])
@@ -947,12 +1021,11 @@ def make_diff_renderer(scene: Scene, camera: Camera, width: int, height: int,
                        diff_field: bool = False, diff_blobs: bool = False,
                        diff_grid: bool = False, device="cuda"):
     """Build render(params, seed) -> (npix, 3) on `device`, differentiable
-    with respect to params (pack_params; with_field=True for diff_field,
-    with_blobs=True for diff_blobs) through torch autograd. "cuda" runs
-    K2/K3 (their field instantiations in a density field) or raises; "cpu"
-    runs their plain versions."""
-    if diff_g:
-        raise _todo("a traced HG g (diff_g)", "4, after the medium set")
+    with respect to params (pack_params; with_g=True for diff_g,
+    with_field=True for diff_field, with_blobs=True for diff_blobs) through
+    torch autograd. "cuda" runs K2/K3 (their field instantiations in a
+    density field, their HG ones at a g != 0 or with diff_g) or raises;
+    "cpu" runs their plain versions."""
     if diff_grid:
         raise _todo("voxel-grid gradients (diff_grid)", "7")
     if distance != "free":
@@ -965,11 +1038,18 @@ def make_diff_renderer(scene: Scene, camera: Camera, width: int, height: int,
                            "torch.cuda.is_available() is False")
     dp = pack_diff(scene, camera, width, height, spp,
                    continue_prob=continue_prob, max_bounces=max_bounces,
-                   sampler=sampler, jitter=jitter, diff_field=diff_field,
-                   diff_blobs=diff_blobs)
+                   sampler=sampler, jitter=jitter, diff_g=diff_g,
+                   diff_field=diff_field, diff_blobs=diff_blobs)
     S = dp.pk.S
+    traced = {"g": diff_g, "fog_k": diff_field, "blobs": diff_blobs}
 
     def render(params: dict, seed) -> torch.Tensor:
+        for leaf, flag in traced.items():
+            if (leaf in params) != flag:
+                raise ValueError(
+                    f"params must contain a {leaf!r} leaf iff the renderer "
+                    f"traces it: build them with pack_params(scene, "
+                    f"with_{'field' if leaf == 'fog_k' else leaf}=...)")
         pvec = _flatten(params, S).to(dev)
         if isinstance(seed, torch.Tensor):
             seed_t = seed.to(device=dev, dtype=torch.int32).reshape(1)

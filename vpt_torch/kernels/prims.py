@@ -426,6 +426,42 @@ def hg_dir(ps, d, u1, u2):
     return normalize3(from_local(d, local))
 
 
+def hg_phase_traced(cos_t, g):
+    """Henyey-Greenstein phase value at a traced f32 g (vpt's
+    hg_phase_const on the pair's parameter vector): f32 operations on g,
+    1/d^1.5 as rsqrt(d)^3."""
+    den = torch.clamp_min(1.0 + g * g - 2.0 * g * cos_t, 1e-12)
+    rs = torch.rsqrt(den)
+    return (INV_4PI * (1.0 - g * g)) * rs * rs * rs
+
+
+def hg_dir_traced(d, g, u1, u2):
+    """A Henyey-Greenstein direction around d at a traced f32 g (vpt's
+    hg_dir_traced): f32 operations on g with a true division by 2g, and the
+    isotropic snap at |g| <= 1e-3 (uniform_sphere on the same draws;
+    g_safe = 0.5 keeps the unselected lane finite)."""
+    aniso = torch.abs(g) > 1e-3
+    g_safe = torch.where(aniso, g, 0.5)
+    s = (1.0 - g_safe * g_safe) / (1.0 - g_safe + 2.0 * g_safe * u1)
+    cos_t = torch.clamp((1.0 + g_safe * g_safe - s * s) / (2.0 * g_safe),
+                        -1.0, 1.0)
+    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    phi = TWO_PI * u2
+    local = [sin_t * torch.cos(phi), sin_t * torch.sin(phi), cos_t]
+    hg = normalize3(from_local(d, local))
+    iso = uniform_sphere(u1, u2)
+    return sel3(aniso.expand_as(u1), hg, iso)
+
+
+def dlog_hg_dg(cos_t, g):
+    """d/dg log hg(cos, g) = -2g/(1-g^2) - 3(g-cos)/(1+g^2-2g cos), with
+    vpt's floors max(1 - g^2, 1e-6) and max(den, 1e-12): the phase-draw
+    score of the dL/dg estimator (3 cos at g == 0)."""
+    den = torch.clamp_min(1.0 + g * g - 2.0 * g * cos_t, 1e-12)
+    return (-2.0 * g / torch.clamp_min(1.0 - g * g, 1e-6)
+            - 3.0 * (g - cos_t) / den)
+
+
 def cosine_hemi(n, u1, u2):
     ct = torch.sqrt(torch.clamp_min(1.0 - u1, 0.0))
     st = torch.sqrt(torch.clamp_min(u1, 0.0))
