@@ -78,15 +78,32 @@ plain torch version on the card:
      block through make_multiview_train_step with per-leaf Adam groups,
      the geometry block through fit_geom_fd; 3 rounds) against
      BASELINE.md's tolerances, and FOG_MV_STEPS of
-     examples/recover_fog_multiview.py's 2400 steps through fit_multiview.
+     examples/recover_fog_multiview.py's 2400 steps through fit_multiview;
+ 16. voxel grids: ptxas of the grid instantiations (K1's four, K2's and
+     K3's) and every kernel from before the grid unchanged; K1's grid
+     instantiations bit-equal to the plain version at 64x32x8 on grid_cloud
+     (both transport interpolants and samplers); K2 and K3 on the grid,
+     baked and with diff_grid, against theirs there (the image and K3's
+     per-pixel rows bit for bit, the voxel gradient per voxel within
+     GVEC_TOL of its terms' absolute sum), and at examples/recover_grid.py's
+     training shape (128x96x8) on its 16^3 truth; the voxel gradient against
+     common-random-number finite differences (vpt's criterion) at the test's
+     shape and the trainer's; K1 on the 32^3 nearest grid and every K1 grid
+     instantiation on the 16^3 trilinear one through vpt_torch.render at
+     1024x1024x64 "ld", timed, with bounds from counters at a smaller
+     frame; the diff_grid pair there, fwd+bwd, K2 and K3 timed, the scatter
+     mode reported; then examples/recover_grid.py at its defaults through
+     fit_grid.
 
-The main-frame plain versions (phases 4, 7, 10, 12, 14 and 15) and phase
-15's plain checks run in worker processes on the same card while the
-kernels build (PlainPool); they are collected before the first timing.
-`--recover-fog-multiview STEPS` runs the card, the build and that
-example's fit alone.
+The main-frame plain versions (phases 4, 7, 10, 12, 14 and 15) and the
+plain checks of phases 15 and 16 run in worker processes on the same card
+while the kernels build (PlainPool); they are collected before the first
+timing. `--recover-fog-multiview STEPS` runs the card, the build and that
+example's fit alone; `--recover-grid STEPS` the same for
+examples/recover_grid.py at vpt's round-4 setting (RG_ROUND4; 250 steps
+is that run, about 80 s of fitting).
 
-Each main path (phases 4, 7, 8, 10, 11, 12, 13, 14 and 15) runs with every
+Each main path (phases 4, 7, 8, 10, 11, 12, 13, 14, 15 and 16) runs with every
 launch count set to 0 just before it and read just after. The line before the last is the
 per-kernel JSON record, the last line the device record. Any failed phase
 raises and the script exits non-zero; without a CUDA device it exits
@@ -182,9 +199,11 @@ def cuda_ms(fn) -> tuple[object, float]:
     return out, start.elapsed_time(end)
 
 
-def median_ms(fn, n: int = 3) -> tuple[float, list]:
-    """Median of n CUDA-event timings after one warm-up run."""
-    fn()
+def median_ms(fn, n: int = 3, warm_up: bool = True) -> tuple[float, list]:
+    """Median of n CUDA-event timings after one warm-up run (warm_up=False:
+    the caller ran fn already)."""
+    if warm_up:
+        fn()
     times = [cuda_ms(fn)[1] for _ in range(n)]
     return statistics.median(times), [round(t, 3) for t in times]
 
@@ -392,6 +411,8 @@ def plain_job(spec: tuple) -> tuple:
     seed = torch.tensor([cfg.seed], dtype=torch.int32, device=dev)
     kind, name = spec[:2]
     stats = {}
+    if kind in ("gk1", "gpair"):
+        return grid_plain_job(spec, dev, cam)
     if kind in ("pair", "k2"):
         frame = spec[4] if kind == "pair" else main_frame()
         dp, pvec, seed, gbar = pair_inputs(name, spec[2], spec[3], frame,
@@ -488,14 +509,14 @@ GEOM7_SPEC = ("k4", "cornell_vpt", 8, False, 2)       # GEOM_CHECK_SPP
 
 
 def plain_specs() -> list:
-    """The plain runs of phases 4-15."""
+    """The plain runs of phases 4-16."""
     k1 = [k1_spec(integ, sname, g) for _, integ, sname, g in VARIANTS]
     k1 += [k1_spec(integ, sname) for integ, sname in FIELD_VARIANTS]
     return [k1_spec("explicit_free"), pair_spec(), GEOM0_SPEC, GEOM7_SPEC,
             *k1, pair_spec("foggy_cornell", 0.0, ("diff_field",)),
             pair_spec("foggy_cornell", 0.5, ("diff_g", "diff_field")),
             pair_spec("cornell_vpt", 0.5), *HG_CHECKS, HG_TRAINER_CHECK,
-            *HG_MAIN_CHECKS.values()]
+            *HG_MAIN_CHECKS.values(), *grid_specs()]
 
 
 # ---- phase 14: analytic density fields (exp_height, blobs) in K1 and the pair
@@ -1567,6 +1588,638 @@ def hg_phases(card: str, dev: torch.device, camera, cfg,
     return records
 
 
+# ---- phase 16: voxel grids in K1 and the pair, fit_grid, recover_grid
+
+# the grid instantiations' kernels (mangled-name fragments) and sources
+GRID_K1 = {integ: (wf.GRID_ENTRIES[wf.KERNEL_INTEGRATORS[integ][:2]],
+                   f"vpt_wavefront11grid_kernelILb{int(nee)}ELi{k}EE", src)
+           for integ, nee, k, src in (
+               ("explicit_free", True, 0, "wavefront_grid.cu"),
+               ("implicit_free", False, 0, "wavefront_grid_free_implicit.cu"),
+               ("explicit_equiangular", True, 1, "wavefront_grid_ea.cu"),
+               ("implicit_equiangular", False, 2,
+                "wavefront_grid_eac_implicit.cu"))}
+GRID_PAIR = {"vpt_diff_fwd_grid": ("vpt_diff15grid_fwd_kernelILi2EE",
+                                   "diff_grid_fwd.cu",
+                                   "vpt/kernels/diff.py:1274"),
+             "vpt_diff_bwd_grid": ("vpt_diff15grid_bwd_kernelILi2EE",
+                                   "diff_grid_bwd.cu",
+                                   "vpt/kernels/diff.py:1303")}
+# ptxas of the 22 kernels of the 21 sources before the grid (registers,
+# spill stores, stack; the parent's sources built beside these on NVIDIA
+# H100 80GB HBM3, this toolkit): the grid must leave them as they were
+EXISTING_PTXAS = {
+    "_ZN13vpt_wavefront6kernelILb0ELi0ELb0EEEv9VptParamsPKiS3_iiPf":
+        (61, 0, 56),
+    "_ZN13vpt_wavefront6kernelILb0ELi0ELb1EEEv9VptParamsPKiS3_iiPf":
+        (64, 16, 72),
+    "_ZN13vpt_wavefront6kernelILb0ELi2ELb0EEEv9VptParamsPKiS3_iiPf":
+        (68, 0, 56),
+    "_ZN13vpt_wavefront6kernelILb0ELi2ELb1EEEv9VptParamsPKiS3_iiPf":
+        (56, 108, 112),
+    "_ZN13vpt_wavefront6kernelILb1ELi0ELb0EEEv9VptParamsPKiS3_iiPf":
+        (116, 0, 56),
+    "_ZN13vpt_wavefront6kernelILb1ELi0ELb1EEEv9VptParamsPKiS3_iiPf":
+        (115, 0, 56),
+    "_ZN13vpt_wavefront6kernelILb1ELi1ELb0EEEv9VptParamsPKiS3_iiPf":
+        (119, 0, 56),
+    "_ZN13vpt_wavefront6kernelILb1ELi1ELb1EEEv9VptParamsPKiS3_iiPf":
+        (119, 0, 56),
+    "_ZN3vpt4geom15vpt_geom_kernelILi0EEEv10GeomParamsPKfPKiiiPf":
+        (128, 0, 32),
+    "_ZN3vpt4geom15vpt_geom_kernelILi10EEEv10GeomParamsPKfPKiiiPf":
+        (255, 5080, 2296),
+    "_ZN3vpt4geom15vpt_geom_kernelILi3EEEv10GeomParamsPKfPKiiiPf":
+        (255, 320, 320),
+    "_ZN3vpt4geom15vpt_geom_kernelILi4EEEv10GeomParamsPKfPKiiiPf":
+        (255, 1104, 592),
+    "_ZN3vpt4geom15vpt_geom_kernelILi6EEEv10GeomParamsPKfPKiiiPf":
+        (255, 2296, 1144),
+    "_ZN3vpt4geom15vpt_geom_kernelILi7EEEv10GeomParamsPKfPKiiiPf":
+        (255, 2908, 1440),
+    "_ZN8vpt_diff10bwd_kernelILb0ELb0EEEv10DiffParamsPKfPKiS3_PfS6_":
+        (128, 56, 1456),
+    "_ZN8vpt_diff10bwd_kernelILb0ELb1EEEv10DiffParamsPKfPKiS3_PfS6_":
+        (149, 0, 1440),
+    "_ZN8vpt_diff10bwd_kernelILb1ELb0EEEv10DiffParamsPKfPKiS3_PfS6_":
+        (160, 0, 5248),
+    "_ZN8vpt_diff10bwd_kernelILb1ELb1EEEv10DiffParamsPKfPKiS3_PfS6_":
+        (165, 0, 5280),
+    "_ZN8vpt_diff10fwd_kernelILb0ELb0EEEv10DiffParamsPKfPKiPf":
+        (118, 0, 32),
+    "_ZN8vpt_diff10fwd_kernelILb0ELb1EEEv10DiffParamsPKfPKiPf":
+        (96, 140, 152),
+    "_ZN8vpt_diff10fwd_kernelILb1ELb0EEEv10DiffParamsPKfPKiPf":
+        (121, 0, 32),
+    "_ZN8vpt_diff10fwd_kernelILb1ELb1EEEv10DiffParamsPKfPKiPf":
+        (96, 196, 160),
+}
+# the checks: grid_cloud (tests/test_diff_kernel.py: blob_cloud on an 8^3
+# grid, n_march 8) at 64x32x8, both interpolants and samplers, seed 3; and
+# examples/recover_grid.py's training shape (128x96x8, 8 bounces, "ld") on
+# its 16^3 truth
+GRID_FRAME = (64, 32, 8, 8)
+GRID_TRAIN_FRAME = (128, 96, 8, 8, "ld", 0)
+# the work counters of the timed frames come from the plain versions at
+# this smaller frame, scaled by the paths (the plain versions run a march
+# per event: far slower than K1's at the main frame)
+GRID_COUNT_FRAME = (128, 128, 8)
+# vpt's recorded round-4 run of examples/recover_grid.py --steps 250 --spp
+# 16 --reg-l1 2e-2 (BASELINE.md:704-716, a TPU v5e): MAE 0.223 -> 0.138,
+# corr 0.76; the port is held to corr >= 0.70 and MAE <= 0.16
+RG_ROUND4 = dict(steps=250, spp=16, reg_l1=2e-2)
+# examples/recover_grid.py's cameras (:108-119) after the default one
+RG_CAMS = [((150, 30, 170), (0, 0, 170)), ((-140, -20, 175), (0, 0, 170)),
+           ((80, 90, 120), (0, 0, 170)), ((-90, 70, 240), (0, 0, 170)),
+           ((40, -60, 100), (0, 0, 170)), ((5, 160, 172), (0, 0, 172)),
+           ((-10, -150, 170), (0, 5, 170)), ((10, 20, 330), (0, 0, 172)),
+           ((120, -90, 230), (0, 0, 170)), ((-120, 110, 120), (0, 0, 170)),
+           ((60, 140, 250), (0, 0, 170))]
+
+
+def grid_scene(key: tuple):
+    """("cloud", interp): grid_cloud; ("truth", n, interp): recover_grid's
+    truth, blob_cloud rasterized onto n^3 voxels over its box (n_march 32,
+    majorant 1.3 x the largest value). Returns (scene, truth values)."""
+    from vpt_torch.media import density as dfn
+    from vpt_torch.scene.scene import Medium
+    base = SCENES["blob_cloud"]()
+    if key[0] == "cloud":
+        n, interp = 8, key[1]
+        xs = ys = np.linspace(-40, 40, n)
+        zs = np.linspace(130, 220, n)
+        pts = np.stack(np.meshgrid(xs, ys, zs, indexing="ij"), -1)
+        fld = dataclasses.replace(base.medium.density, params=(
+            base.medium.density.params.to(torch.float64)))
+        vals = dfn.density(fld, torch.from_numpy(pts)).numpy()
+        sx, sz = 80 / (n - 1), 90 / (n - 1)
+        f = dataclasses.replace(dfn.grid(
+            vals, origin=(-40 - sx / 2, -40 - sx / 2, 130 - sz / 2),
+            spacing=(sx, sx, sz), transport_interp=interp), n_march=8)
+    else:
+        _, n, interp = key
+        xs, ys, zs = (np.linspace(-28, 28, n), np.linspace(-18, 24, n),
+                      np.linspace(150, 195, n))
+        pts = np.stack(np.meshgrid(xs, ys, zs, indexing="ij"), -1)
+        vals = dfn.density(base.medium.density, torch.from_numpy(
+            pts.astype(np.float32))).numpy()
+        sp = (xs[1] - xs[0], ys[1] - ys[0], zs[1] - zs[0])
+        org = (xs[0] - sp[0] / 2, ys[0] - sp[1] / 2, zs[0] - sp[2] / 2)
+        f = dfn.grid(vals, origin=org, spacing=sp,
+                     majorant=float(vals.max()) * 1.3,
+                     transport_interp=interp)
+    return dataclasses.replace(base, medium=Medium(
+        base.medium.sigma_a, base.medium.sigma_s, 0.0, f)), vals
+
+
+def grid_k1_spec(key: tuple, integrator: str, frame: tuple) -> tuple:
+    return ("gk1", key, integrator, frame)
+
+
+def grid_pair_spec(key: tuple, diff_grid: bool, frame: tuple) -> tuple:
+    return ("gpair", key, diff_grid, frame)
+
+
+def grid_pair_inputs(key, diff_grid, frame, camera, dev) -> tuple:
+    """(packed, P-vector, table, seed, cotangent) of the grid pair."""
+    w, h, spp, mb, sampler, s = frame
+    sc, _ = grid_scene(key)
+    dp = df.pack_diff(sc, camera, w, h, spp, max_bounces=mb, sampler=sampler,
+                      diff_grid=diff_grid)
+    params = df.pack_params(sc, with_grid=diff_grid)
+    pvec = df._flatten(params, sc.count).to(dev)
+    tab = (dp.pk.table(dev) if not diff_grid
+           else vpt_torch.kernels.prims.grid_table(params["grid"].to(dev)))
+    seed = torch.tensor([s], dtype=torch.int32, device=dev)
+    gbar = torch.from_numpy(np.random.default_rng(s).standard_normal(
+        (dp.npix, 3)).astype(np.float32)).to(dev)
+    return dp, pvec, tab, seed, gbar
+
+
+def grid_plain_job(spec: tuple, dev, camera) -> tuple:
+    """A "gk1" or "gpair" job of plain_job: K1's image and work counters,
+    or the pair's image, per-pixel rows (with diff_grid the voxel gradient
+    and its terms' absolute sums), K2's counters."""
+    kind, key = spec[:2]
+    stats = {}
+    if kind == "gk1":
+        integrator, (w, h, spp, mb, sampler, s) = spec[2:]
+        nee, distance, physical = wf.KERNEL_INTEGRATORS[integrator]
+        pk = wf.pack_scene(grid_scene(key)[0], camera, w, h, spp,
+                           max_bounces=mb, sampler=sampler, nee=nee,
+                           distance=distance, physical=physical)
+        seed = torch.tensor([s], dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = wf.render_tile_plain(pk, seed, stats)
+        torch.cuda.synchronize()
+        return out.cpu().numpy(), stats, (time.perf_counter() - t0) * 1e3
+    dg, frame = spec[2:]
+    dp, pvec, tab, seed, gbar = grid_pair_inputs(key, dg, frame, camera, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = df.diff_fwd_plain(dp, pvec, seed, stats=stats, tab=tab)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    out = df.diff_bwd_plain(dp, pvec, seed, gbar, per_lane=True, tab=tab,
+                            voxel_abs=True)
+    torch.cuda.synchronize()
+    stats["plain_bwd_ms"] = (time.perf_counter() - t0) * 1e3
+    G = out[0] if dg else out
+    rest = tuple(o.cpu().numpy() for o in out[1:]) if dg else ()
+    return (img.cpu().numpy(), G.cpu().numpy(), *rest), stats, ms
+
+
+def grid_counter_frame() -> tuple:
+    w, h, spp = GRID_COUNT_FRAME
+    return (w, h, spp, MAIN_CFG["max_bounces"], MAIN_CFG["sampler"], 0)
+
+
+GRID_TIMED = [(("truth", 32, "nearest"), "explicit_free"),
+              (("truth", 16, "tri"), "explicit_free"),
+              (("truth", 16, "tri"), "implicit_free"),
+              (("truth", 16, "tri"), "explicit_equiangular"),
+              (("truth", 16, "tri"), "implicit_equiangular")]
+
+
+def grid_specs() -> list:
+    """Phase 16's plain runs."""
+    checks = [grid_k1_spec(("cloud", interp), integ,
+                           (*GRID_FRAME, sampler, 3))
+              for interp in ("tri", "nearest") for integ in GRID_K1
+              for sampler in ("ld", "random")]
+    checks += [grid_pair_spec(("cloud", interp), dg,
+                              (*GRID_FRAME, sampler, 3))
+               for interp in ("tri", "nearest") for sampler in ("ld", "random")
+               for dg in (False, True)]
+    checks += [grid_k1_spec(("truth", 16, "tri"), "explicit_free",
+                            GRID_TRAIN_FRAME),
+               grid_pair_spec(("truth", 16, "tri"), True, GRID_TRAIN_FRAME)]
+    counters = [grid_k1_spec(key, integ, grid_counter_frame())
+                for key, integ in GRID_TIMED]
+    counters.append(grid_pair_spec(("truth", 16, "tri"), True,
+                                   grid_counter_frame()))
+    return checks + counters
+
+
+def grid_march_ops(pk: wf.Packed) -> int:
+    """f32 operations of one march of the transport model (csrc/grid.cuh),
+    counted as ops_lower_bound counts: the window 34, then per segment
+    (and the head and the tail) its start, midpoint and overlap 13 plus a
+    density: trilinear 33 (3 lattice coordinates of 4, 7 lerps of 3),
+    xy-nearest 15."""
+    gc = pk.grid
+    return 34 + (gc.n_march + 2) * (13 + (15 if gc.nearest else 33))
+
+
+def grid_k1_bound(stats: dict, pk: wf.Packed, scale: float = 1.0
+                  ) -> tuple[float, str]:
+    """K1's grid bound from counters taken at another frame (scale: the
+    ratio of camera paths): the variant's operations plus a march per
+    optical depth the plain version counted; bytes: the seed and the table
+    in, the image out."""
+    ops = (variant_ops_lower_bound(stats, pk)
+           + stats["taus"] * grid_march_ops(pk)) * scale
+    t_ops = ops / PEAK_F32 * 1e3
+    t_bytes = (4.0 + 4.0 * int(np.prod(pk.grid.dims))
+               + 12.0 * pk.npix) / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def grid_pair_bound(kernel: str, stats: dict, dp: df.DiffPacked,
+                    scale: float = 1.0) -> tuple[float, str]:
+    """K2: the pair's operations plus its marches (K2's counters). K3 with
+    diff_grid replays every sample twice (two-phase), so at least twice
+    K2's operations; its scatters are not counted. Bytes: K2's or K3's
+    inputs and outputs plus the table, and K3's voxel gradient."""
+    ops = (ops_lower_bound("diff_fwd", stats, dp)
+           + stats["taus"] * grid_march_ops(dp.pk)) * scale
+    if kernel == "diff_bwd":
+        ops *= 2.0
+    T = int(np.prod(dp.pk.grid.dims))
+    by = bytes_moved(kernel, dp) + 4.0 * T * (2 if kernel == "diff_bwd"
+                                              else 1)
+    t_ops = ops / PEAK_F32 * 1e3
+    t_bytes = by / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def voxel_check(gg: torch.Tensor, gp: torch.Tensor,
+                gabs: torch.Tensor) -> tuple:
+    """(voxels over GVEC_TOL of their sum of |terms|, the largest ratio of
+    error to that sum): the kernel's atomics sum the plain version's terms
+    in another order. The atomics flush subnormal sums to zero (PTX
+    atom.add.f32), so a difference below the smallest normal f32 counts as
+    none."""
+    err = (gg - gp).abs()
+    tiny = torch.finfo(torch.float32).tiny
+    over = int((err > GVEC_TOL * gabs + tiny).sum())
+    normal = gabs >= tiny
+    ratio = float((err[normal] / gabs[normal]).max()) if normal.any() \
+        else 0.0
+    return over, ratio
+
+
+def grid_pair_vs_plain(spec, plains, camera, dev) -> dict:
+    """K2 and K3 on a grid against their plain versions: the image and
+    K3's per-pixel rows bit for bit, the summed vector within GVEC_TOL of
+    sum |G|, with diff_grid the voxel gradient per voxel within GVEC_TOL of
+    its terms' absolute sum."""
+    _, key, dg, frame = spec
+    dp, pvec, tab, s, gbar = grid_pair_inputs(key, dg, frame, camera, dev)
+    k = df.diff_fwd(dp, pvec, s, tab)
+    out = df.diff_bwd(dp, pvec, s, gbar, per_lane=True, tab=tab)
+    outs = df.diff_bwd(dp, pvec, s, gbar, tab=tab)
+    G, g = (out[0], outs[0]) if dg else (out, outs)
+    plain, pstats, p_ms = plains.get(spec, dev)
+    p, Gp = plain[:2]
+    res = dict(equal=bool(torch.equal(k, p)), err=float((k - p).abs().max()),
+               rows=bool(torch.equal(G, Gp)), q_lane=lane_q99(G, Gp),
+               over=int(((g - Gp.sum(0)).abs()
+                         > GVEC_TOL * Gp.abs().sum(0)).sum()),
+               g_err=float((g - Gp.sum(0)).abs().max()), plain_ms=p_ms,
+               plain_bwd_ms=pstats["plain_bwd_ms"],
+               finite=bool(torch.isfinite(G).all()
+                           and torch.isfinite(k).all()))
+    label = f"{frame[0]}x{frame[1]}x{frame[2]} {frame[4]} {key}"
+    msg = (f"phase 16 K2/K3 grid {label} {'diff_grid' if dg else 'baked'}: "
+           f"image bit-equal {res['equal']}, rows bit-equal {res['rows']}, "
+           f"summed entries over bound {res['over']} of {dp.P}")
+    ok = res["equal"] and res["rows"] and res["over"] == 0 and res["finite"]
+    if dg:
+        gg1 = out[1]
+        gg2 = outs[1]
+        over1, r1 = voxel_check(gg1, plain[2], plain[3])
+        over2, r2 = voxel_check(gg2, plain[2], plain[3])
+        res.update(voxel_over=over1 + over2, voxel_ratio=max(r1, r2),
+                   voxel_err=float((gg2 - plain[2]).abs().max()),
+                   voxel_finite=bool(torch.isfinite(gg2).all()))
+        msg += (f", voxels over {GVEC_TOL} of sum |terms| {over1 + over2} "
+                f"(largest err / sum |terms| {max(r1, r2):.3e})")
+        ok = ok and over1 + over2 == 0 and res["voxel_finite"]
+    print(msg, flush=True)
+    if not ok:
+        raise AssertionError(f"grid K2/K3 {label}: disagree with their plain "
+                             f"versions: {res}")
+    res.update(dp=dp, pvec=pvec, tab=tab, seed=s, gbar=gbar)
+    return res
+
+
+def crn_fd(key: tuple, frame: tuple, camera, dev) -> dict:
+    """vpt's test_diff_grid_voxel_grads_match_crn_fd on the card: the
+    voxel with the largest |gradient| at seed 11 among those whose value
+    exceeds h (v - h must stay a density: on recover_grid's truth the
+    largest gradient sits on an almost empty corner voxel, which every ray
+    past that corner reads); over 20 seeds the mean of K3's gradient there
+    against common-random-number central differences of K2 (h = 0.1):
+    |g - f| < 4 hypot(se_g, se_f) + 0.1 max(|g|, |f|)."""
+    w, h, spp, mb, sampler = frame
+    sc, _ = grid_scene(key)
+    render = df.make_diff_renderer(sc, camera, w, h, spp, max_bounces=mb,
+                                   sampler=sampler, diff_grid=True,
+                                   device="cuda")
+    base = {k: v.to(dev) for k, v in df.pack_params(sc, with_grid=True
+                                                   ).items()}
+
+    def grad(seed):
+        p = dict(base, grid=base["grid"].clone().requires_grad_())
+        render(p, seed).mean().backward()
+        return p["grid"].grad
+
+    def loss(grid, seed):
+        with torch.no_grad():
+            return float(render(dict(base, grid=grid), seed).mean())
+
+    hh, K = 0.1, 20
+    g0 = grad(11)
+    vox = np.unravel_index(int((g0.abs() * (base["grid"] > hh)).argmax()),
+                           tuple(g0.shape))
+    gs, fds = [], []
+    for k in range(K):
+        s = 4000 + k
+        gs.append(float(grad(s)[vox]))
+        pp, pm = base["grid"].clone(), base["grid"].clone()
+        pp[vox] += hh
+        pm[vox] -= hh
+        fds.append((loss(pp, s) - loss(pm, s)) / (2 * hh))
+    gm_, gse = float(np.mean(gs)), float(np.std(gs) / np.sqrt(K))
+    fm, fse = float(np.mean(fds)), float(np.std(fds) / np.sqrt(K))
+    tol = 4.0 * np.hypot(gse, fse) + 0.1 * max(abs(gm_), abs(fm))
+    res = dict(voxel=[int(v) for v in vox], grad=gm_, grad_se=gse, fd=fm,
+               fd_se=fse, tol=float(tol), met=bool(
+                   np.isfinite([gm_, fm]).all() and abs(gm_ - fm) < tol))
+    print(f"phase 16 CRN FD {w}x{h}x{spp} {sampler} {mb} bounces {key}: "
+          f"voxel {res['voxel']}: K3 {gm_:.6g} (se {gse:.3g}) against FD "
+          f"{fm:.6g} (se {fse:.3g}), |diff| {abs(gm_ - fm):.4g} < "
+          f"{tol:.4g}: {res['met']}", flush=True)
+    if not res["met"]:
+        raise AssertionError(f"voxel gradient against CRN FD: {res}")
+    return res
+
+
+def recover_grid(camera, card: str, steps: int = 150, spp: int = 8,
+                 reg_l1: float = 2e-3) -> dict:
+    """examples/recover_grid.py through the port at its defaults (n = 16,
+    6 views, 128x96 targets at 64 spp through K1, fit_grid from 0.05
+    everywhere: lr 3e-2, L1 2e-3, trilinear, free flight, seed 7) or
+    another steps / spp / reg_l1 (the round-4 setting: RG_ROUND4)."""
+    from vpt_torch.dist.tomography import _grid_scene
+    from vpt_torch.scene.camera import look_at
+    n, views, res, tspp = 16, 6, 128, 64
+    W, H = res, (res * 3) // 4
+    truth, vals_true = grid_scene(("truth", n, "tri"))
+    cams = [camera] + [look_at(o, t) for o, t in RG_CAMS][:views - 1]
+    reset_counts()
+    t0 = time.perf_counter()
+    targets = []
+    for i, c in enumerate(cams):
+        pk = wf.pack_scene(truth, c, W, H, tspp, max_bounces=8, sampler="ld")
+        targets.append(wf.render_tile(pk, torch.tensor(
+            [100 + i], dtype=torch.int32, device="cuda")).reshape(H, W, 3))
+    torch.cuda.synchronize()
+    t_targets = time.perf_counter() - t0
+    init = np.full((n, n, n), 0.05, np.float32)
+    t0 = time.perf_counter()
+    rec, losses = vpt_torch.dist.fit_grid(
+        _grid_scene(truth, torch.from_numpy(init)), cams, targets,
+        steps=steps, spp=spp, learning_rate=3e-2, max_bounces=8, seed=7,
+        reg_l1=reg_l1, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {**wf.LAUNCHES_BY, **df.LAUNCHES_BY}
+    rec = rec.cpu().numpy()
+    mae0 = float(np.abs(init - vals_true).mean())
+    mae1 = float(np.abs(rec - vals_true).mean())
+    corr = float(np.corrcoef(rec.ravel(), vals_true.ravel())[0, 1])
+    out = dict(steps=steps, spp=spp, reg_l1=reg_l1, loss_first=losses[0],
+               loss_last5=float(np.mean(losses[-5:])), mae_init=mae0,
+               mae_final=mae1, corr=corr, fit_s=dt, targets_s=t_targets,
+               launches=launches, finite=bool(np.isfinite(losses).all()
+                                              and np.isfinite(rec).all()))
+    print(f"phase 16 recover_grid (n {n}, {views} views, {W}x{H}, targets "
+          f"{tspp} spp, {steps} steps at {spp} spp, lr 3e-2, L1 {reg_l1}, "
+          f"tri, free): loss {losses[0]:.6g} -> {out['loss_last5']:.6g} "
+          f"(mean of the last 5); voxel MAE {mae0:.4f} -> {mae1:.4f}, "
+          f"corr(recovered, truth) {corr:.3f}; {dt:.3f} s fit, "
+          f"{t_targets:.3f} s targets; launches {launches} on {card}",
+          flush=True)
+    return out
+
+
+def grid_phases(card: str, dev: torch.device, camera,
+                plains: PlainPool) -> list:
+    """Phase 16; returns the grid instantiations' kernel records."""
+    t16 = time.perf_counter()
+    # -- registers: the new instantiations, the existing ones kept
+    rep = ptxas_report()
+    grid_ptxas = {}
+    for name, frag in [*((v[0], v[1]) for v in GRID_K1.values()),
+                       *((k, v[0]) for k, v in GRID_PAIR.items())]:
+        hits = [v for k, v in rep.items() if frag in k]
+        if len(hits) != 1:
+            raise AssertionError(f"ptxas reports {len(hits)} kernels for "
+                                 f"{frag}")
+        grid_ptxas[name] = hits[0]
+        print(f"phase 16 ptxas {name}: {hits[0][0]} registers, {hits[0][1]} "
+              f"B spill stores, {hits[0][2]} B stack", flush=True)
+    changed = {k: (rep.get(k), v) for k, v in EXISTING_PTXAS.items()
+               if rep.get(k) != v}
+    print(f"phase 16 ptxas of the {len(EXISTING_PTXAS)} kernels from before "
+          f"the grid: {'unchanged' if not changed else changed}", flush=True)
+    if changed:
+        raise AssertionError(f"kernels changed by the grid: {changed}")
+
+    # -- K1's grid instantiations, then K2/K3, against their plain versions
+    t0 = time.perf_counter()
+    k1_err = dict.fromkeys(GRID_K1, 0.0)
+    for spec in grid_specs():
+        if spec[0] == "gk1" and spec[3][:3] != GRID_COUNT_FRAME:
+            _, key, integ, (w, h, spp, mb, sampler, s) = spec
+            nee, distance, physical = wf.KERNEL_INTEGRATORS[integ]
+            pk = wf.pack_scene(grid_scene(key)[0], camera, w, h, spp,
+                               max_bounces=mb, sampler=sampler, nee=nee,
+                               distance=distance, physical=physical)
+            k = wf.render_tile(pk, torch.tensor([s], dtype=torch.int32,
+                                                device=dev))
+            p, _, _ = plains.get(spec, dev)
+            equal = bool(torch.equal(k, p))
+            k1_err[integ] = max(k1_err[integ], float((k - p).abs().max()))
+            print(f"phase 16 K1 grid {integ} {key} {w}x{h}x{spp} {sampler}: "
+                  f"bit-equal {equal}, mean {float(k.mean()):.6g}",
+                  flush=True)
+            if not equal or not bool(torch.isfinite(k).all()):
+                raise AssertionError(f"K1 grid {integ} {key} disagrees with "
+                                     f"its plain version")
+    pair_err = {"vpt_diff_fwd_grid": 0.0, "vpt_diff_bwd_grid": 0.0}
+    voxel = dict(over=0, ratio=0.0, err=0.0)
+    for spec in grid_specs():
+        if spec[0] == "gpair" and spec[3][:3] != GRID_COUNT_FRAME:
+            r = grid_pair_vs_plain(spec, plains, camera, dev)
+            pair_err["vpt_diff_fwd_grid"] = max(pair_err["vpt_diff_fwd_grid"],
+                                                r["err"])
+            pair_err["vpt_diff_bwd_grid"] = max(pair_err["vpt_diff_bwd_grid"],
+                                                r["g_err"])
+            if spec[2]:
+                voxel.update(over=voxel["over"] + r["voxel_over"],
+                             ratio=max(voxel["ratio"], r["voxel_ratio"]),
+                             err=max(voxel["err"], r["voxel_err"]))
+    print(f"phase 16 checks {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- the voxel gradient against CRN finite differences
+    fd = {"test_shape": crn_fd(("cloud", "tri"), (16, 12, 4, 8, "random"),
+                               camera, dev),
+          "trainer_shape": crn_fd(("truth", 16, "tri"), (128, 96, 8, 8, "ld"),
+                                  camera, dev)}
+
+    # -- timings at 1024x1024x64 "ld", default_camera
+    cfg = vpt_torch.RenderConfig(**MAIN_CFG)
+    n_paths = cfg.width * cfg.height * cfg.spp
+    wc, hc, sc_ = GRID_COUNT_FRAME
+    scale = n_paths / (wc * hc * sc_)
+    seed_t = torch.tensor([cfg.seed], dtype=torch.int32, device=dev)
+    timed = {}
+    for key, integ in GRID_TIMED:
+        scene, _ = grid_scene(key)
+        rcfg = dataclasses.replace(cfg, integrator=integ)
+        reset_counts()
+        img = vpt_torch.render(scene, camera, rcfg, device="cuda")
+        torch.cuda.synchronize()
+        launched = dict(wf.LAUNCHES_BY)
+        entry = GRID_K1[integ][0]
+        if launched != {entry: 1} or tuple(img.shape) != (
+                cfg.height, cfg.width, 3) or not bool(
+                torch.isfinite(img).all()):
+            raise AssertionError(f"grid render {integ} {key}: launches "
+                                 f"{launched}, shape {tuple(img.shape)}")
+        pk = wf.pack_config(scene, camera, rcfg)
+        ms, times = median_ms(lambda: wf.render_tile(pk, seed_t))
+        cspec = grid_k1_spec(key, integ, grid_counter_frame())
+        _, stats, p_ms = plains.get(cspec, dev)
+        pkc = wf.pack_scene(scene, camera, wc, hc, sc_,
+                            max_bounces=cfg.max_bounces, sampler=cfg.sampler,
+                            nee=pk.nee, distance=pk.distance,
+                            physical=pk.physical)
+        kc_ms, _ = median_ms(lambda: wf.render_tile(pkc, torch.tensor(
+            [0], dtype=torch.int32, device=dev)))
+        b = grid_k1_bound(stats, pk, scale)
+        timed[(key, integ)] = dict(ms=ms, launches=launched[entry], bound=b,
+                                   plain_ms=p_ms, kernel_ms_at_plain=kc_ms,
+                                   work=stats)
+        print(f"phase 16 K1 grid {integ} {key} {cfg.width}x{cfg.height}x"
+              f"{cfg.spp} {cfg.sampler}: {ms:.3f} ms (median of {times}), "
+              f"{n_paths / (ms / 1e3):.6e} camera paths/s; bound {b[0]:.3f} "
+              f"ms ({b[1]}, counters at {wc}x{hc}x{sc_} x {scale:.0f}); at "
+              f"{wc}x{hc}x{sc_} kernel {kc_ms:.3f} ms, plain {p_ms:.3f} ms "
+              f"(pooled) on {card}", flush=True)
+
+    key16 = ("truth", 16, "tri")
+    scene16, _ = grid_scene(key16)
+    render = df.make_diff_renderer(scene16, camera, cfg.width, cfg.height,
+                                   cfg.spp, max_bounces=cfg.max_bounces,
+                                   sampler=cfg.sampler, diff_grid=True,
+                                   device="cuda")
+    dp = render.packed
+    params = {k: v.to(dev).requires_grad_() for k, v in df.pack_params(
+        scene16, with_grid=True).items()}
+    reset_counts()
+    render(params, cfg.seed).mean().backward()
+    torch.cuda.synchronize()
+    launched = dict(df.LAUNCHES_BY)
+    if launched != {"vpt_diff_fwd_grid": 1, "vpt_diff_bwd_grid": 1} or \
+            not bool(torch.isfinite(params["grid"].grad).all()):
+        raise AssertionError(f"grid fwd+bwd launched {launched}")
+    gsum = float(params["grid"].grad.abs().sum())
+
+    def fwd_bwd():
+        for v in params.values():
+            v.grad = None
+        render(params, cfg.seed).mean().backward()
+
+    # the launch-counted call above is the warm-up (K3 takes seconds here)
+    pair_ms, pair_times = median_ms(fwd_bwd, warm_up=False)
+    pvec = df._flatten({k: v.detach() for k, v in params.items()},
+                       scene16.count)
+    tab = vpt_torch.kernels.prims.grid_table(params["grid"].detach())
+    gmean = torch.full((dp.npix, 3), 1.0 / (3 * dp.npix), device=dev)
+    k2_ms, k2_times = median_ms(lambda: df.diff_fwd(dp, pvec, seed_t, tab))
+    k3_ms, k3_times = median_ms(lambda: df.diff_bwd(dp, pvec, seed_t, gmean,
+                                                    tab=tab), warm_up=False)
+    T = int(np.prod(dp.pk.grid.dims))
+    smem = _build.load().vpt_diff_grid_shared_bytes(T)
+    mode = (f"shared memory ({smem} B per block, global atomics once per "
+            f"block)" if smem else "global atomics")
+    cspec = grid_pair_spec(key16, True, grid_counter_frame())
+    cplain, cstats, cp_ms = plains.get(cspec, dev)
+    dpc, pvc, tabc, sc0, gbc = grid_pair_inputs(key16, True,
+                                                grid_counter_frame(), camera,
+                                                dev)
+    k2c_ms, _ = median_ms(lambda: df.diff_fwd(dpc, pvc, sc0, tabc))
+    k3c_ms, _ = median_ms(lambda: df.diff_bwd(dpc, pvc, sc0, gbc, tab=tabc))
+    b2 = grid_pair_bound("diff_fwd", cstats, dp, scale)
+    b3 = grid_pair_bound("diff_bwd", cstats, dp, scale)
+    print(f"phase 16 grid pair diff_grid 16^3 tri {cfg.width}x{cfg.height}x"
+          f"{cfg.spp} {cfg.sampler}: launches {launched}; |grid grad| sum "
+          f"{gsum:.6g}; fwd+bwd {pair_ms:.3f} ms (median of {pair_times}), "
+          f"{n_paths / (pair_ms / 1e3):.6e} camera paths/s; K2 {k2_ms:.3f} ms"
+          f" ({k2_times}), bound {b2[0]:.3f} ms ({b2[1]}); K3 {k3_ms:.3f} ms "
+          f"({k3_times}), bound {b3[0]:.3f} ms ({b3[1]}); voxel scatter: "
+          f"{mode}; at {wc}x{hc}x{sc_}: K2 {k2c_ms:.3f} ms (plain "
+          f"{cp_ms:.3f}), K3 {k3c_ms:.3f} ms (plain "
+          f"{cstats['plain_bwd_ms']:.3f}) on {card}", flush=True)
+    del cplain
+
+    # -- examples/recover_grid.py at its defaults (vpt's round-4 setting
+    # takes another 80 s: --recover-grid 250)
+    rg = recover_grid(camera, card)
+    if not (rg["finite"] and rg["mae_final"] < rg["mae_init"]):
+        raise AssertionError(f"recover_grid: MAE {rg['mae_init']} -> "
+                             f"{rg['mae_final']}")
+    print(f"phase 16 {time.perf_counter() - t16:.1f} s", flush=True)
+
+    # -- the records
+    common = {"route": "cuda", "library_ms": None, "card": card}
+    records = []
+    for (key, integ), row in timed.items():
+        entry, _, src = GRID_K1[integ]
+        regs, spill, stack = grid_ptxas[entry]
+        records.append({
+            "name": f"{entry[4:]} {key[1]}^3 {key[2]}", **common,
+            "source": f"vpt_torch/csrc/{src}",
+            "replaces": "vpt/kernels/wavefront.py:756",
+            "launches": row["launches"], "max_abs_err": k1_err[integ],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "plain_frame": list(GRID_COUNT_FRAME), "plain_alone": False,
+            "ms_at_plain_frame": row["kernel_ms_at_plain"],
+            "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
+            "work_at_plain_frame": row["work"],
+            "ptxas": {"registers": regs, "spill_stores": spill,
+                      "stack": stack}})
+        if integ == "explicit_free" and key[1] == 16:
+            records[-1]["launches_recover_grid"] = rg["launches"].get(entry, 0)
+    for j, (entry, (_, src, repl)) in enumerate(GRID_PAIR.items()):
+        regs, spill, stack = grid_ptxas[entry]
+        rec = {
+            "name": f"{entry[4:]} 16^3 tri diff_grid", **common,
+            "source": f"vpt_torch/csrc/{src}", "replaces": repl,
+            "launches": launched[entry], "max_abs_err": pair_err[entry],
+            "ms": k2_ms if j == 0 else k3_ms, "fwd_bwd_ms": pair_ms,
+            "plain_ms": cp_ms if j == 0 else cstats["plain_bwd_ms"],
+            "plain_frame": list(GRID_COUNT_FRAME), "plain_alone": False,
+            "ms_at_plain_frame": k2c_ms if j == 0 else k3c_ms,
+            "bound_ms": (b2 if j == 0 else b3)[0],
+            "bound_by": (b2 if j == 0 else b3)[1],
+            "work_at_plain_frame": cstats,
+            "launches_recover_grid": rg["launches"].get(entry, 0),
+            "ptxas": {"registers": regs, "spill_stores": spill,
+                      "stack": stack}}
+        if j == 1:
+            rec.update(voxel_scatter=mode, voxel_check=voxel, crn_fd=fd,
+                       recover_grid=rg)
+        records.append(rec)
+    return records
+
+
 def parse_args(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the vpt_torch "
@@ -1578,6 +2231,11 @@ def parse_args(argv=None):
                          "examples/recover_fog_multiview.py's fit at its "
                          "own settings for STEPS steps (2400: the whole "
                          "example)")
+    ap.add_argument("--recover-grid", type=int, default=None,
+                    metavar="STEPS",
+                    help="the card, the build and examples/recover_grid.py "
+                         "at the round-4 setting (--spp 16 --reg-l1 2e-2) "
+                         "for STEPS steps (250: the round-4 run)")
     return ap.parse_args(argv)
 
 
@@ -1586,7 +2244,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; no result")
     plains = None
-    if args.recover_fog_multiview is None:
+    if args.recover_fog_multiview is None and args.recover_grid is None:
         plains = PlainPool(plain_specs())
     try:
         return run(args, plains)
@@ -1625,6 +2283,19 @@ def run(args, plains: PlainPool | None) -> int:
     if args.recover_fog_multiview is not None:
         res = recover_fog_multiview(camera, args.recover_fog_multiview, card)
         print(json.dumps({"recover_fog_multiview": res, "card": card}))
+        print(f"chip_smoke: partial run, {time.perf_counter() - t_start:.1f}"
+              f" s", flush=True)
+        return 0
+    if args.recover_grid is not None:
+        res = recover_grid(camera, card, **dict(RG_ROUND4,
+                                                steps=args.recover_grid))
+        res["round4_met"] = bool(res["corr"] >= 0.70
+                                 and res["mae_final"] <= 0.16)
+        print(f"recover_grid at the round-4 setting: corr {res['corr']:.3f} "
+              f"(>= 0.70), MAE {res['mae_final']:.4f} (<= 0.16): "
+              f"{'met' if res['round4_met'] else 'not met'} (vpt on a TPU "
+              f"v5e: 0.223 -> 0.138, corr 0.76)", flush=True)
+        print(json.dumps({"recover_grid": res, "card": card}))
         print(f"chip_smoke: partial run, {time.perf_counter() - t_start:.1f}"
               f" s", flush=True)
         return 0
@@ -2320,6 +2991,10 @@ def run(args, plains: PlainPool | None) -> int:
     # ---- phase 15: the HG phase in the pair, the multi-view trainer and
     # the recovery examples
     records += hg_phases(card, dev, camera, cfg, seed_t, free_ms, plains)
+    print(f"phases 1-15: {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- phase 16: voxel grids in K1 and the pair, fit_grid, recover_grid
+    records += grid_phases(card, dev, camera, plains)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

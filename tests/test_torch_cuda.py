@@ -3,7 +3,8 @@ render kernel K1 (every instantiation and its raw and scatter modes, with
 the adaptive and noise-target entry points), the differentiable pair K2/K3
 and the dual kernel K4; K1's and the pair's field instantiations on
 foggy_cornell and blob_cloud; the pair's HG instantiations (a baked g and
-the traced diff_g) and fit_multiview.
+the traced diff_g) and fit_multiview; K1's and the pair's grid
+instantiations (diff_grid's voxel gradient included) and fit_grid.
 
 Run on a machine with an NVIDIA GPU (--noconftest: tests/conftest.py
 imports jax, which the port's machines need not have):
@@ -384,3 +385,86 @@ def test_fit_multiview_goes_through_the_hg_kernels(cuda):
                               "vpt_diff_bwd_field_hg": 12}
     assert np.isfinite(losses).all()
     assert all(torch.isfinite(v).all() for v in params.values())
+
+
+def _grid_cloud(interp):
+    """blob_cloud rasterized onto an 8^3 grid, n_march 8 (vpt's grid_cloud,
+    tests/test_diff_kernel.py), through the port alone."""
+    import dataclasses
+
+    from vpt_torch.media import density as dfn
+    from vpt_torch.scene.scene import Medium
+    base = vpt_torch.SCENES["blob_cloud"]()
+    xs, zs = np.linspace(-40, 40, 8), np.linspace(130, 220, 8)
+    pts = torch.from_numpy(np.stack(np.meshgrid(xs, xs, zs, indexing="ij"),
+                                    -1))
+    fld = dataclasses.replace(base.medium.density, params=(
+        base.medium.density.params.to(torch.float64)))
+    sx, sz = 80 / 7, 90 / 7
+    f = dataclasses.replace(dfn.grid(
+        dfn.density(fld, pts).numpy(),
+        origin=(-40 - sx / 2, -40 - sx / 2, 130 - sz / 2),
+        spacing=(sx, sx, sz), transport_interp=interp), n_march=8)
+    return dataclasses.replace(base, medium=Medium(
+        base.medium.sigma_a, base.medium.sigma_s, 0.0, f))
+
+
+@pytest.mark.parametrize("interp", ["tri", "nearest"])
+@pytest.mark.parametrize("integrator", ["explicit_free", "implicit_free",
+                                        "explicit_equiangular",
+                                        "implicit_equiangular"])
+def test_grid_kernel_bit_equal_to_plain_on_card(cuda, integrator, interp):
+    nee, distance, physical = wf.KERNEL_INTEGRATORS[integrator]
+    pk = wf.pack_scene(_grid_cloud(interp), vpt_torch.default_camera(),
+                       64, 32, 8, max_bounces=8, sampler="ld", nee=nee,
+                       distance=distance, physical=physical)
+    seed = torch.tensor([3], dtype=torch.int32, device=cuda)
+    wf.LAUNCHES_BY.clear()
+    k = wf.render_tile(pk, seed)
+    assert wf.LAUNCHES_BY == {wf.GRID_ENTRIES[(nee, distance)]: 1}
+    assert torch.equal(k, wf.render_tile_plain(pk, seed))
+
+
+@pytest.mark.parametrize("interp,diff_grid", [("tri", True),
+                                              ("nearest", True),
+                                              ("tri", False)])
+def test_grid_pair_matches_plain_on_card(cuda, interp, diff_grid):
+    """K2 and K3's per-pixel rows bit for bit; the voxel gradient (atomic
+    adds in another order, subnormal sums flushed to zero) per voxel within
+    1e-5 of its terms' absolute sum."""
+    sc = _grid_cloud(interp)
+    dp = df.pack_diff(sc, vpt_torch.default_camera(), 64, 32, 8,
+                      max_bounces=8, sampler="random", diff_grid=diff_grid)
+    params = df.pack_params(sc, with_grid=diff_grid)
+    pvec = df._flatten(params, sc.count).to(cuda)
+    tab = (vpt_torch.kernels.prims.grid_table(params["grid"].to(cuda))
+           if diff_grid else None)
+    seed = torch.tensor([3], dtype=torch.int32, device=cuda)
+    gbar = torch.randn(dp.npix, 3, generator=torch.Generator().manual_seed(0)
+                       ).to(cuda)
+    assert torch.equal(df.diff_fwd(dp, pvec, seed, tab),
+                       df.diff_fwd_plain(dp, pvec, seed, tab=tab))
+    got = df.diff_bwd(dp, pvec, seed, gbar, per_lane=True, tab=tab)
+    want = df.diff_bwd_plain(dp, pvec, seed, gbar, per_lane=True, tab=tab,
+                             voxel_abs=True)
+    if not diff_grid:
+        assert torch.equal(got, want)
+        return
+    assert torch.equal(got[0], want[0])
+    tiny = torch.finfo(torch.float32).tiny
+    assert ((got[1] - want[1]).abs() <= 1e-5 * want[2] + tiny).all()
+    assert want[1].abs().max() > 0
+
+
+def test_fit_grid_goes_through_the_grid_kernels(cuda):
+    sc = _grid_cloud("tri")
+    cam = vpt_torch.default_camera()
+    targets = [torch.rand(24, 32, 3, device=cuda) for _ in range(2)]
+    df.LAUNCHES_BY.clear()
+    values, losses = vpt_torch.dist.fit_grid(
+        sc, [cam, cam], targets, steps=2, spp=2, reg_l1=2e-3, reg_tv=1e-3,
+        device="cuda")
+    assert df.LAUNCHES_BY == {"vpt_diff_fwd_grid": 8,
+                              "vpt_diff_bwd_grid": 8}
+    assert np.isfinite(losses).all() and values.is_cuda
+    assert values.min() >= 0.0

@@ -36,7 +36,8 @@ import torch
 
 import vpt_torch
 from vpt_torch.kernels import diff as df
-from test_torch_wavefront import reference_env
+from test_torch_wavefront import (REFERENCE_TIMEOUT_S, lowest_priority,
+                                 reference_env)
 
 torch.set_num_threads(1)  # one intra-op thread: see test_torch_wavefront.py
 
@@ -130,7 +131,8 @@ def vpt_reference(sampler, train):
         env = reference_env()
         res = subprocess.run([sys.executable, "-c", _JAX_REF, spec], cwd=REPO,
                              env=env, capture_output=True, text=True,
-                             timeout=600)
+                             timeout=REFERENCE_TIMEOUT_S,
+                             preexec_fn=lowest_priority)
         assert res.returncode == 0, res.stderr[-4000:]
         with np.load(job["out"]) as z:
             return {k: z[k] for k in z.files}

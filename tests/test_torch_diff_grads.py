@@ -152,9 +152,19 @@ def test_project_params_clamps_like_vpt():
         assert np.array_equal(ours[k].numpy(), np.asarray(theirs[k])), k
 
 
+def _grid_scene():
+    """cornell_vpt in a 2^3 voxel grid."""
+    return vpt_torch.make_scene(
+        list(vpt_torch.scene.scene.CORNELL_VPT_SPHERES),
+        density=vpt_torch.media.density.grid(np.ones((2, 2, 2)), (0, 0, 0),
+                                             (1, 1, 1)))
+
+
 # the traced and baked HG g run (tests/test_torch_hg_diff.py,
-# test_torch_multiview.py); their cases check what stays refused with
-# them: equi-angular, physical, material-3 shells, grids
+# test_torch_multiview.py), and so do voxel grids with diff_grid
+# (tests/test_torch_grid_diff.py); their cases check what stays refused
+# with them: equi-angular, physical, material-3 shells, an HG phase in a
+# grid, the dual kernel in a grid, vpt's engine backend of the grid trainer
 REFUSED = {
     "diff_g": lambda: df.make_diff_renderer(SCENE, CAM, 8, 4, 1, diff_g=True,
                                             distance="equiangular",
@@ -163,14 +173,19 @@ REFUSED = {
                                                 diff_field=True, device="cpu"),
     "diff_blobs": lambda: df.make_diff_renderer(SCENE, CAM, 8, 4, 1,
                                                 diff_blobs=True, device="cpu"),
-    "diff_grid": lambda: df.make_diff_renderer(SCENE, CAM, 8, 4, 1,
-                                               diff_grid=True, device="cpu"),
+    "diff_grid": lambda: df.make_diff_renderer(
+        _grid_scene(), CAM, 8, 4, 1, diff_grid=True, distance="equiangular",
+        device="cpu"),
     "equiangular": lambda: df.make_diff_renderer(
         SCENE, CAM, 8, 4, 1, distance="equiangular", device="cpu"),
     "physical": lambda: df.make_diff_renderer(SCENE, CAM, 8, 4, 1,
                                               physical=True, device="cpu"),
-    "with_g": lambda: df.pack_params(SCENE, with_g=True, with_grid=True),
-    "with_grid": lambda: df.pack_params(SCENE, with_grid=True),
+    "with_g": lambda: df.make_diff_renderer(_grid_scene(), CAM, 8, 4, 1,
+                                            diff_g=True, diff_grid=True,
+                                            device="cpu"),
+    "with_grid": lambda: vpt_torch.dist.fit_grid(
+        _grid_scene(), [CAM], [torch.zeros(4, 8, 3)], steps=1,
+        backend="engine", device="cpu"),
     "hg_scene": lambda: df.make_diff_renderer(
         vpt_torch.make_scene(list(vpt_torch.scene.scene.CORNELL_VPT_SPHERES),
                              g=0.3), CAM, 8, 4, 1, physical=True,
@@ -189,8 +204,9 @@ REFUSED = {
     "diff_blobs_fog_scene": lambda: df.make_diff_renderer(
         vpt_torch.scene.scene.foggy_cornell(), CAM, 8, 4, 1,
         diff_blobs=True, device="cpu"),
-    "grid_field": lambda: vpt_torch.media.density.grid(
-        np.ones((2, 2, 2)), (0, 0, 0), (1, 1, 1)),
+    "grid_field": lambda: vpt_torch.kernels.geom.make_geom_renderer(
+        _grid_scene(), CAM, 8, 4, 1, sphere=None, primal_only=True,
+        device="cpu"),
     "geom_fog": lambda: vpt_torch.kernels.geom.make_geom_renderer(
         vpt_torch.scene.scene.foggy_cornell(), CAM, 8, 4, 1, sphere=8,
         device="cpu"),
@@ -211,13 +227,17 @@ REFUSED_VALUES = {
         vpt_torch.scene.scene.blob_cloud(), with_field=True),
     "with_blobs_fog_scene": lambda: df.pack_params(
         vpt_torch.scene.scene.foggy_cornell(), with_blobs=True),
+    "diff_grid_without_grid": lambda: df.make_diff_renderer(
+        SCENE, CAM, 8, 4, 1, diff_grid=True, device="cpu"),
+    "with_grid_without_grid": lambda: df.pack_params(SCENE, with_grid=True),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED_VALUES))
 def test_misuse_raises_value_error(case):
     """vpt's ValueErrors: one traced field kind per scene, the scene's own
-    field kind for pack_params, and the kernels' blob cap."""
+    field kind for pack_params and diff_grid, and the kernels' blob
+    cap."""
     with pytest.raises(ValueError):
         REFUSED_VALUES[case]()
 

@@ -40,7 +40,8 @@ import torch
 import vpt_torch
 from vpt_torch.kernels import geom as gm
 from vpt_torch.scene.scene import CORNELL_VPT_SPHERES
-from test_torch_wavefront import reference_env
+from test_torch_wavefront import (REFERENCE_TIMEOUT_S, lowest_priority,
+                                 reference_env)
 
 torch.set_num_threads(1)  # one intra-op thread: see test_torch_wavefront.py
 
@@ -184,7 +185,8 @@ def vpt_reference(tasks, inputs):
         env = reference_env()
         res = subprocess.run([sys.executable, "-c", _JAX_REF, spec],
                              cwd=REPO, env=env, capture_output=True,
-                             text=True, timeout=1200)
+                             text=True, timeout=REFERENCE_TIMEOUT_S,
+                             preexec_fn=lowest_priority)
         assert res.returncode == 0, res.stderr[-4000:]
         with np.load(job["out"]) as z:
             return {k: z[k] for k in z.files}

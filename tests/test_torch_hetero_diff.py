@@ -43,7 +43,8 @@ import torch
 import vpt_torch
 from vpt_torch.kernels import diff as df
 from vpt_torch.scene.io import scene_to_dict
-from test_torch_wavefront import reference_env
+from test_torch_wavefront import (REFERENCE_TIMEOUT_S, lowest_priority,
+                                 reference_env)
 
 torch.set_num_threads(1)  # one intra-op thread: see test_torch_wavefront.py
 
@@ -162,7 +163,8 @@ def ref():
         env = reference_env()
         res = subprocess.run([sys.executable, "-c", _JAX_REF, spec], cwd=REPO,
                              env=env, capture_output=True, text=True,
-                             timeout=900)
+                             timeout=REFERENCE_TIMEOUT_S,
+                             preexec_fn=lowest_priority)
         assert res.returncode == 0, res.stderr[-4000:]
         out = {}
         for job, spec_j in zip(JOBS, jobs):

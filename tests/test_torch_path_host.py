@@ -1,8 +1,8 @@
 """The CUDA kernels' per-path code, built for the host, against the plain
 versions.
 
-csrc/path.cuh, csrc/diff_path.cuh and csrc/geom_path.cuh are
-__host__ __device__. Here g++
+csrc/path.cuh (with field.cuh and grid.cuh), csrc/diff_path.cuh and
+csrc/geom_path.cuh are __host__ __device__. Here g++
 compiles them through the test-only shim csrc/path_host.cpp (a loop over
 pixels in place of the CUDA grid), with FMA contraction off as nvcc builds
 the kernels (--fmad=false). Images are held against the plain versions at
@@ -13,7 +13,10 @@ vectors are held against diff_bwd_plain's per-lane rows by the same
 criterion, per entry column: quantile over lanes of the largest
 |a-b| / max(1, |column|max) below 1e-4. K4's planes (geom_pixel<K>) are
 held against geom_fwd_plain's: the image planes by the image criterion,
-each tangent plane by q99 of |a-b| below 1e-4 of the plane's scale. This
+each tangent plane by q99 of |a-b| below 1e-4 of the plane's scale. The
+grid pair's voxel gradient (diff_grid) is held to the plain version's by
+q99 over voxels of |a-b| below 1e-4 of max(1, the largest voxel's sum of
+|terms|). This
 catches a fault in the kernels' path code where there is no card; the card
 itself is checked by chip_smoke.py and tests/test_torch_cuda.py.
 """
@@ -31,8 +34,12 @@ import torch
 import vpt_torch
 from vpt_torch.kernels import diff as df
 from vpt_torch.kernels import geom as gm
+from vpt_torch.kernels import prims as tp
 from vpt_torch.kernels import wavefront as wf
 from vpt_torch.scene.io import scene_from_dict, scene_to_dict
+
+from test_torch_grid import port_scene
+from test_torch_wavefront import REFERENCE_TIMEOUT_S, lowest_priority
 
 torch.set_num_threads(1)  # one intra-op thread: see test_torch_wavefront.py
 
@@ -47,7 +54,7 @@ def host_lib():
     if cxx is None:
         pytest.skip("g++ not found: the host build of csrc/path.cuh needs it")
     srcs = [os.path.join(CSRC, f)
-            for f in ("path_host.cpp", "path.cuh", "field.cuh",
+            for f in ("path_host.cpp", "path.cuh", "field.cuh", "grid.cuh",
                       "diff_path.cuh", "geom_path.cuh")]
     h = hashlib.sha256(" ".join(FLAGS).encode())
     for p in srcs:
@@ -59,7 +66,9 @@ def host_lib():
     if not os.path.exists(lib):
         tmp = f"{lib}.{os.getpid()}.tmp"
         res = subprocess.run([cxx, *FLAGS, "-o", tmp, srcs[0]],
-                             capture_output=True, text=True, timeout=300)
+                             capture_output=True, text=True,
+                             timeout=REFERENCE_TIMEOUT_S,
+                             preexec_fn=lowest_priority)
         assert res.returncode == 0, res.stderr
         os.replace(tmp, lib)
     so = ctypes.CDLL(lib)
@@ -70,6 +79,14 @@ def host_lib():
                                    ctypes.c_int, ctypes.c_int,
                                    ctypes.c_void_p]
     so.vpt_render_host.restype = ctypes.c_int
+    so.vpt_render_grid_host.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                        ctypes.c_int, ctypes.c_void_p,
+                                        ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_void_p, ctypes.c_void_p]
+    so.vpt_render_grid_host.restype = ctypes.c_int
+    so.vpt_diff_grid_host.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] \
+        + [ctypes.c_void_p] * 4
+    so.vpt_diff_grid_host.restype = None
     so.vpt_diff_params_words.argtypes = []
     so.vpt_diff_params_words.restype = ctypes.c_int
     so.vpt_diff_fwd_host.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
@@ -118,6 +135,13 @@ def _host_render(host_lib, pk, bases=None, n_lanes=None, sums=0):
     n_lanes = pk.npix if n_lanes is None else n_lanes
     out = np.full((n_lanes, 3), np.nan, np.float32)
     b = None if bases is None else np.ascontiguousarray(bases, np.int32)
+    if pk.grid is not None:
+        tab = np.ascontiguousarray(pk.grid.tab.numpy())
+        assert host_lib.vpt_render_grid_host(
+            words.ctypes.data, HOST_VARIANT[(pk.nee, pk.distance)], SEED,
+            None if b is None else b.ctypes.data, n_lanes, sums,
+            tab.ctypes.data, out.ctypes.data) == 0
+        return out
     variant = HOST_VARIANT[(pk.nee, pk.distance)] + (
         0 if pk.field is None else FIELD_VARIANT)
     assert host_lib.vpt_render_host(
@@ -195,6 +219,82 @@ def test_host_build_of_field_variant_matches_plain(host_lib, case):
     out = _host_render(host_lib, pk)
     ref = wf.render_tile_plain(pk, torch.tensor([SEED], dtype=torch.int32))
     _assert_q99(out, ref.numpy())
+
+
+# K1's grid instantiations (render_pixel<..., kGridField>), both transport
+# interpolants: (integrator, interpolant, sampler)
+GRID_CASES = [("explicit_free", "tri", "ld"), ("explicit_free", "nearest",
+                                                "random"),
+              ("implicit_free", "tri", "random"),
+              ("explicit_equiangular", "nearest", "ld"),
+              ("explicit_equiangular", "tri", "random"),
+              ("implicit_equiangular", "tri", "ld")]
+
+
+@pytest.mark.parametrize("case", GRID_CASES,
+                         ids=["-".join(c) for c in GRID_CASES])
+def test_host_build_of_grid_variant_matches_plain(host_lib, case):
+    """csrc/grid.cuh in K1: the free flight's march (the inverted distance
+    and the surface's tau), the shadow rays' marches, the equi-angular
+    signed tau with its reverse march, sigma_s(xt) trilinear."""
+    integrator, interp, sampler = case
+    nee, distance, physical = wf.KERNEL_INTEGRATORS[integrator]
+    scene, cam = port_scene(interp)
+    pk = wf.pack_scene(scene, cam, W, H, SPP, max_bounces=MB,
+                       sampler=sampler, nee=nee, distance=distance,
+                       physical=physical)
+    out = _host_render(host_lib, pk)
+    ref = wf.render_tile_plain(pk, torch.tensor([SEED], dtype=torch.int32))
+    _assert_q99(out, ref.numpy())
+
+
+# the grid pair: diff_grid (both interpolants, both samplers) and the baked
+# grid: (interpolant, sampler, diff_grid)
+GRID_DIFF_CASES = [("tri", "ld", True), ("nearest", "random", True),
+                   ("tri", "random", False)]
+
+
+@pytest.mark.parametrize("case", GRID_DIFF_CASES, ids=[
+    f"{c[0]}-{c[1]}-{'diff_grid' if c[2] else 'baked'}"
+    for c in GRID_DIFF_CASES])
+def test_host_build_of_grid_pair_matches_plain(host_lib, case):
+    """diff_pixel<kGrads, kGridField>: the grid's sigma scores and
+    transmittances, and with diff_grid the two-phase replay and the voxel
+    scatter (plain adds here, atomics on the card)."""
+    interp, sampler, dg = case
+    scene, cam = port_scene(interp)
+    dp = df.pack_diff(scene, cam, W, H, SPP, max_bounces=MB, sampler=sampler,
+                      diff_grid=dg)
+    words = np.ascontiguousarray(dp.words())
+    assert words.size == host_lib.vpt_diff_params_words()   # struct layout
+    params = df.pack_params(scene, with_grid=dg)
+    pvec = df._flatten(params, scene.count).contiguous()
+    tab = tp.grid_table(scene.medium.density.params)
+    seed = torch.tensor([SEED], dtype=torch.int32)
+    out = np.full((W * H, 3), np.nan, np.float32)
+    host_lib.vpt_diff_grid_host(words.ctypes.data, pvec.data_ptr(), SEED,
+                                None, tab.data_ptr(), out.ctypes.data, None)
+    _assert_q99(out, df.diff_fwd_plain(dp, pvec, seed, tab=tab).numpy())
+    gbar = np.random.default_rng(0).standard_normal((W * H, 3)).astype(
+        np.float32)
+    G = np.full((W * H, dp.P), np.nan, np.float32)
+    gg = np.zeros(int(np.prod(dp.pk.grid.dims)), np.float32)
+    host_lib.vpt_diff_grid_host(words.ctypes.data, pvec.data_ptr(), SEED,
+                                gbar.ctypes.data, tab.data_ptr(),
+                                G.ctypes.data, gg.ctypes.data if dg else None)
+    ref = df.diff_bwd_plain(dp, pvec, seed, torch.from_numpy(gbar),
+                            per_lane=True, tab=tab, voxel_abs=True)
+    Gp = (ref[0] if dg else ref).numpy()
+    assert np.isfinite(G).all()
+    rel = (np.abs(G - Gp) / np.maximum(1.0, np.abs(Gp).max(0))).max(1)
+    assert np.quantile(rel, 0.99) < 1e-4, np.quantile(rel, 0.99)
+    if dg:
+        want, gabs = ref[1].numpy().reshape(-1), ref[2].numpy()
+        assert np.isfinite(gg).all() and np.abs(want).max() > 0
+        rel = np.abs(gg - want) / max(1.0, float(gabs.max()))
+        assert np.quantile(rel, 0.99) < 1e-4, np.quantile(rel, 0.99)
+    else:
+        assert not gg.any()
 
 
 def test_host_build_of_scatter_matches_plain(host_lib):

@@ -29,7 +29,6 @@ from vpt_torch import cli
 from vpt_torch.core.vecmath import to_display_value
 from vpt_torch.kernels import geom as gm
 from vpt_torch.kernels import wavefront as wf
-from vpt_torch.media import density as tdensity
 from vpt_torch.scene import scene as tscene
 from vpt_torch.scene.io import scene_from_dict, scene_to_dict
 
@@ -209,17 +208,20 @@ UNSUPPORTED = {
     "float64": lambda: _render(dtype="float64"),
     "renderer_persistent": lambda: vpt_torch.RenderConfig(renderer="persistent"),
     "renderer_scan": lambda: vpt_torch.RenderConfig(renderer="scan"),
-    # the analytic fields render (tests/test_torch_hetero.py); the dual
-    # kernel's field forms (item 5) and voxel grids (item 7) do not
+    # the density fields render in K1 (tests/test_torch_hetero.py,
+    # test_torch_grid.py), the dual kernel's field forms do not (item 5),
+    # not even for a grid loaded from vpt's scene file in primal mode
     "foggy_cornell": lambda: gm.pack_geom(
         tscene.foggy_cornell(), vpt_torch.default_camera(), 8, 4, 1,
         sphere=8),
-    "blob_cloud": lambda: tdensity.grid(np.ones((2, 2, 2)), (0, 0, 0),
-                                        (1, 1, 1)),
-    "density_file": lambda: scene_from_dict(vpt_scene_to_dict(
+    "blob_cloud": lambda: gm.pack_geom(
+        tscene.blob_cloud(), vpt_torch.default_camera(), 8, 4, 1, sphere=None,
+        primal_only=True),
+    "density_file": lambda: gm.pack_geom(scene_from_dict(vpt_scene_to_dict(
         dataclasses.replace(vpt.cornell_vpt(), medium=dataclasses.replace(
             vpt.cornell_vpt().medium, density=vpt_density.grid(
-                np.ones((2, 2, 2)), (0, 0, 0), (1, 1, 1)))))),
+                np.ones((2, 2, 2)), (0, 0, 0), (1, 1, 1))))))[0],
+        vpt_torch.default_camera(), 8, 4, 1, sphere=None, primal_only=True),
 }
 
 

@@ -16,7 +16,10 @@
 // mode) csrc/diff_hg.cu (homogeneous) and csrc/diff_field_hg_fwd.cu,
 // csrc/diff_field_hg_bwd.cu. The field and the phase are compile-time
 // parameters so that the isotropic homogeneous kernels keep their code and
-// their accumulators (K3 already spills there).
+// their accumulators (K3 already spills there). A voxel grid runs in
+// csrc/diff_grid_fwd.cu and diff_grid_bwd.cu (kField = kGridField, no HG
+// phase), whose kernels read the grid's packed table; with diff_grid (a
+// launch parameter) K3 also writes the voxel gradient.
 //
 // The parameter vector pvec (float32[P], P = 2 + 6S [+ 1 g] + n_fp) lives in device
 // memory, so a training step never copies parameters to the host or
@@ -33,6 +36,13 @@
 // partials[n_blocks, P]. The wrapper sums the rows in torch, as vpt sums its
 // per-tile rows outside the kernel (diff.py:1336). No float atomics, so the
 // gradient is the same from run to run.
+//
+// The voxel gradient (K3 with diff_grid) is the exception: each thread adds
+// its terms with atomicAdd, into a per-block accumulator of the grid's size
+// in shared memory when it fits (the kernel opts in above 48 KB; 32^3 is 128
+// KB), flushed once per block with global atomicAdd, or straight into the
+// global buffer above that. Its sum order varies from run to run, so it is
+// held to its plain version to a tolerance, not bit for bit.
 //
 // What bounds them on this card: arithmetic and divergence, as for K1. K2
 // reads 4P bytes and writes 12 bytes per pixel; K3 reads the 12-byte
@@ -177,6 +187,95 @@ int launch_bwd(const void* params, const void* pvec, const void* seed, const voi
       D, (const float*)pvec, (const int*)seed, (const float*)gbar, (float*)partials,
       (float*)per_lane);
   return (int)cudaGetLastError();
+}
+
+}  // namespace vpt_diff
+
+namespace vpt_diff {
+
+// ---- a voxel grid (csrc/diff_grid_fwd.cu, diff_grid_bwd.cu) ---------------
+
+// templates, so that only the sources that launch them (csrc/diff_grid_*.cu)
+// compile them; kField is vpt::kGridField
+template <int kField>
+__global__ void __launch_bounds__(kThreads)
+    grid_fwd_kernel(const __grid_constant__ DiffParams D, const float* __restrict__ pvec,
+                    const int* __restrict__ seed, float* __restrict__ out,
+                    const uint32_t* __restrict__ tab) {
+  __shared__ float pv[VPT_MAX_PARAMS];
+  const FieldParams& F = stage<false>(D, pvec, pv);
+  const int npix = D.base.width * D.base.height;
+  const int pixel = blockIdx.x * kThreads + threadIdx.x;
+  if (pixel >= npix) return;
+  float L[3];
+  vpt::diff_pixel<false, kField, false>(D, pv, F, pixel, seed[0], nullptr, L, nullptr, tab);
+  out[3 * pixel + 0] = L[0];
+  out[3 * pixel + 1] = L[1];
+  out[3 * pixel + 2] = L[2];
+}
+
+// ggrid: NULL (no diff_grid) or device float32[T], T = nx ny nz, zeroed by
+// the caller; shared: accumulate each block's voxel terms in dynamic shared
+// memory of T floats first
+template <int kField>
+__global__ void __launch_bounds__(kThreads)
+    grid_bwd_kernel(const __grid_constant__ DiffParams D, const float* __restrict__ pvec,
+                    const int* __restrict__ seed, const float* __restrict__ gbar,
+                    float* __restrict__ partials, float* __restrict__ per_lane,
+                    const uint32_t* __restrict__ tab, float* __restrict__ ggrid, int shared) {
+  constexpr int kMaxP = VPT_MAX_PARAMS;
+  __shared__ float pv[kMaxP];
+  __shared__ float warp_sum[kWarps][kMaxP];
+  extern __shared__ float sgrid[];
+  const FieldParams& F = stage<false>(D, pvec, pv);
+  const int P = D.n_params;
+  const int T = D.base.grid.n[0] * D.base.grid.n[1] * D.base.grid.n[2];
+  float* acc = ggrid;
+  if (ggrid != nullptr && shared) {
+    for (int k = threadIdx.x; k < T; k += kThreads) sgrid[k] = 0.0f;
+    __syncthreads();
+    acc = sgrid;
+  }
+  const int npix = D.base.width * D.base.height;
+  const int pixel = blockIdx.x * kThreads + threadIdx.x;
+  float g[kMaxP];
+  if (pixel < npix) {
+    vpt::diff_pixel<true, kField, false>(D, pv, F, pixel, seed[0], gbar + 3 * pixel, nullptr, g,
+                                         tab, acc);
+    if (per_lane != nullptr)
+      for (int k = 0; k < P; ++k) per_lane[(size_t)pixel * P + k] = g[k];
+  } else {
+    for (int k = 0; k < P; ++k) g[k] = 0.0f;
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int k = 0; k < P; ++k) {
+    float v = g[k];
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) warp_sum[warp][k] = v;
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < P; k += kThreads) {
+    float s = warp_sum[0][k];
+    for (int w = 1; w < kWarps; ++w) s += warp_sum[w][k];
+    partials[(size_t)blockIdx.x * P + k] = s;
+  }
+  if (ggrid != nullptr && shared) {  // flush the block's voxel terms
+    for (int k = threadIdx.x; k < T; k += kThreads) {
+      const float v = sgrid[k];
+      if (v != 0.0f) atomicAdd(ggrid + k, v);
+    }
+  }
+}
+
+// A DiffParams of a grid's pair: a grid, no analytic field, no traced field
+// parameter, no HG phase
+inline bool read_grid_params(const void* params, DiffParams& D) {
+  memcpy(&D, params, sizeof D);
+  const GridParams& G = D.base.grid;
+  return G.n[0] >= 2 && G.n[1] >= 2 && G.n[2] >= 2 && G.n_march >= 1 &&
+         D.base.field.kind == 0 && D.n_fp == 0 && D.hg_mode == 0 && D.n_params > 0 &&
+         D.n_params <= VPT_MAX_PARAMS && D.n_params == vpt::field_slot0(D);
 }
 
 }  // namespace vpt_diff

@@ -4,9 +4,10 @@
 //
 // Thread-scalar transcription of vpt/kernels/diff.py:290-1251 for the
 // free-flight NEE estimator (nee, distance "free", not physical), no
-// material-3 shells, samplers "random" and "ld", in a homogeneous medium or
-// (kField) an analytic density field with vpt's diff_field / diff_blobs
-// traced parameters, with an isotropic phase or (kHG) a Henyey-Greenstein
+// material-3 shells, samplers "random" and "ld", in a homogeneous medium,
+// (kField == kAnalytic) an analytic density field with vpt's diff_field /
+// diff_blobs traced parameters or (kGridField) a voxel grid, its voxel
+// gradient with diff_grid, with an isotropic phase or (kHG) a Henyey-Greenstein
 // one at the scene's baked g or at vpt's traced diff_g. It reuses
 // csrc/path.cuh's primitives and its parity rules (uint32
 // PCG, every draw in vpt's order, no FMA contraction), and follows diff.py's
@@ -50,6 +51,7 @@ struct DiffParams {
   int n_fp;        // traced field-parameter slots (0, 1 or 5K)
   int fp_kind;     // 0 none, kFpFogK, kFpBlobs
   int hg_mode;     // 0 isotropic, kHgBaked (the scene's g), kHgTraced (diff_g)
+  int diff_grid;   // 1: K3 also returns the voxel gradient (a grid's pair)
 };
 
 namespace vpt {
@@ -130,17 +132,22 @@ VPT_HD Attr attrs_p(const VptParams& P, const float* pv, int sid) {
 // With kGrads: dsig = d/dsigma_t of the light-strategy transmittances,
 // dalb = d/dalbedo, drad[e] = d/dradiance of MIS light e, dle = d/d(hit
 // radiance) of the BSDF strategy, sid2 its hit sphere. kField: the light
-// strategy's transmittance through the field F, and with n_fp traced slots
-// dk[f] = d/d(slot f) of the light strategy.
-template <bool kGrads, bool kField>
+// strategy's transmittance through the field F (kAnalytic), with n_fp traced
+// slots dk[f] = d/d(slot f) of the light strategy, or through the grid
+// P.grid and its table tab (kGridField). gg (a grid with diff_grid): each
+// light strategy's voxel terms, the transmittance's -sigma_t dI/dv times
+// sum_i wtp[i] term[i], are scattered into gg.
+template <bool kGrads, int kField>
 VPT_HD void diff_mis_v2(const VptParams& P, const float* pv, const FieldParams& F, int fp_kind,
                         int n_fp, float sigma_t, Pcg& rng, const Attr& at, V3 xs, V3 n, V3 d,
                         float acc[3], float dsig[3], float dalb[3], float dle[3],
-                        float drad[][3], float dk[][3], int& sid2) {
+                        float drad[][3], float dk[][3], int& sid2,
+                        const uint32_t* tab = nullptr, float* gg = nullptr,
+                        const float* wtp = nullptr) {
   const int rad0 = 2 + 3 * P.n_spheres;
   const bool is_lam = !at.is_mic && !at.is_die;
   for (int i = 0; i < 3; ++i) acc[i] = dsig[i] = dalb[i] = 0.0f;
-  if constexpr (kGrads && kField)
+  if constexpr (kGrads && kField == kAnalytic)
     for (int f = 0; f < n_fp; ++f) dk[f][0] = dk[f][1] = dk[f][2] = 0.0f;
   V3 wo = neg3(d);
   for (int j = 0; j < P.n_mis; ++j) {
@@ -162,7 +169,9 @@ VPT_HD void diff_mis_v2(const VptParams& P, const float* pv, const FieldParams& 
     float fpdf_inv = TWO_PI * vmax(1.0f - cos_max, 1e-12f);
     // the optical path per unit sigma_t (the distance when homogeneous)
     float att;
-    if constexpr (kField)
+    if constexpr (kField == kGridField)
+      att = grid_tau(P.grid, tab, 1.0f, xs, wc, normcx, true);
+    else if constexpr (kField == kAnalytic)
       att = field_tau(F, 1.0f, xs, wc, normcx);
     else
       att = normcx;
@@ -170,6 +179,7 @@ VPT_HD void diff_mis_v2(const VptParams& P, const float* pv, const FieldParams& 
     float w_vis = visible ? tr * dot3(n, wi) * fpdf_inv : 0.0f;
     float gpdf = bsdf_pdf_for_dir(at, n, wo, wi, rng.next());
     float wf = power_h_invf(fpdf_inv, gpdf);
+    float w_sc = 0.0f;
     for (int i = 0; i < 3; ++i) {
       float re = pv[rad0 + 3 * e + i];
       float term = re * fr[i] * w_vis * wf;
@@ -178,9 +188,12 @@ VPT_HD void diff_mis_v2(const VptParams& P, const float* pv, const FieldParams& 
         dsig[i] = dsig[i] + term * (-att);
         dalb[i] = dalb[i] + (is_lam ? re * w_vis * wf * INV_PI : 0.0f);
         drad[e][i] = fr[i] * w_vis * wf;
+        if constexpr (kField == kGridField) w_sc = i == 0 ? wtp[0] * term : w_sc + wtp[i] * term;
       }
     }
-    if constexpr (kGrads && kField) {
+    if constexpr (kGrads && kField == kGridField)
+      if (gg != nullptr) grid_march_scatter(P.grid, xs, wc, -sigma_t * w_sc, normcx, 0.0f, 0.0f, gg);
+    if constexpr (kGrads && kField == kAnalytic) {
       if (n_fp > 0) {  // d(tr)/dtheta = tr (-sigma_t dI/dtheta)
         float dIs[VPT_MAX_FP];
         fp_dI(F, fp_kind, xs, wc, normcx, dIs);
@@ -271,11 +284,11 @@ VPT_HD void diff_mis_v2(const VptParams& P, const float* pv, const FieldParams& 
 // and the shadow distance t_sh. kHG: the phase toward wl from the incoming
 // direction d at the baked g, or at the traced g gph with dlogp = d/dg log
 // phase (the pathwise dL/dg factor of this NEE value)
-template <bool kField, bool kHG>
+template <int kField, bool kHG>
 VPT_HD void diff_medium_nee(const VptParams& P, const FieldParams& F, float sigma_t, int hg_mode,
                             float gph, V3 d, V3 xt, V3 lc, const float lrad[3], float lr,
                             int lid, float u1, float u2, float out[3], float& w, float& att,
-                            V3& wl, float& t_sh, float& dlogp) {
+                            V3& wl, float& t_sh, float& dlogp, const uint32_t* tab = nullptr) {
   V3 wc = sub3(lc, xt);
   float inv_mag = vrsqrt(vmax(dot3(wc, wc), 1e-20f));
   V3 wc_n = scale3(wc, inv_mag);
@@ -285,7 +298,9 @@ VPT_HD void diff_medium_nee(const VptParams& P, const FieldParams& F, float sigm
   float t;
   int sid = nearest_id_t(P, xt, wl, t);
   bool visible = sid >= 0 && sid == lid && lr > 0.0f;
-  if constexpr (kField)
+  if constexpr (kField == kGridField)
+    att = grid_tau(P.grid, tab, 1.0f, xt, wl, t, true);
+  else if constexpr (kField == kAnalytic)
     att = field_tau(F, 1.0f, xt, wl, t);
   else
     att = t;
@@ -312,7 +327,7 @@ VPT_HD void diff_medium_nee(const VptParams& P, const FieldParams& F, float sigm
 // (alive and need stay false, every accumulation is gated on shade, medium,
 // credit or finished), so nothing more reaches L or the gradient.
 //
-// kField: the medium's density field F (csrc/diff_kernel.cuh stages it, with
+// kField == kAnalytic: the medium's density field F (csrc/diff_kernel.cuh stages it, with
 // the traced parameters' constants from pv). Its free flight is K1's (the
 // same draws; an escaped flight kills the lane), every transmittance and
 // sigma score takes the field's optical paths per unit sigma, and the n_fp
@@ -324,9 +339,22 @@ VPT_HD void diff_medium_nee(const VptParams& P, const FieldParams& F, float sigm
 // u_p2. With the traced g, K3 gains the pathwise NEE term gx * dlogp and the
 // phase-draw score as a deferred pair (A_g, B_g), folded as A_g L - B_g into
 // slot IG.
-template <bool kGrads, bool kField = false, bool kHG = false>
+//
+// kField == kGridField: a voxel grid (D.base.grid, its packed table tab). The
+// free flight is K1's march (grid_sample_free_and_tau, no extra draw), and
+// the sigma scores take its optical paths: I(t) = tau(t)/sigma_t at the
+// surface, I(d) = -log1p(-u)/sigma_t at the sampled distance, exactly. With
+// gg (K3 with diff_grid) each sample runs twice from the same PCG state
+// (vpt's two-phase replay, vpt/kernels/diff.py:600-617, 1115-1126): phase A
+// with the cotangent zeroed learns the sample's weighted total wLtot, phase
+// B replays it and adds every gradient term, the voxel scatters into gg
+// among them (the free-flight event scores against wLtot, the pathwise
+// transmittance terms of pLight, medium NEE and the MIS light strategy);
+// the iteration cap doubles.
+template <bool kGrads, int kField = kHomogeneous, bool kHG = false>
 VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& F, int pixel,
-                       int seed, const float* gbar, float out[3], float* gout) {
+                       int seed, const float* gbar, float out[3], float* gout,
+                       const uint32_t* tab = nullptr, float* gg = nullptr) {
   const VptParams& P = D.base;
   const int S = P.n_spheres;
   const int rad0 = 2 + 3 * S;
@@ -340,7 +368,8 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
   const float inv_ps = P.n_em_f;
   const float inv_cp = P.inv_cp;
   // the traced field-parameter slots and delta tracking's step scale
-  const int n_fp = kField ? D.n_fp : 0;
+  constexpr bool kAnalyticField = kField == kAnalytic;
+  const int n_fp = kAnalyticField ? D.n_fp : 0;
   const int fp_kind = D.fp_kind;
   const int IG = 2 + 6 * S;
   const int IK = kHG ? field_slot0(D) : IG;
@@ -348,8 +377,10 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
   const bool traced_g = kHG && hg_mode == kHgTraced;
   const float gph = traced_g ? pv[IG] : 0.0f;
   float inv_mr = 0.0f;
-  if constexpr (kField) inv_mr = 1.0f / (sigma_t * F.maj);
-  constexpr int kFp = (kGrads && kField) ? VPT_MAX_FP : 1;
+  if constexpr (kAnalyticField) inv_mr = 1.0f / (sigma_t * F.maj);
+  constexpr int kFp = (kGrads && kAnalyticField) ? VPT_MAX_FP : 1;
+  // vpt's two-phase replay (K3 with diff_grid)
+  const bool two_phase = kGrads && kField == kGridField && gg != nullptr;
 
   const float px = (float)(pixel % P.width);
   const float py = (float)(P.height - 1 - pixel / P.width);
@@ -375,7 +406,7 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
   // deferred event-score pairs; gv[IG] the traced g's immediate terms,
   // A_g / B_g its phase-draw scores)
   float A_g = 0.0f, B_g = 0.0f;
-  float gv[kGrads ? VPT_MAX_PARAMS + (kHG ? 1 : 0) + (kField ? VPT_MAX_FP : 0) : 1];
+  float gv[kGrads ? VPT_MAX_PARAMS + (kHG ? 1 : 0) + (kAnalyticField ? VPT_MAX_FP : 0) : 1];
   float A_alb[kGrads ? VPT_MAX_SPHERES : 1][3], B_alb[kGrads ? VPT_MAX_SPHERES : 1][3];
   float A_fp[kFp], B_fp[kFp];
   if constexpr (kGrads) {
@@ -392,8 +423,25 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
   float Lps[3] = {0.0f, 0.0f, 0.0f};  // the current sample's radiance prefix
   bool alive = false;
   int depth = 0, samples = 0;
+  // the two-phase replay's state: the phase (B: replaying), the PCG state
+  // at the sample's start, the sample's weighted total; wl is the cotangent
+  // this iteration's terms use (zero in phase A)
+  bool phB = false;
+  uint32_t rng_save = 0u;
+  float wLtot = 0.0f;
+  float wl[3] = {wt[0], wt[1], wt[2]};
+  const int iters = two_phase ? 2 * P.max_iters : P.max_iters;
 
-  for (int it = 0; it < P.max_iters && samples < P.spp; ++it) {
+  for (int it = 0; it < iters && samples < P.spp; ++it) {
+    if (two_phase) {
+      if (!alive) {  // a sample starts: phase A saves its stream, B replays it
+        if (phB)
+          rng.s = rng_save;
+        else
+          rng_save = rng.s;
+      }
+      for (int i = 0; i < 3; ++i) wl[i] = phB ? wt[i] : 0.0f;
+    }
     float u = 0.5f, v = 0.5f;
     if (P.ld && P.jitter) {
       float s_f = (float)samples;
@@ -446,8 +494,10 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
       lr = P.r[lid];
     }
 
-    float d_s;
-    if constexpr (kField)
+    float d_s, tau_cap = 0.0f;
+    if constexpr (kField == kGridField)
+      d_s = grid_sample_free_and_tau(P.grid, tab, sigma_t, o, d, u_dist, t_eff, tau_cap);
+    else if constexpr (kAnalyticField)
       d_s = field_sample_free(F, sigma_t, inv_mr, o, d, u_dist, rng, t_eff);
     else
       d_s = -log1pf(-u_dist) * inv_st;
@@ -459,7 +509,13 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
     if constexpr (kGrads) {
       // free-flight score vs the L-prefix before this bounce
       float k_sc;
-      if constexpr (kField) {
+      if constexpr (kField == kGridField) {
+        // p(d) = sigma_t rho_pc(d) e^{-sigma_t I(d)}, rho_pc independent of
+        // sigma: both optical paths come from the sampling march
+        const float I_surf = tau_cap * inv_st;
+        const float I_med = -log1pf(-u_dist) * inv_st;
+        k_sc = shade_pre ? -I_surf : (medium ? inv_st - I_med : 0.0f);
+      } else if constexpr (kAnalyticField) {
         // dlog p/dsigma = 1/sigma_t - I(d) (medium) | -I(t) (surface), I
         // the optical path per unit sigma
         if (shade_pre)
@@ -471,10 +527,27 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
       } else {
         k_sc = shade_pre ? -t_eff : (medium ? inv_st - d_s : 0.0f);
       }
-      float wL0 = wt[0] * Lps[0] + wt[1] * Lps[1] + wt[2] * Lps[2];
+      float wL0 = wl[0] * Lps[0] + wl[1] * Lps[1] + wl[2] * Lps[2];
       A_st = A_st + k_sc;
       B_st = B_st + k_sc * wL0;
-      if constexpr (kField) {
+      if constexpr (kField == kGridField) {
+        if (two_phase && phB && (shade_pre || medium)) {
+          // the voxel event scores, at once (phase B knows wLtot): dlog
+          // P(surface)/dv = -sigma dI(t)/dv, dlog p(d)/dv = dlog
+          // rho_pc(d)/dv - sigma dI(d)/dv
+          const float w_sc = wLtot - wL0;
+          const float t_detg = shade_pre ? t_eff : 0.0f;
+          const float d_detg = (medium && d_s < 0.5f * BIG) ? d_s : 0.0f;
+          grid_march_scatter(P.grid, o, d, shade_pre ? -sigma_t * w_sc : 0.0f, t_detg,
+                             medium ? -sigma_t * w_sc : 0.0f, d_detg, gg);
+          if (medium) {
+            V3 x_pc;
+            const float rho_pc = grid_pc_point(P.grid, tab, o, d, d_detg, x_pc);
+            grid_scatter_point(P.grid, x_pc, w_sc / vmax(rho_pc, 1e-30f), gg);
+          }
+        }
+      }
+      if constexpr (kAnalyticField) {
         if (n_fp > 0) {
           // field-parameter event scores: dlog dens(x_d)/dtheta - sigma
           // dI(d)/dtheta (medium), -sigma dI(t)/dtheta (surface)
@@ -500,7 +573,7 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
         float add = at.rad[i] * tp[i];
         L[i] = L[i] + add;
         Lps[i] = Lps[i] + add;
-        if constexpr (kGrads) gv[rad0 + 3 * sid + i] = gv[rad0 + 3 * sid + i] + wt[i] * tp[i];
+        if constexpr (kGrads) gv[rad0 + 3 * sid + i] = gv[rad0 + 3 * sid + i] + wl[i] * tp[i];
       }
     }
     bool shade = live && surface && !em_hit;
@@ -520,18 +593,24 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
       }
       float att_pl = dist_l;
       V3 wlight = mk(0.0f, 0.0f, 0.0f);
-      if constexpr (kField) {
+      if constexpr (kField != kHomogeneous) {
         float inv_dl = 1.0f / vmax(dist_l, 1e-20f);
         wlight = scale3(sub3(lc, xs), inv_dl);
-        att_pl = field_tau(F, 1.0f, xs, wlight, dist_l);
+        if constexpr (kField == kGridField)
+          att_pl = grid_tau(P.grid, tab, 1.0f, xs, wlight, dist_l, true);
+        else
+          att_pl = field_tau(F, 1.0f, xs, wlight, dist_l);
       }
       float trs = expf(-sigma_t * att_pl);
       float ldm[3], dsig[3], dalb[3], dle[3];
       float drad[kGrads ? VPT_MAX_SPHERES : 1][3];
       float dk[kFp][3];
       int sid2;
+      float wtp[3];
+      for (int i = 0; i < 3; ++i) wtp[i] = wl[i] * tp[i] * inv_cp;
       diff_mis_v2<kGrads, kField>(P, pv, F, fp_kind, n_fp, sigma_t, rng, at, xs, nrm, d, ldm,
-                                  dsig, dalb, dle, drad, dk, sid2);
+                                  dsig, dalb, dle, drad, dk, sid2, tab,
+                                  two_phase ? gg : nullptr, wtp);
       for (int i = 0; i < 3; ++i) {
         float add = (ldp[i] * trs * inv_ps + ldm[i]) * tp[i] * inv_cp;
         L[i] = L[i] + add;
@@ -540,16 +619,24 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
       if constexpr (kGrads) {
         float gs = 0.0f;
         for (int i = 0; i < 3; ++i)
-          gs = gs + wt[i] * (ldp[i] * trs * (-att_pl) * inv_ps + dsig[i]) * tp[i] * inv_cp;
+          gs = gs + wl[i] * (ldp[i] * trs * (-att_pl) * inv_ps + dsig[i]) * tp[i] * inv_cp;
         g_st = g_st + gs;
-        if constexpr (kField) {
+        if constexpr (kField == kGridField) {
+          if (two_phase) {  // pLight's transmittance: -sigma_t dI/dv times its value
+            float gpl = 0.0f;
+            for (int i = 0; i < 3; ++i) gpl = gpl + wl[i] * ldp[i] * trs * inv_ps * tp[i] * inv_cp;
+            grid_march_scatter(P.grid, xs, wlight, -sigma_t * (gpl + 0.0f), dist_l, 0.0f, 0.0f,
+                               gg);
+          }
+        }
+        if constexpr (kAnalyticField) {
           if (n_fp > 0) {  // pLight's and the MIS light strategy's d(tr)/dtheta
             float dI_pl[kFp];
             fp_dI(F, fp_kind, xs, wlight, dist_l, dI_pl);
             for (int f = 0; f < n_fp; ++f) {
               float gk = 0.0f;
               for (int i = 0; i < 3; ++i)
-                gk = gk + wt[i] * (ldp[i] * trs * (-sigma_t * dI_pl[f]) * inv_ps + dk[f][i]) *
+                gk = gk + wl[i] * (ldp[i] * trs * (-sigma_t * dI_pl[f]) * inv_ps + dk[f][i]) *
                               tp[i] * inv_cp;
               gv[IK + f] = gv[IK + f] + gk;
             }
@@ -560,9 +647,9 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
           bool is_mis = false;
           for (int j = 0; j < P.n_mis; ++j) is_mis = is_mis || P.mis_lights[j] == e;
           for (int i = 0; i < 3; ++i) {
-            float g = lid == e ? wt[i] * coef[i] * trs * inv_ps * tp[i] * inv_cp : 0.0f;
-            if (is_mis) g = g + wt[i] * drad[e][i] * tp[i] * inv_cp;
-            g = g + (sid2 == e ? wt[i] * dle[i] * tp[i] * inv_cp : 0.0f);
+            float g = lid == e ? wl[i] * coef[i] * trs * inv_ps * tp[i] * inv_cp : 0.0f;
+            if (is_mis) g = g + wl[i] * drad[e][i] * tp[i] * inv_cp;
+            g = g + (sid2 == e ? wl[i] * dle[i] * tp[i] * inv_cp : 0.0f);
             gv[rad0 + 3 * e + i] = gv[rad0 + 3 * e + i] + g;
           }
         }
@@ -570,7 +657,7 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
           for (int i = 0; i < 3; ++i) {
             float lam = !at.is_mic ? lrad[i] * le_scale * cosw * INV_PI : 0.0f;
             gv[2 + 3 * sid + i] =
-                gv[2 + 3 * sid + i] + wt[i] * (lam * trs * inv_ps + dalb[i]) * tp[i] * inv_cp;
+                gv[2 + 3 * sid + i] + wl[i] * (lam * trs * inv_ps + dalb[i]) * tp[i] * inv_cp;
           }
         }
       }
@@ -596,7 +683,7 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
           for (int i = 0; i < 3; ++i) {
             float a = at.alb[i];
             float inv_a = a > 0.0f ? 1.0f / a : 0.0f;
-            float kk = wt[i] * inv_a;
+            float kk = wl[i] * inv_a;
             A_alb[sid][i] = A_alb[sid][i] + kk;
             B_alb[sid][i] = B_alb[sid][i] + kk * Lps[i];
           }
@@ -606,7 +693,7 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
       float ld_med[3], w_med, att_nee, t_nee, dlogp_nee;
       V3 wl_nee;
       diff_medium_nee<kField, kHG>(P, F, sigma_t, hg_mode, gph, d, xt, lc, lrad, lr, lid, m1,
-                                   m2, ld_med, w_med, att_nee, wl_nee, t_nee, dlogp_nee);
+                                   m2, ld_med, w_med, att_nee, wl_nee, t_nee, dlogp_nee, tab);
       float adds[3], wL1 = 0.0f;
       for (int i = 0; i < 3; ++i) {
         adds[i] = ld_med[i] * inv_ps * tp[i] * ar_cp;
@@ -616,12 +703,15 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
       if constexpr (kGrads) {
         float gs = 0.0f, gx = 0.0f;
         for (int i = 0; i < 3; ++i) {
-          gs = gs + wt[i] * adds[i] * (-att_nee + med_dsig);
-          gx = gx + wt[i] * adds[i];
+          gs = gs + wl[i] * adds[i] * (-att_nee + med_dsig);
+          gx = gx + wl[i] * adds[i];
         }
         g_st = g_st + gs;
         g_ssx = g_ssx + gx * inv_ss;
-        if constexpr (kField) {
+        if constexpr (kField == kGridField)  // medium NEE's transmittance
+          if (two_phase)
+            grid_march_scatter(P.grid, xt, wl_nee, -sigma_t * (0.0f + gx), t_nee, 0.0f, 0.0f, gg);
+        if constexpr (kAnalyticField) {
           if (n_fp > 0) {  // the medium-NEE transmittance's d/dtheta
             float dI_nee[kFp];
             fp_dI(F, fp_kind, xt, wl_nee, t_nee, dI_nee);
@@ -633,9 +723,9 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
         if (lid >= 0)
           for (int i = 0; i < 3; ++i)
             gv[rad0 + 3 * lid + i] =
-                gv[rad0 + 3 * lid + i] + wt[i] * w_med * inv_ps * tp[i] * ar_cp;
+                gv[rad0 + 3 * lid + i] + wl[i] * w_med * inv_ps * tp[i] * ar_cp;
         // deferred medium-factor terms vs the L-prefix after this bounce
-        wL1 = wt[0] * Lps[0] + wt[1] * Lps[1] + wt[2] * Lps[2];
+        wL1 = wl[0] * Lps[0] + wl[1] * Lps[1] + wl[2] * Lps[2];
         A_st = A_st + med_dsig;
         B_st = B_st + med_dsig * wL1;
         A_ssx = A_ssx + inv_ss;
@@ -660,10 +750,20 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
     if (alive) {
       depth = depth + 1;
     } else {
-      samples = samples + 1;  // the path that started this sample ended
+      if (!two_phase) {
+        samples = samples + 1;  // the path that started this sample ended
+      } else if (!phB) {
+        // phase A ends: the sample's weighted total with the raw cotangent,
+        // then its replay
+        wLtot = wt[0] * Lps[0] + wt[1] * Lps[1] + wt[2] * Lps[2];
+        phB = true;
+      } else {
+        phB = false;
+        samples = samples + 1;
+      }
       if constexpr (kGrads) {
         // fold the deferred pairs: A * L_total - B at path death
-        float WL = wt[0] * Lps[0] + wt[1] * Lps[1] + wt[2] * Lps[2];
+        float WL = wl[0] * Lps[0] + wl[1] * Lps[1] + wl[2] * Lps[2];
         g_st = g_st + (A_st * WL - B_st);
         g_ssx = g_ssx + (A_ssx * WL - B_ssx);
         A_st = B_st = A_ssx = B_ssx = 0.0f;

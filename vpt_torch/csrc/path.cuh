@@ -72,6 +72,20 @@ struct FieldParams {
   FieldBlob blob[VPT_MAX_BLOBS];
 };
 
+// A voxel-grid density field (vpt/media/density.py grid), laid out by
+// kernels/wavefront.py grid_words(); all zeros without a grid. The values
+// ride beside the launch as vpt's packed bf16 z-pair table (csrc/grid.cuh).
+struct GridParams {
+  int n[3];          // nx, ny, nz
+  int n_march, m1;   // segments of the transport model, region A's share
+  int nearest;       // transport interpolant: 0 trilinear, 1 xy-nearest
+  float org[3];      // world min corner
+  float inv_sp[3];   // 1 / spacing, folded in double
+  float lo[3], hi[3];  // clamp rails, folded in double
+  float cap;         // window cap: march_extent * diagonal, folded in double
+  float inv_m1, inv_m2;  // 1 / M1, 1 / M2
+};
+
 // Launch parameters, laid out word by word by
 // vpt_torch/kernels/wavefront.py Packed.words(). All fields are 4 bytes.
 struct VptParams {
@@ -108,6 +122,7 @@ struct VptParams {
   float eta[VPT_MAX_SPHERES][3];
   float kap[VPT_MAX_SPHERES][3];
   FieldParams field;                // read by the field instantiations only
+  GridParams grid;                  // read by the grid instantiations only
 };
 
 namespace vpt {
@@ -613,16 +628,34 @@ VPT_HD float power_h_invg(float f, float g_inv) {
 }  // namespace vpt
 
 #include "field.cuh"
+#include "grid.cuh"
 
 namespace vpt {
+
+// the medium's density: none, an analytic field (P.field) or a voxel grid
+// (P.grid with its table), a compile-time parameter of the render and pair
+// kernels so that each kind keeps its own code
+enum FieldMode { kHomogeneous = 0, kAnalytic = 1, kGridField = 2 };
+
+// the transmittance exp(-tau) along (o, d) to t >= 0 through the density
+// (kAnalytic or kGridField)
+template <int kField>
+VPT_HD float field_tr(const VptParams& P, const uint32_t* tab, float sigma_t, V3 o, V3 d,
+                      float t) {
+  if constexpr (kField == kGridField)
+    return expf(-grid_tau(P.grid, tab, sigma_t, o, d, t, true));
+  else
+    return field_tr_toward(P.field, sigma_t, o, d, t);
+}
 
 // ---- estimator pieces (vpt/kernels/wavefront.py) ------------------------
 
 // MISv2 (misSamplingFunctions.h:96-170): takes 3 draws per MIS light, then 3.
-// kField: the light strategy's transmittance through the density field.
-template <bool kField>
+// kField: the light strategy's transmittance through the density (tab: a
+// grid's table).
+template <int kField>
 VPT_HD void mis_v2(const VptParams& P, Pcg& rng, const Attr& at, V3 xs, V3 n, V3 d,
-                   float acc[3]) {
+                   float acc[3], const uint32_t* tab = nullptr) {
   acc[0] = acc[1] = acc[2] = 0.0f;
   V3 wo = neg3(d);
   for (int j = 0; j < P.n_mis; ++j) {
@@ -643,8 +676,8 @@ VPT_HD void mis_v2(const VptParams& P, Pcg& rng, const Attr& at, V3 xs, V3 n, V3
     eval_fr_nee(at, n, d, wi, false, fr);
     float fpdf_inv = TWO_PI * vmax(1.0f - cos_max, 1e-12f);
     float tr;
-    if constexpr (kField)
-      tr = field_tr_toward(P.field, P.sigma_t, xs, wc, normcx);
+    if constexpr (kField != kHomogeneous)
+      tr = field_tr<kField>(P, tab, P.sigma_t, xs, wc, normcx);
     else
       tr = expf(-P.sigma_t * normcx);
     float w_vis = visible ? tr * dot3(n, wi) * fpdf_inv : 0.0f;
@@ -718,10 +751,14 @@ VPT_HD void mis_v2(const VptParams& P, Pcg& rng, const Attr& at, V3 xs, V3 n, V3
 // freeSingleScattering (volumetricBasicFunctions.h:284-340) with the
 // missing-else point kill: point sources (lr == 0) contribute 0. d is the
 // incoming propagation direction: at g != 0 the phase value toward the cone
-// sample is HG. kField: the shadow ray's transmittance through the field
-template <bool kField>
+// sample is HG. kField: the shadow ray's transmittance through the field.
+// In a grid (kGridField) vpt leaves the transmittance out of the weight and
+// multiplies the radiance by it after (its merged NEE march,
+// vpt/kernels/wavefront.py:421-428, 614-626), which rounds differently.
+template <int kField>
 VPT_HD void medium_nee(const VptParams& P, V3 d, V3 xt, V3 lc, const float lrad[3], float lr,
-                       int lid, float u1, float u2, float out[3]) {
+                       int lid, float u1, float u2, float out[3],
+                       const uint32_t* tab = nullptr) {
   V3 wc = sub3(lc, xt);
   float inv_mag = vrsqrt(vmax(dot3(wc, wc), 1e-20f));
   V3 wc_n = scale3(wc, inv_mag);
@@ -731,13 +768,19 @@ VPT_HD void medium_nee(const VptParams& P, V3 d, V3 xt, V3 lc, const float lrad[
   float t;
   int sid = nearest_id_t(P, xt, wl, t);
   bool visible = sid >= 0 && sid == lid && lr > 0.0f;
-  float tr_l;
-  if constexpr (kField)
-    tr_l = field_tr_toward(P.field, P.sigma_t, xt, wl, t);
-  else
-    tr_l = expf(-P.sigma_t * t);
   // phase / cone pdf = phase * 2pi * (1 - cos_max)
   float phase_2pi = P.g != 0.0f ? hg_phase_const(P, dot3(d, wl)) * TWO_PI : P.nee_phase;
+  if constexpr (kField == kGridField) {
+    float w = visible ? phase_2pi * vmax(1.0f - cos_max, 1e-12f) : 0.0f;
+    float tr_l = expf(-grid_tau(P.grid, tab, P.sigma_t, xt, wl, t, true));
+    for (int i = 0; i < 3; ++i) out[i] = lrad[i] * w * tr_l;
+    return;
+  }
+  float tr_l;
+  if constexpr (kField != kHomogeneous)
+    tr_l = field_tr<kField>(P, tab, P.sigma_t, xt, wl, t);
+  else
+    tr_l = expf(-P.sigma_t * t);
   float w = visible ? tr_l * phase_2pi * vmax(1.0f - cos_max, 1e-12f) : 0.0f;
   for (int i = 0; i < 3; ++i) out[i] = lrad[i] * w;
 }
@@ -760,12 +803,17 @@ enum Distance { kFree = 0, kEquiangular = 1, kEaClamped = 2 };
 // the free flight takes 2 * max_null draws right after u_dist
 // (field_sample_free).
 //
-// kField: the medium's density field (P.field, exp_height or blobs). A
-// flight may then escape (d_s == BIG off any surface), which kills the lane;
-// every transmittance is the field's, and the equi-angular medium weight
-// takes sigma_s(xt) = sigma_s d(xt).
-template <bool kNee, int kDist, bool kField = false>
-VPT_HD void render_pixel(const VptParams& P, uint32_t lane, int pixel, int seed, float out[3]) {
+// kField: the medium's density (FieldMode): an analytic field (P.field,
+// exp_height or blobs) or a voxel grid (P.grid and its table tab). A flight
+// may then escape (d_s == BIG off any surface), which kills the lane; every
+// transmittance is the field's, and the equi-angular medium weight takes
+// sigma_s(xt) = sigma_s d(xt). In a grid the free flight is one march of the
+// transport model that also gives the surface's optical depth
+// (grid_sample_free_and_tau; no extra draw: it inverts with u_dist), and
+// the shadow rays march the same model.
+template <bool kNee, int kDist, int kField = kHomogeneous>
+VPT_HD void render_pixel(const VptParams& P, uint32_t lane, int pixel, int seed, float out[3],
+                         const uint32_t* tab = nullptr) {
   const float px = (float)(pixel % P.width);
   const float py = (float)(P.height - 1 - pixel / P.width);
   float off[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
@@ -850,17 +898,22 @@ VPT_HD void render_pixel(const VptParams& P, uint32_t lane, int pixel, int seed,
     // transmittance to the surface: the implicit free weight and the
     // equi-angular event probability
     float tr_actual = 0.0f;
-    if constexpr (kField) {
+    if constexpr (kField != kHomogeneous) {
       // in the field: equi-angular's event probability here, the implicit
-      // free weight's (1 - Tr) on the medium lanes below
-      if (kDist != kFree && hit) tr_actual = expf(-field_tau(P.field, P.sigma_t, o, d, t));
+      // free weight's (1 - Tr) on the medium lanes below (in a grid from
+      // the free flight's march)
+      if (kDist != kFree && hit) tr_actual = field_tr<kField>(P, tab, P.sigma_t, o, d, t);
     } else {
       if (kDist != kFree || (!kNee && !P.physical)) tr_actual = hit ? expf(-P.sigma_t * t) : 0.0f;
     }
     float d_along = 0.0f, pdf_success = 1.0f;
     if (kDist == kFree) {
       float d_s;
-      if constexpr (kField)
+      if constexpr (kField == kGridField) {
+        float tau_cap;
+        d_s = grid_sample_free_and_tau(P.grid, tab, P.sigma_t, o, d, u_dist, t_eff, tau_cap);
+        tr_actual = hit ? expf(-tau_cap) : 0.0f;
+      } else if constexpr (kField == kAnalytic)
         d_s = field_sample_free(P.field, P.sigma_t, P.field.inv_maj_rate, o, d, u_dist, rng, t_eff);
       else
         d_s = -log1pf(-u_dist) * P.inv_sigma_t;
@@ -924,15 +977,15 @@ VPT_HD void render_pixel(const VptParams& P, uint32_t lane, int pixel, int seed,
         eval_fr_nee(at, nrm, d, wi, true, fr);
         float cosw = dot3(nrm, wi);
         float trs;
-        if constexpr (kField) {
+        if constexpr (kField != kHomogeneous) {
           float inv_dl = 1.0f / vmax(dist_l, 1e-20f);
           V3 wlight = scale3(sub3(lc, xs), inv_dl);
-          trs = field_tr_toward(P.field, P.sigma_t, xs, wlight, dist_l);
+          trs = field_tr<kField>(P, tab, P.sigma_t, xs, wlight, dist_l);
         } else {
           trs = expf(-P.sigma_t * dist_l);
         }
         float ldm[3];
-        mis_v2<kField>(P, rng, at, xs, nrm, d, ldm);
+        mis_v2<kField>(P, rng, at, xs, nrm, d, ldm, tab);
         for (int i = 0; i < 3; ++i) {
           float ldp = lrad[i] * le_scale * fr[i] * cosw;
           float ld = ldp * (trs * P.n_em_f) + ldm[i];
@@ -965,7 +1018,7 @@ VPT_HD void render_pixel(const VptParams& P, uint32_t lane, int pixel, int seed,
           // explicit free flight: transmittance/pdf cancel analytically
           // (the PBRT simplification, vptShadeMethods.h:1248)
           float ld_med[3];
-          medium_nee<kField>(P, d, xt, lc, lrad, lr, lid, m1, m2, ld_med);
+          medium_nee<kField>(P, d, xt, lc, lrad, lr, lid, m1, m2, ld_med, tab);
           for (int i = 0; i < 3; ++i) L[i] = L[i] + ld_med[i] * tp[i] * P.med_c;
           w_med = P.tp_med;
         } else if (P.physical) {
@@ -973,7 +1026,7 @@ VPT_HD void render_pixel(const VptParams& P, uint32_t lane, int pixel, int seed,
         } else {
           // implicit free: (sigma_s / sigma_t) / (cp (1 - Tr))
           // (vptShadeMethods.h:977,1006)
-          if constexpr (kField)
+          if constexpr (kField == kAnalytic)
             tr_actual = hit ? expf(-field_tau(P.field, P.sigma_t, o, d, t)) : 0.0f;
           w_med = P.tp_med / vmax(1.0f - tr_actual, 1e-20f);
         }
@@ -981,16 +1034,21 @@ VPT_HD void render_pixel(const VptParams& P, uint32_t lane, int pixel, int seed,
         // equi-angular: T and pdf appear explicitly
         // (vptShadeMethods.h:1134-1146)
         float t_xt;
-        if constexpr (kField)  // tau is odd in t: |tau| behind the origin
+        if constexpr (kField == kGridField)  // the reverse march behind the origin
+          t_xt = expf(-fabsf(grid_tau(P.grid, tab, P.sigma_t, o, d, d_along, false)));
+        else if constexpr (kField == kAnalytic)  // tau is odd in t: |tau| behind the origin
           t_xt = expf(-fabsf(field_tau(P.field, P.sigma_t, o, d, d_along)));
         else
           t_xt = expf(-P.sigma_t * fabsf(d_along));
         float inv_pdf_s = 1.0f / pdf_success;
         w_med = P.ss_cp * t_xt * inv_pdf_s;
-        if constexpr (kField) w_med = w_med * field_density(P.field, xt);  // sigma_s(xt)
+        if constexpr (kField == kGridField)  // sigma_s(xt), trilinear
+          w_med = w_med * grid_density(P.grid, tab, xt);
+        else if constexpr (kField == kAnalytic)
+          w_med = w_med * field_density(P.field, xt);  // sigma_s(xt)
         if (kNee) {
           float ld_med[3];
-          medium_nee<kField>(P, d, xt, lc, lrad, lr, lid, m1, m2, ld_med);
+          medium_nee<kField>(P, d, xt, lc, lrad, lr, lid, m1, m2, ld_med, tab);
           float scale = w_med * P.n_em_f;
           for (int i = 0; i < 3; ++i) L[i] = L[i] + ld_med[i] * scale * tp[i];
         }
@@ -1015,14 +1073,14 @@ constexpr int kLanesPerTile = 32 * 128;
 // Lane i of a launch: lane i, or lane i % kLanesPerTile of tile i / kLanesPerTile
 // from bases[]; writes the lane's sums (sums != 0) or its radiance / spp to
 // out[3 i .. 3 i + 2]
-template <bool kNee, int kDist, bool kField = false>
+template <bool kNee, int kDist, int kField = kHomogeneous>
 VPT_HD void render_lane(const VptParams& P, int seed, const int* bases, int i,
-                        int sums, float* out) {
+                        int sums, float* out, const uint32_t* tab = nullptr) {
   const int npix = P.width * P.height;
   const int lane = bases ? bases[i / kLanesPerTile] + i % kLanesPerTile : i;
   const int pixel = lane < npix - 1 ? lane : npix - 1;
   float L[3];
-  render_pixel<kNee, kDist, kField>(P, (uint32_t)lane, pixel, seed, L);
+  render_pixel<kNee, kDist, kField>(P, (uint32_t)lane, pixel, seed, L, tab);
   const float spp = (float)P.spp;
   for (int c = 0; c < 3; ++c) out[3 * i + c] = sums ? L[c] : L[c] / spp;
 }

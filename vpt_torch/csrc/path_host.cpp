@@ -1,6 +1,6 @@
 // Host build of the kernels' per-path code, for the CPU tests only.
 //
-// Compiles csrc/path.cuh (with csrc/field.cuh), csrc/diff_path.cuh and
+// Compiles csrc/path.cuh (with csrc/field.cuh and grid.cuh), csrc/diff_path.cuh and
 // csrc/geom_path.cuh with a
 // C++ compiler and loops over the pixels in place of the CUDA grid, so the
 // kernels' path code can be held against the plain torch versions where
@@ -15,11 +15,11 @@ extern "C" int vpt_params_words(void) { return (int)(sizeof(VptParams) / 4); }
 
 extern "C" int vpt_diff_params_words(void) { return (int)(sizeof(DiffParams) / 4); }
 
-template <bool kNee, int kDist, bool kField>
+template <bool kNee, int kDist, int kField>
 static void render_host(const VptParams& P, int seed, const int* bases, int n_lanes,
-                        int sums, float* out) {
+                        int sums, float* out, const uint32_t* tab = nullptr) {
   for (int i = 0; i < n_lanes; ++i)
-    vpt::render_lane<kNee, kDist, kField>(P, seed, bases, i, sums, out);
+    vpt::render_lane<kNee, kDist, kField>(P, seed, bases, i, sums, out, tab);
 }
 
 // K1's path code, the lanes of one launch of csrc/wavefront_kernel.cuh.
@@ -40,6 +40,23 @@ extern "C" int vpt_render_host(const void* params, int variant, int seed, const 
     case 5: render_host<false, vpt::kFree, true>(P, seed, bases, n_lanes, sums, out); break;
     case 6: render_host<true, vpt::kEquiangular, true>(P, seed, bases, n_lanes, sums, out); break;
     case 7: render_host<false, vpt::kEaClamped, true>(P, seed, bases, n_lanes, sums, out); break;
+    default: return -1;
+  }
+  return 0;
+}
+
+// K1's grid instantiations (csrc/wavefront_grid*.cu): variant as above (0-3),
+// tab the grid's packed table uint32[nx * ny * nz]
+extern "C" int vpt_render_grid_host(const void* params, int variant, int seed, const int* bases,
+                                    int n_lanes, int sums, const uint32_t* tab, float* out) {
+  VptParams P;
+  memcpy(&P, params, sizeof P);
+  constexpr int g = vpt::kGridField;
+  switch (variant) {
+    case 0: render_host<true, vpt::kFree, g>(P, seed, bases, n_lanes, sums, out, tab); break;
+    case 1: render_host<false, vpt::kFree, g>(P, seed, bases, n_lanes, sums, out, tab); break;
+    case 2: render_host<true, vpt::kEquiangular, g>(P, seed, bases, n_lanes, sums, out, tab); break;
+    case 3: render_host<false, vpt::kEaClamped, g>(P, seed, bases, n_lanes, sums, out, tab); break;
     default: return -1;
   }
   return 0;
@@ -89,6 +106,26 @@ extern "C" void vpt_diff_fwd_host(const void* params, const float* pvec, int see
 extern "C" void vpt_diff_bwd_host(const void* params, const float* pvec, int seed,
                                   const float* gbar, float* gout) {
   pair_host<true>(params, pvec, seed, gbar, gout);
+}
+
+// The pair's path code in a voxel grid (tab: the packed table). gout, K3:
+// float32[npix * P]; ggrid: NULL, or float32[T] (diff_grid) that gains the
+// voxel gradient
+extern "C" void vpt_diff_grid_host(const void* params, const float* pvec, int seed,
+                                   const float* gbar, const uint32_t* tab, float* out,
+                                   float* ggrid) {
+  DiffParams D;
+  memcpy(&D, params, sizeof D);
+  const FieldParams& F = D.base.field;
+  const int npix = D.base.width * D.base.height;
+  constexpr int g = vpt::kGridField;
+  for (int p = 0; p < npix; ++p) {
+    if (gbar != nullptr)
+      vpt::diff_pixel<true, g, false>(D, pvec, F, p, seed, gbar + 3 * p, nullptr,
+                                      out + (size_t)D.n_params * p, tab, ggrid);
+    else
+      vpt::diff_pixel<false, g, false>(D, pvec, F, p, seed, nullptr, out + 3 * p, nullptr, tab);
+  }
 }
 
 extern "C" int vpt_geom_params_words(void) { return (int)(sizeof(GeomParams) / 4); }

@@ -14,10 +14,13 @@
 // wavefront_ea.cu (equi-angular + NEE), wavefront_eac_implicit.cu (clamped
 // equi-angular, no NEE). The physical mode, HG g and the material-3 shells
 // are launch parameters. A medium with an analytic density field runs in a
-// second set, one per pair again (wavefront_field*.cu, kField = true): the
+// second set, one per pair again (wavefront_field*.cu, kField = kAnalytic): the
 // field is a compile-time parameter so that the homogeneous instantiations
 // keep their code (K1's main path holds 116 registers without spills), and
-// exp_height against blobs is a uniform switch inside them.
+// exp_height against blobs is a uniform switch inside them. A voxel grid
+// runs in a third set (wavefront_grid*.cu, kField = kGridField), whose
+// kernels take the grid's packed table as one more argument; its transport
+// interpolant is a uniform switch.
 //
 // Lanes: lane i of the launch (bases == NULL), or tile i / 4096 of the
 // launch from bases[] (vpt's scatter-tile mode, adaptive sampling's second
@@ -29,7 +32,9 @@
 // transcendentals); threads of a warp diverge on material, event and path
 // length. Its only device-memory traffic is the 12 bytes of radiance it
 // writes per lane; the scene is a kernel parameter read through the constant
-// cache, and it uses no shared memory.
+// cache, and it uses no shared memory. A grid instantiation also reads its
+// table, 4 bytes per voxel, through the read-only cache: (n_march + 2) pc
+// densities of one to four words each per march.
 //
 // Simple on purpose: no path-state compaction, no warp-level path
 // regeneration and no persistent blocks. Those are later work, measured
@@ -50,7 +55,19 @@ __global__ void __launch_bounds__(kThreads)
            const int* __restrict__ bases, int n_lanes, int sums, float* __restrict__ out) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n_lanes) return;
-  vpt::render_lane<kNee, kDist, kField>(P, seed[0], bases, i, sums, out);
+  vpt::render_lane<kNee, kDist, kField ? vpt::kAnalytic : vpt::kHomogeneous>(P, seed[0], bases,
+                                                                          i, sums, out);
+}
+
+// the grid instantiations: tab is the grid's packed table (uint32[T])
+template <bool kNee, int kDist>
+__global__ void __launch_bounds__(kThreads)
+    grid_kernel(const __grid_constant__ VptParams P, const int* __restrict__ seed,
+                const int* __restrict__ bases, int n_lanes, int sums, float* __restrict__ out,
+                const uint32_t* __restrict__ tab) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n_lanes) return;
+  vpt::render_lane<kNee, kDist, vpt::kGridField>(P, seed[0], bases, i, sums, out, tab);
 }
 
 // params: host pointer to a VptParams (copied into the launch); seed: device
@@ -69,6 +86,23 @@ int launch(const void* params, const void* seed, const void* bases, int n_lanes,
   return (int)cudaGetLastError();
 }
 
+// As launch, plus tab: device uint32[nx * ny * nz], the packed table; a
+// VptParams without a grid is refused
+template <bool kNee, int kDist>
+int launch_grid(const void* params, const void* seed, const void* bases, int n_lanes, int sums,
+                void* out, const void* tab, void* stream) {
+  VptParams P;
+  memcpy(&P, params, sizeof P);
+  if (P.grid.n[0] < 2 || P.grid.n[1] < 2 || P.grid.n[2] < 2 || P.grid.n_march < 1 ||
+      tab == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (n_lanes <= 0) return 0;
+  const int blocks = (n_lanes + kThreads - 1) / kThreads;
+  grid_kernel<kNee, kDist><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      P, (const int*)seed, (const int*)bases, n_lanes, sums, (float*)out, (const uint32_t*)tab);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace vpt_wavefront
 
 #define VPT_WAVEFRONT_ENTRY(name, nee, dist, field)                                        \
@@ -76,4 +110,11 @@ int launch(const void* params, const void* seed, const void* bases, int n_lanes,
                       int sums, void* out, void* stream) {                                     \
     return vpt_wavefront::launch<nee, dist, field>(params, seed, bases, n_lanes, sums, out,    \
                                                    stream);                                    \
+  }
+
+#define VPT_WAVEFRONT_GRID_ENTRY(name, nee, dist)                                          \
+  extern "C" int name(const void* params, const void* seed, const void* bases, int n_lanes, \
+                      int sums, void* out, const void* tab, void* stream) {                    \
+    return vpt_wavefront::launch_grid<nee, dist>(params, seed, bases, n_lanes, sums, out, tab, \
+                                                 stream);                                      \
   }

@@ -101,13 +101,17 @@ def load() -> ctypes.CDLL:
     """Build if needed, load, and declare the C interface."""
     lib = ctypes.CDLL(str(build()))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    # K1, one entry per instantiation (csrc/wavefront*.cu), homogeneous and
-    # in a density field
-    from .wavefront import FIELD_ENTRIES, KERNEL_ENTRIES
+    # K1, one entry per instantiation (csrc/wavefront*.cu), homogeneous, in
+    # an analytic density field and in a voxel grid
+    from .wavefront import FIELD_ENTRIES, GRID_ENTRIES, KERNEL_ENTRIES
 
     for entry in (*KERNEL_ENTRIES.values(), *FIELD_ENTRIES.values()):
         fn = getattr(lib, entry)
         fn.argtypes = [vp, vp, vp, ci, ci, vp, vp]
+        fn.restype = ci
+    for entry in GRID_ENTRIES.values():     # and the grid's table
+        fn = getattr(lib, entry)
+        fn.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp]
         fn.restype = ci
     lib.vpt_params_words.argtypes = []
     lib.vpt_params_words.restype = ctypes.c_int
@@ -121,6 +125,14 @@ def load() -> ctypes.CDLL:
         bwd = getattr(lib, "vpt_diff_bwd" + sfx)
         bwd.argtypes = [vp] * 7
         bwd.restype = ci
+    # ... and in a voxel grid (csrc/diff_grid_fwd.cu, diff_grid_bwd.cu),
+    # with the grid's table and the voxel gradient
+    lib.vpt_diff_fwd_grid.argtypes = [vp] * 6
+    lib.vpt_diff_fwd_grid.restype = ci
+    lib.vpt_diff_bwd_grid.argtypes = [vp] * 9
+    lib.vpt_diff_bwd_grid.restype = ci
+    lib.vpt_diff_grid_shared_bytes.argtypes = [ci]
+    lib.vpt_diff_grid_shared_bytes.restype = ci
     lib.vpt_diff_params_words.argtypes = []
     lib.vpt_diff_params_words.restype = ctypes.c_int
     lib.vpt_diff_block_threads.argtypes = []

@@ -60,9 +60,24 @@ expressions are f32 operations on the parameter vector (1/r, (1/r)^2,
 majorant) always, sigma_t being traced). So the pair matches K1 within
 vpt's 1e-5 of scale, not bit for bit.
 
+Voxel grids (vpt's grid_mode and diff_grid, diff.py:205-219, 600-617,
+656-662, 761-784, 880-884, 990-1008, 1115-1126): the free flight is K1's
+march of the grid's transport model (prims.grid_sample_free_and_tau), and
+the sigma scores take its optical paths, tau(t)/sigma_t at the surface and
+-log1p(-u)/sigma_t at the sampled distance. The table is baked from the
+scene, or with diff_grid rebuilt from the "grid" leaf (prims.grid_table,
+elementwise torch on the leaf's device) at every call. With diff_grid K3
+replays each sample twice from the same PCG state (vpt's two-phase
+replay): phase A, with the cotangent zeroed, learns the sample's weighted
+total wLtot; phase B replays it, adds every gradient term and scatters the
+voxel terms: the free-flight event scores against wLtot, and the pathwise
+terms of the pLight, medium-NEE and MIS light-strategy transmittances. The
+iteration cap doubles. The grid runs in csrc/diff_grid_fwd.cu and
+diff_grid_bwd.cu; the voxel gradient comes back in the grid's shape.
+
 Scope: nee=True, distance="free", physical=False, no material-3 shell,
-samplers "random" and "ld". Everything else raises NotImplementedError
-naming its ROADMAP item.
+samplers "random" and "ld", no HG phase in a grid. Everything else raises
+NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -113,11 +128,10 @@ def pack_params(scene: Scene, with_g: bool = False, with_field: bool = False,
     """Differentiable parameters of a scene: a dict of float32 tensors
     sigma_a (), sigma_s (), albedo (S, 3), radiance (S, 3); with_g adds the
     HG anisotropy "g" (), with_field the exp_height falloff "fog_k" (),
-    with_blobs the blob rows "blobs" (K, 5) (pair them with diff_g,
-    diff_field / diff_blobs)."""
-    if with_grid:
-        raise _todo("traced voxel values (with_grid)", "7")
-
+    with_blobs the blob rows "blobs" (K, 5), with_grid the voxel values
+    "grid" (nx, ny, nz) (pair them with diff_g, diff_field / diff_blobs,
+    diff_grid). The voxel values ride beside the packed vector, as vpt's
+    ride in their own table."""
     def t(x):
         return torch.as_tensor(x).detach().to(torch.float32).clone()
 
@@ -136,17 +150,22 @@ def pack_params(scene: Scene, with_g: bool = False, with_field: bool = False,
         if fld is None or fld.kind != "blobs":
             raise ValueError("with_blobs=True needs a blobs Medium.density")
         p["blobs"] = t(fld.params)
+    if with_grid:
+        if fld is None or fld.kind != "grid":
+            raise ValueError("with_grid=True needs a voxel-grid "
+                             "Medium.density")
+        p["grid"] = t(fld.params)
     return p
 
 
 def _flatten(params: dict, S: int) -> torch.Tensor:
     """params -> packed (2 + 6S [+ 1 g] [+ 1 | + 5K],) vector,
     differentiable (torch.cat): vpt's order, g at 2 + 6S, then the field
-    slots."""
+    slots. A "grid" leaf is not in the vector."""
     extra = sorted(set(params) - {"sigma_a", "sigma_s", "albedo", "radiance",
-                                  "g", "fog_k", "blobs"})
+                                  "g", "fog_k", "blobs", "grid"})
     if extra:
-        raise _todo(f"parameters {extra}", "7")
+        raise ValueError(f"unknown parameters {extra}")
     parts = [params["sigma_a"].reshape(1), params["sigma_s"].reshape(1),
              params["albedo"].reshape(3 * S), params["radiance"].reshape(3 * S)]
     if "g" in params:
@@ -197,6 +216,7 @@ class DiffPacked:
     lam_ids: tuple      # spheres with deferred lambert-albedo terms
     fp_kind: int = FP_NONE  # traced field parameters: none, fog_k, blobs
     hg_mode: int = HG_NONE  # the phase: isotropic, the baked g, diff_g
+    diff_grid: bool = False  # K3 also returns the voxel gradient
 
     @property
     def IG(self) -> int:
@@ -226,7 +246,10 @@ class DiffPacked:
     @property
     def entries(self) -> tuple:
         """The C entries of K2 and K3 for this scene: the field
-        instantiations in a density field, the HG ones with a phase g."""
+        instantiations in an analytic density field, the grid ones in a
+        voxel grid, the HG ones with a phase g."""
+        if self.pk.grid is not None:
+            return "vpt_diff_fwd_grid", "vpt_diff_bwd_grid"
         sfx = (("" if self.pk.field is None else "_field")
                + ("" if self.hg_mode == HG_NONE else "_hg"))
         return "vpt_diff_fwd" + sfx, "vpt_diff_bwd" + sfx
@@ -235,7 +258,8 @@ class DiffPacked:
         fl = np.asarray([self.cp, self.inv_spp], np.float32).view(np.int32)
         mask = lambda ids: sum(1 << s for s in ids)   # noqa: E731
         ints = np.asarray([self.P, mask(self.alb_ids), mask(self.lam_ids),
-                           self.n_fp, self.fp_kind, self.hg_mode], np.int32)
+                           self.n_fp, self.fp_kind, self.hg_mode,
+                           int(self.diff_grid)], np.int32)
         return np.concatenate([self.pk.words(), fl, ints])
 
 
@@ -243,14 +267,19 @@ def pack_diff(scene: Scene, camera: Camera, width: int, height: int,
               spp: int, *, continue_prob: float = 0.6, max_bounces: int = 32,
               sampler: str = "random", jitter: bool = True,
               diff_g: bool = False, diff_field: bool = False,
-              diff_blobs: bool = False) -> DiffPacked:
+              diff_blobs: bool = False, diff_grid: bool = False
+              ) -> DiffPacked:
     """Freeze scene, camera and frame for the pair. The geometry, the
     emitter structure, the materials, the density field and the HG g are
     baked, as in vpt; sigma, albedo and radiance come from the parameter
     vector at each call, and so do the HG g (diff_g: the scene's g is then
-    ignored), the fog falloff (diff_field) or the blob rows (diff_blobs).
-    vpt's guards (diff.py:220-237) carry over."""
+    ignored), the fog falloff (diff_field), the blob rows (diff_blobs) or
+    the voxel values (diff_grid: the table is rebuilt at each call). vpt's
+    guards (diff.py:205-237) carry over."""
     fld = scene.medium.density
+    grid = fld is not None and fld.kind == "grid"
+    if diff_grid and not grid:
+        raise ValueError("diff_grid=True needs a voxel-grid Medium.density")
     if diff_field and diff_blobs:
         raise ValueError("diff_field and diff_blobs are mutually exclusive "
                          "(one field kind per scene)")
@@ -270,7 +299,9 @@ def pack_diff(scene: Scene, camera: Camera, width: int, height: int,
                     continue_prob=continue_prob, max_bounces=max_bounces,
                     sampler=sampler, jitter=jitter)
     if pk.vol:
-        raise _todo("material-3 volumetric shells", "4")
+        raise _todo("material-3 volumetric shells", "4.5")
+    if grid and (diff_g or pk.g != 0.0):
+        raise _todo("the Henyey-Greenstein phase in a voxel grid", "4.4")
     is_em = [any(v > 0 for v in pk.rad[s]) for s in range(pk.S)]
     # vpt: the albedo gradient lives on non-microfacet non-emitters (pLight's
     # lambert fr also covers glass); the deferred lambert terms on lamberts
@@ -282,7 +313,7 @@ def pack_diff(scene: Scene, camera: Camera, width: int, height: int,
     hg_mode = HG_TRACED if diff_g else HG_BAKED if pk.g != 0.0 else HG_NONE
     return DiffPacked(pk=pk, cp=f32(continue_prob), inv_spp=f32(1.0 / spp),
                       alb_ids=alb_ids, lam_ids=lam_ids, fp_kind=fp_kind,
-                      hg_mode=hg_mode)
+                      hg_mode=hg_mode, diff_grid=bool(diff_grid))
 
 
 def traced_field(dp: DiffPacked, pv: torch.Tensor):
@@ -317,10 +348,14 @@ def _wdot(wt, v):
 
 
 def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
-               gbar: torch.Tensor | None = None, stats: dict | None = None):
+               gbar: torch.Tensor | None = None, stats: dict | None = None,
+               tab: torch.Tensor | None = None):
     """The pair's lockstep body. gbar None: the image (npix, 3) / spp.
     gbar (npix, 3): the per-lane gradient contributions (npix, P), whose
-    column sum is the packed gradient of sum(image * gbar)."""
+    column sum is the packed gradient of sum(image * gbar); with diff_grid
+    also the voxel gradient and the sum of the absolute values of the
+    terms it adds, each in the grid's shape. tab: a grid's packed table
+    (default: the scene's, baked)."""
     grads = gbar is not None
     pk = dp.pk
     dev = pvec.device
@@ -348,12 +383,26 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
     # hooks of their derivatives: fp_dI(o, d, t) -> n_fp values of
     # d(optical path per unit sigma)/dtheta, fp_dlogdens(x) -> n_fp values
     # of d log(density)/dtheta
-    fc = traced_field(dp, pv)
+    grid = pk.grid is not None
+    if grid:
+        fc = dataclasses.replace(
+            pk.grid, tab=pk.table(dev) if tab is None else tab.to(dev))
+    else:
+        fc = traced_field(dp, pv)
     n_fp, IK = dp.n_fp, dp.IK
+    # vpt's two-phase replay per sample (K3 with diff_grid): the voxel
+    # gradient, and the absolute values of its terms, summed in float64 so
+    # that this sum's own rounding stays far below the kernel's (f32
+    # atomics in another order)
+    two_phase = grads and dp.diff_grid
+    if two_phase:
+        T = int(np.prod(pk.grid.dims))
+        gg = torch.zeros(T, dtype=torch.float64, device=dev)
+        gabs = torch.zeros(T, dtype=torch.float64, device=dev)
     # the HG phase: the traced g (diff_g) at IG, or the scene's baked g
     traced_g = dp.hg_mode == HG_TRACED
     gph = pv[dp.IG] if traced_g else None
-    if fc is not None:
+    if fc is not None and not grid:
         inv_mr = 1.0 / (sigma_t * fc.maj)   # delta tracking's step scale
     if dp.fp_kind == FP_FOG_K:
         def fp_dI(o_, d_, t_):
@@ -430,9 +479,13 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
                for i in range(3)]
         return ldp, coef, lam, dist
 
-    def mis_v2(rng, at, xs, n, d):
-        """MISv2 and its partials (vpt/kernels/diff.py mis_v2)."""
+    def mis_v2(rng, at, xs, n, d, wtp=None):
+        """MISv2 and its partials (vpt/kernels/diff.py mis_v2). wtp (a
+        grid's two-phase replay): per-channel adjoint weights; each light
+        strategy's (sum_i wtp[i] term[i], direction, distance) lands in
+        "scat" for the voxel march scatter."""
         acc = [z, z, z]
+        scat = []
         wo = [-d[0], -d[1], -d[2]]
         dsig = [z, z, z]
         drad = {}
@@ -458,7 +511,7 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
             # att: the optical path per unit sigma_t (the distance when
             # homogeneous); d(tr)/dsigma = -att tr
             att = normcx if fc is None else pr.field_tau(fc, 1.0, xs, wc,
-                                                         normcx)
+                                                         normcx, nonneg=True)
             tr = torch.exp(-sigma_t * att)
             w_vis = torch.where(visible, tr * pr.dot3(n, wi) * fpdf_inv, 0.0)
             gpdf = pr.bsdf_pdf_for_dir(at, n, wo, wi, rng())
@@ -473,6 +526,9 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
                     dalb[i] = dalb[i] + torch.where(
                         is_lam, re[i] * w_vis * wf * INV_PI, 0.0)
                 drad[e] = [fr[i] * w_vis * wf for i in range(3)]
+                if wtp is not None:
+                    scat.append((wtp[0] * term[0] + wtp[1] * term[1]
+                                 + wtp[2] * term[2], wc, normcx))
                 if n_fp:
                     # d(tr)/dtheta = tr (-sigma_t dI/dtheta)
                     dIs = fp_dI(xs, wc, normcx)
@@ -539,7 +595,7 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
         for i in range(3):
             dalb[i] = dalb[i] + torch.where(is_lam & nz_l, le[i] * wg, 0.0)
         return acc, {"dsig": dsig, "drad": drad, "dalb": dalb, "dle": dle,
-                     "sid2": sid2, "dk": dk}
+                     "sid2": sid2, "dk": dk, "scat": scat}
 
     def medium_nee(rng, d, xt, lc, lrad, lr, lid):
         """freeSingleScattering; returns (radiance, weight, optical path
@@ -556,7 +612,8 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
         wl = pr.cone_dir(wc_n, cos_max, u1, u2)
         hit, t, sid = pr.nearest_id_t(pk, xt, wl)
         visible = hit & (sid == lid) & (lr > 0.0)
-        att = t if fc is None else pr.field_tau(fc, 1.0, xt, wl, t)
+        att = t if fc is None else pr.field_tau(fc, 1.0, xt, wl, t,
+                                                nonneg=True)
         dlogp = None
         if traced_g:
             cos_nee = pr.dot3(d, wl)
@@ -592,6 +649,10 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
         if traced_g:
             for k in ("g_g", "A_g", "B_g"):
                 acc[k] = z
+        if two_phase:
+            acc["wLtot"] = z
+            phase = torch.zeros(N, dtype=torch.bool, device=dev)
+            rng_save = torch.zeros(N, dtype=torch.int64, device=dev)
 
     rng = pr.Pcg(pr.pcg_seed(lane, seed_i))
     o = [z, z, z]
@@ -606,11 +667,20 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
     one = torch.ones_like(z)
     counts = torch.zeros(5, dtype=torch.int64, device=dev)
     it = 0
-    while it < pk.max_iters and bool((samples < spp).any()):
+    iters_cap = 2 * pk.max_iters if two_phase else pk.max_iters
+    wl = wt if grads else None
+    while it < iters_cap and bool((samples < spp).any()):
         act = samples < spp         # the kernels' threads still looping
         need = ~alive & act
         if stats is not None:
             counts[0] += (samples < spp).sum()
+        if two_phase:
+            # phase A saves the stream at the sample's start, phase B
+            # replays it; the cotangent is zero in phase A
+            phB = phase
+            rng.s = torch.where(need & phB, rng_save, rng.s)
+            rng_save = torch.where(need & ~phB, rng.s, rng_save)
+            wl = [torch.where(phB, wt[i], 0.0) for i in range(3)]
         nd = camera_ray(rng, samples)
         o = pr.sel3(need, cam_o, o)
         d = pr.sel3(need, nd, d)
@@ -640,6 +710,14 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
         if fc is None:
             d_s = -torch.log1p(-u_dist) * inv_st
             surface = (d_s > t_eff) & hit
+        elif grid:
+            # K1's march: the inverted distance and tau(t_eff)
+            d_s, tau_cap = pr.grid_sample_free_and_tau(
+                fc, sigma_t, o, d, u_dist, t_eff)
+            surface = (d_s > t_eff) & hit
+            alive = alive & ((d_s < 0.5 * BIG) | surface)
+            if stats is not None:
+                counts[3] += act.sum()
         else:
             # K1's field free flight and draws; an escaped flight kills the
             # lane (its score would weight no future contribution)
@@ -657,6 +735,13 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
             if fc is None:
                 k_sc = torch.where(shade_pre, -t_eff,
                                    torch.where(medium, inv_st - d_s, 0.0))
+            elif grid:
+                # p(d) = sigma_t rho_pc(d) e^{-sigma_t I(d)}: both optical
+                # paths come from the sampling march
+                I_surf = tau_cap * inv_st
+                I_med = -torch.log1p(-u_dist) * inv_st
+                k_sc = torch.where(shade_pre, -I_surf,
+                                   torch.where(medium, inv_st - I_med, 0.0))
             else:
                 # p(d) = sigma_t dens(x_d) e^{-sigma_t I(d)}, P(surface) =
                 # e^{-sigma_t I(t)}: dlog/dsigma = 1/sigma_t - I(d) | -I(t);
@@ -667,9 +752,26 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
                 I_med = pr.field_tau(fc, 1.0, o, d, d_det)
                 k_sc = torch.where(shade_pre, -I_surf,
                                    torch.where(medium, inv_st - I_med, 0.0))
-            wL0 = _wdot(wt, Lps)
+            wL0 = _wdot(wl, Lps)
             acc["A_st"] = acc["A_st"] + k_sc
             acc["B_st"] = acc["B_st"] + k_sc * wL0
+            if two_phase:
+                # the voxel event scores, at once (phase B knows wLtot):
+                # dlog P(surface)/dv = -sigma dI(t)/dv; dlog p(d)/dv =
+                # dlog rho_pc(d)/dv - sigma dI(d)/dv
+                w_sc = torch.where(phB & (shade_pre | medium),
+                                   acc["wLtot"] - wL0, 0.0)
+                t_detg = torch.where(shade_pre, t_eff, 0.0)
+                d_detg = torch.where(medium & (d_s < 0.5 * BIG), d_s, 0.0)
+                pr.grid_march_scatter(
+                    fc, o, d, torch.where(shade_pre, -sigma_t * w_sc, 0.0),
+                    t_detg, torch.where(medium, -sigma_t * w_sc, 0.0),
+                    d_detg, gg, gabs)
+                x_pc, rho_pc = pr.grid_pc_point(fc, o, d, d_detg)
+                pr.grid_scatter_point(
+                    fc, x_pc, torch.where(
+                        medium, w_sc / torch.clamp_min(rho_pc, 1e-30), 0.0),
+                    gg, gabs)
             if n_fp:
                 # field-parameter event scores: dlog p(d)/dtheta = dlog
                 # dens(x_d)/dtheta - sigma dI(d)/dtheta (medium), dlog
@@ -696,7 +798,7 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
                 m = credit & (at["sid"] == e)
                 for i in range(3):
                     acc[("rad", e, i)] = acc[("rad", e, i)] + torch.where(
-                        m, wt[i] * tp[i], 0.0)
+                        m, wl[i] * tp[i], 0.0)
         shade = alive & surface & ~em_hit
 
         ldp, ldp_coef, ldp_lam, dist_ls = plight_term(at, xs, nrm, d, lc,
@@ -706,9 +808,11 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
         else:
             inv_dl = 1.0 / torch.clamp_min(dist_ls, 1e-20)
             wlight = [(lc[i] - xs[i]) * inv_dl for i in range(3)]
-            att_pl = pr.field_tau(fc, 1.0, xs, wlight, dist_ls)
+            att_pl = pr.field_tau(fc, 1.0, xs, wlight, dist_ls, nonneg=True)
         trs = torch.exp(-sigma_t * att_pl)
-        ldm, misp = mis_v2(rng, at, xs, nrm, d)
+        wtp = ([wl[i] * tp[i] * inv_cp for i in range(3)] if two_phase
+               else None)
+        ldm, misp = mis_v2(rng, at, xs, nrm, d, wtp)
         for i in range(3):
             add = torch.where(
                 shade, (ldp[i] * trs * inv_ps + ldm[i]) * tp[i] * inv_cp, 0.0)
@@ -717,9 +821,15 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
         if grads:
             gs = z
             for i in range(3):
-                gs = gs + wt[i] * (ldp[i] * trs * (-att_pl) * inv_ps
+                gs = gs + wl[i] * (ldp[i] * trs * (-att_pl) * inv_ps
                                    + misp["dsig"][i]) * tp[i] * inv_cp
             acc["g_st"] = acc["g_st"] + torch.where(shade, gs, 0.0)
+            if two_phase:
+                gpl = z
+                for i in range(3):
+                    gpl = gpl + (wl[i] * ldp[i] * trs * inv_ps * tp[i]
+                                 * inv_cp)
+                gpl = torch.where(shade, gpl, 0.0)
             if n_fp:
                 # the field-parameter terms of pLight's and the MIS light
                 # strategy's transmittances
@@ -727,7 +837,7 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
                 for f in range(n_fp):
                     gk = z
                     for i in range(3):
-                        gk = gk + wt[i] * (
+                        gk = gk + wl[i] * (
                             ldp[i] * trs * (-sigma_t * dI_pl[f]) * inv_ps
                             + misp["dk"][f][i]) * tp[i] * inv_cp
                     acc[("g_fp", f)] = acc[("g_fp", f)] + torch.where(
@@ -735,21 +845,21 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
             for e in em:
                 m = shade & (lid == e)
                 for i in range(3):
-                    g = torch.where(m, wt[i] * ldp_coef[i] * trs * inv_ps
+                    g = torch.where(m, wl[i] * ldp_coef[i] * trs * inv_ps
                                     * tp[i] * inv_cp, 0.0)
                     if e in misp["drad"]:
                         g = g + torch.where(
-                            shade, wt[i] * misp["drad"][e][i] * tp[i] * inv_cp,
+                            shade, wl[i] * misp["drad"][e][i] * tp[i] * inv_cp,
                             0.0)
                     g = g + torch.where(
                         shade & (misp["sid2"] == e),
-                        wt[i] * misp["dle"][i] * tp[i] * inv_cp, 0.0)
+                        wl[i] * misp["dle"][i] * tp[i] * inv_cp, 0.0)
                     acc[("rad", e, i)] = acc[("rad", e, i)] + g
             for s in dp.alb_ids:
                 m = shade & (at["sid"] == s)
                 for i in range(3):
                     acc[("alb", s, i)] = acc[("alb", s, i)] + torch.where(
-                        m, wt[i] * (ldp_lam[i] * trs * inv_ps
+                        m, wl[i] * (ldp_lam[i] * trs * inv_ps
                                     + misp["dalb"][i]) * tp[i] * inv_cp, 0.0)
 
         fs, wi_s, pdf_b = pr.sample_bsdf(rng, at, d, nrm)
@@ -777,10 +887,22 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
             gs = z
             gx = z
             for i in range(3):
-                gs = gs + wt[i] * adds[i] * (-att_nee + med_dsig)
-                gx = gx + wt[i] * adds[i]
+                gs = gs + wl[i] * adds[i] * (-att_nee + med_dsig)
+                gx = gx + wl[i] * adds[i]
             acc["g_st"] = acc["g_st"] + gs
             acc["g_ssx"] = acc["g_ssx"] + gx * inv_ss
+            if two_phase:
+                # the pathwise voxel terms of the NEE transmittances: pLight
+                # (shade) and medium NEE (medium), one merged march, and
+                # the MIS light-strategy rays
+                pr.grid_march_scatter(
+                    fc, pr.sel3(shade, xs, xt), pr.sel3(shade, wlight, wl_nee),
+                    (-sigma_t) * (gpl + gx), torch.where(shade, dist_ls, t_nee),
+                    z, z, gg, gabs)
+                for w_e, wc_e, dist_e in misp["scat"]:
+                    pr.grid_march_scatter(
+                        fc, xs, wc_e, torch.where(shade, -sigma_t * w_e, 0.0),
+                        dist_e, z, z, gg, gabs)
             if n_fp:
                 # the medium-NEE transmittance's field-parameter term, the
                 # inputs gated on medium (an escaped lane's xt is at BIG)
@@ -798,13 +920,13 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
                 m = medium & (lid == e)
                 for i in range(3):
                     acc[("rad", e, i)] = acc[("rad", e, i)] + torch.where(
-                        m, wt[i] * w_med * inv_ps * tp[i] * med_scale, 0.0)
+                        m, wl[i] * w_med * inv_ps * tp[i] * med_scale, 0.0)
         tp_medium = [tp[i] * med_scale for i in range(3)]
 
         if grads:
             # deferred log-throughput factors vs the L-prefix after this
             # bounce's emissions
-            wL1 = _wdot(wt, Lps)
+            wL1 = _wdot(wl, Lps)
             k_med_st = torch.where(medium, med_dsig, 0.0)
             k_med_ssx = torch.where(medium, inv_ss, 0.0)
             acc["A_st"] = acc["A_st"] + k_med_st
@@ -823,7 +945,7 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
                 for i in range(3):
                     a_si = alb[s, i]
                     inv_a = torch.where(a_si > 0.0, 1.0 / a_si, 0.0)
-                    k = torch.where(m, wt[i] * inv_a, 0.0)
+                    k = torch.where(m, wl[i] * inv_a, 0.0)
                     acc[("A_alb", s, i)] = acc[("A_alb", s, i)] + k
                     acc[("B_alb", s, i)] = acc[("B_alb", s, i)] + k * Lps[i]
 
@@ -841,10 +963,19 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
         alive2 = (shade | medium) & (depth + 1 < pk.max_bounces)
         depth = torch.where(alive2, depth + 1, depth)
         finished = was_alive & ~alive2
-        samples = samples + finished.to(torch.int64)
+        if two_phase:
+            # phase A ends: the sample's weighted total with the raw
+            # cotangent, then its replay; phase B ends the sample
+            finA = finished & ~phase
+            finB = finished & phase
+            acc["wLtot"] = torch.where(finA, _wdot(wt, Lps), acc["wLtot"])
+            phase = (phase | finA) & ~finB
+            samples = samples + finB.to(torch.int64)
+        else:
+            samples = samples + finished.to(torch.int64)
         if grads:
             # fold the deferred pairs: A * L_total - B at path death
-            WL = _wdot(wt, Lps)
+            WL = _wdot(wl, Lps)
             for g, a, b in (("g_st", "A_st", "B_st"),
                             ("g_ssx", "A_ssx", "B_ssx"),
                             *((("g_g", "A_g", "B_g"),) if traced_g else ()),
@@ -894,27 +1025,40 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
     for e in em:
         for i in range(3):
             G[:, 2 + 3 * S + 3 * e + i] = acc[("rad", e, i)]
+    if two_phase:
+        return (G, gg.reshape(pk.grid.dims).to(torch.float32),
+                gabs.reshape(pk.grid.dims).to(torch.float32))
     return G
 
 
 def diff_fwd_plain(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
-                   stats: dict | None = None) -> torch.Tensor:
+                   stats: dict | None = None,
+                   tab: torch.Tensor | None = None) -> torch.Tensor:
     """Plain torch K2 on pvec.device: (npix, 3) float32 radiance / spp.
     `stats`, if given, gains the lockstep loop's thread-iterations and its
-    shading and medium events."""
+    shading and medium events. tab: a grid's packed table (default: the
+    scene's)."""
     with torch.no_grad():
-        return _diff_body(dp, pvec, seed, stats=stats)
+        return _diff_body(dp, pvec, seed, stats=stats, tab=tab)
 
 
 def diff_bwd_plain(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
                    gbar: torch.Tensor, per_lane: bool = False,
-                   stats: dict | None = None) -> torch.Tensor:
+                   stats: dict | None = None,
+                   tab: torch.Tensor | None = None, voxel_abs: bool = False):
     """Plain torch K3: the packed gradient (P,) of sum(image * gbar), or,
     with per_lane=True, each pixel's contribution (npix, P) before the
-    sum."""
+    sum. With diff_grid: (that, the voxel gradient in the grid's shape),
+    and with voxel_abs=True the sum of its terms' absolute values per
+    voxel third (the scale its sum-order rounding is held to)."""
     with torch.no_grad():
-        G = _diff_body(dp, pvec, seed, gbar.to(torch.float32), stats=stats)
-    return G if per_lane else G.sum(0)
+        out = _diff_body(dp, pvec, seed, gbar.to(torch.float32), stats=stats,
+                         tab=tab)
+    if not dp.diff_grid:
+        return out if per_lane else out.sum(0)
+    G, gg, gabs = out
+    G = G if per_lane else G.sum(0)
+    return (G, gg, gabs) if voxel_abs else (G, gg)
 
 
 # ---------------------------------------------------------------------------
@@ -952,28 +1096,47 @@ def _launch(name: str, dp: DiffPacked, dev: torch.device, *ptrs) -> None:
                            f"{_build.error_string(err)} ({err})")
 
 
-def diff_fwd(dp: DiffPacked, pvec: torch.Tensor,
-             seed: torch.Tensor) -> torch.Tensor:
+def _grid_tab(dp: DiffPacked, dev, tab):
+    """A grid's table argument for a launch: the given one or the
+    scene's, on dev; () without a grid."""
+    if dp.pk.grid is None:
+        return ()
+    tab = dp.pk.table(dev) if tab is None else tab
+    if tab.dtype != torch.int32 or tab.device != dev or not tab.is_contiguous() \
+            or tab.numel() != int(np.prod(dp.pk.grid.dims)):
+        raise ValueError(f"the grid's table must be a contiguous int32 "
+                         f"tensor of {int(np.prod(dp.pk.grid.dims))} words "
+                         f"on {dev}")
+    return (tab.data_ptr(),)
+
+
+def diff_fwd(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
+             tab: torch.Tensor | None = None) -> torch.Tensor:
     """K2 on pvec.device: (npix, 3) float32 radiance / spp. A CUDA tensor
     launches csrc/diff.cu on the current stream without synchronising; a
-    CPU tensor runs diff_fwd_plain."""
+    CPU tensor runs diff_fwd_plain. tab: a grid's packed table
+    (prims.grid_table; default: the scene's)."""
     _check_inputs(dp, pvec, seed)
     if pvec.device.type == "cpu":
-        return diff_fwd_plain(dp, pvec, seed)
+        return diff_fwd_plain(dp, pvec, seed, tab=tab)
     out = torch.empty((dp.npix, 3), dtype=torch.float32, device=pvec.device)
     _launch(dp.entries[0], dp, pvec.device, pvec.data_ptr(),
-            seed.data_ptr(), out.data_ptr())
+            seed.data_ptr(), out.data_ptr(),
+            *_grid_tab(dp, pvec.device, tab))
     LAUNCHES_BY[dp.entries[0]] = LAUNCHES_BY.get(dp.entries[0], 0) + 1
     return out
 
 
 def diff_bwd(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
-             gbar: torch.Tensor, per_lane: bool = False) -> torch.Tensor:
+             gbar: torch.Tensor, per_lane: bool = False,
+             tab: torch.Tensor | None = None):
     """K3 on pvec.device: the packed gradient (P,) of sum(image * gbar).
     The kernel writes one deterministic partial P-vector per block; they
     are summed here. per_lane=True returns each pixel's own vector (npix,
     P) instead, as diff_bwd_plain does (for checks: the kernel then also
-    writes them out). A CPU tensor runs diff_bwd_plain."""
+    writes them out). With diff_grid: (that, the voxel gradient in the
+    grid's shape), added by the kernel with atomics. A CPU tensor runs
+    diff_bwd_plain. tab: a grid's packed table (default: the scene's)."""
     _check_inputs(dp, pvec, seed)
     gbar = gbar.contiguous()        # mean()'s cotangent is an expanded view
     if gbar.dtype != torch.float32 or tuple(gbar.shape) != (dp.npix, 3) \
@@ -981,7 +1144,8 @@ def diff_bwd(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
         raise ValueError(f"gbar must be float32 ({dp.npix}, 3) on "
                          f"{pvec.device}")
     if pvec.device.type == "cpu":
-        return diff_bwd_plain(dp, pvec, seed, gbar, per_lane=per_lane)
+        return diff_bwd_plain(dp, pvec, seed, gbar, per_lane=per_lane,
+                              tab=tab)
     from . import _build
 
     threads = _build.load().vpt_diff_block_threads()
@@ -989,28 +1153,41 @@ def diff_bwd(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
                            dtype=torch.float32, device=pvec.device)
     lanes = (torch.empty((dp.npix, dp.P), dtype=torch.float32,
                          device=pvec.device) if per_lane else None)
+    grid_args = ()
+    if dp.pk.grid is not None:
+        gg = (torch.zeros(dp.pk.grid.dims, dtype=torch.float32,
+                          device=pvec.device) if dp.diff_grid else None)
+        grid_args = (*_grid_tab(dp, pvec.device, tab),
+                     None if gg is None else gg.data_ptr())
     _launch(dp.entries[1], dp, pvec.device, pvec.data_ptr(),
             seed.data_ptr(), gbar.data_ptr(), partials.data_ptr(),
-            lanes.data_ptr() if per_lane else None)
+            lanes.data_ptr() if per_lane else None, *grid_args)
     LAUNCHES_BY[dp.entries[1]] = LAUNCHES_BY.get(dp.entries[1], 0) + 1
-    return lanes if per_lane else partials.sum(0)
+    G = lanes if per_lane else partials.sum(0)
+    return (G, gg) if dp.diff_grid else G
 
 
 class _DiffRender(torch.autograd.Function):
     """image = K2(pvec, seed); d(image . gbar)/d(pvec) = K3(pvec, seed,
-    gbar), a replay of the same paths (vpt's custom VJP)."""
+    gbar), a replay of the same paths (vpt's custom VJP). With diff_grid
+    the voxel values are a second input: their table is rebuilt on their
+    device at each call, and K3 returns their gradient."""
 
     @staticmethod
-    def forward(ctx, pvec, seed, dp):
-        ctx.save_for_backward(pvec, seed)
+    def forward(ctx, pvec, seed, dp, values=None):
+        tab = None if values is None else pr.grid_table(values)
+        ctx.save_for_backward(pvec, seed, tab)
         ctx.dp = dp
-        return diff_fwd(dp, pvec, seed)
+        return diff_fwd(dp, pvec, seed, tab)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gbar):
-        pvec, seed = ctx.saved_tensors
-        return diff_bwd(ctx.dp, pvec, seed, gbar), None, None
+        pvec, seed, tab = ctx.saved_tensors
+        if not ctx.dp.diff_grid:
+            return diff_bwd(ctx.dp, pvec, seed, gbar), None, None, None
+        gvec, ggrid = diff_bwd(ctx.dp, pvec, seed, gbar, tab=tab)
+        return gvec, None, None, ggrid
 
 
 def make_diff_renderer(scene: Scene, camera: Camera, width: int, height: int,
@@ -1022,16 +1199,16 @@ def make_diff_renderer(scene: Scene, camera: Camera, width: int, height: int,
                        diff_grid: bool = False, device="cuda"):
     """Build render(params, seed) -> (npix, 3) on `device`, differentiable
     with respect to params (pack_params; with_g=True for diff_g,
-    with_field=True for diff_field, with_blobs=True for diff_blobs) through
-    torch autograd. "cuda" runs K2/K3 (their field instantiations in a
-    density field, their HG ones at a g != 0 or with diff_g) or raises;
-    "cpu" runs their plain versions."""
-    if diff_grid:
-        raise _todo("voxel-grid gradients (diff_grid)", "7")
+    with_field=True for diff_field, with_blobs=True for diff_blobs,
+    with_grid=True for diff_grid) through torch autograd. "cuda" runs K2/K3
+    (their field instantiations in an analytic density field, their grid
+    ones in a voxel grid, their HG ones at a g != 0 or with diff_g) or
+    raises; "cpu" runs their plain versions."""
     if distance != "free":
-        raise _todo(f"distance={distance!r}", "4 (follow-up)")
+        raise _todo(f"distance={distance!r}" + (" (with diff_grid)"
+                                                 if diff_grid else ""), "4.4")
     if physical or not nee:
-        raise _todo("the physical and implicit estimators", "4 (follow-up)")
+        raise _todo("the physical and implicit estimators", "4.4")
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("make_diff_renderer(device='cuda'): "
@@ -1039,9 +1216,11 @@ def make_diff_renderer(scene: Scene, camera: Camera, width: int, height: int,
     dp = pack_diff(scene, camera, width, height, spp,
                    continue_prob=continue_prob, max_bounces=max_bounces,
                    sampler=sampler, jitter=jitter, diff_g=diff_g,
-                   diff_field=diff_field, diff_blobs=diff_blobs)
+                   diff_field=diff_field, diff_blobs=diff_blobs,
+                   diff_grid=diff_grid)
     S = dp.pk.S
-    traced = {"g": diff_g, "fog_k": diff_field, "blobs": diff_blobs}
+    traced = {"g": diff_g, "fog_k": diff_field, "blobs": diff_blobs,
+              "grid": diff_grid}
 
     def render(params: dict, seed) -> torch.Tensor:
         for leaf, flag in traced.items():
@@ -1055,6 +1234,12 @@ def make_diff_renderer(scene: Scene, camera: Camera, width: int, height: int,
             seed_t = seed.to(device=dev, dtype=torch.int32).reshape(1)
         else:
             seed_t = torch.tensor([int(seed)], dtype=torch.int32, device=dev)
+        if diff_grid:
+            vals = params["grid"]
+            if tuple(vals.shape) != dp.pk.grid.dims:
+                raise ValueError(f"a 'grid' leaf of shape {tuple(vals.shape)}"
+                                 f"; the scene's grid is {dp.pk.grid.dims}")
+            return _DiffRender.apply(pvec, seed_t, dp, vals.to(dev))
         return _DiffRender.apply(pvec, seed_t, dp)
 
     def make_shard(n_tiles: int):

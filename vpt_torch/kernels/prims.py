@@ -661,7 +661,11 @@ def _exp_clip(x):
 
 
 def field_density(fc: FieldConsts, x):
-    """Density multiplier d(x); x is a list of 3 lane tensors."""
+    """Density multiplier d(x); x is a list of 3 lane tensors. A grid's is
+    its trilinear appearance density, whatever its transport
+    interpolant."""
+    if fc.kind == "grid":
+        return grid_density(fc, x)
     if fc.kind == "exp_height":
         return _exp_clip(-fc.k * (x[1] - fc.y0))
     dens = None
@@ -672,11 +676,15 @@ def field_density(fc: FieldConsts, x):
     return dens
 
 
-def field_tau(fc: FieldConsts, sigma_t, o, d, t):
+def field_tau(fc: FieldConsts, sigma_t, o, d, t, nonneg=False):
     """Optical depth sigma_t * int_0^t d(o + s dir) ds along unit d, closed
-    form. exp_height keeps vpt's f32 rails: the +-80 exponent clip, the
-    constant-density limit at |k d_y| < 1e-6, the monotone lower bound
-    t min(d0, d_end), odd in t, and the +-TAU_CAP clip."""
+    form, or for a grid its canonical march (grid_tau; nonneg=True, where
+    every t >= 0, skips the reverse march). exp_height keeps vpt's f32
+    rails: the +-80 exponent clip, the constant-density limit at |k d_y| <
+    1e-6, the monotone lower bound t min(d0, d_end), odd in t, and the
+    +-TAU_CAP clip."""
+    if fc.kind == "grid":
+        return grid_tau(fc, sigma_t, o, d, t, nonneg=nonneg)
     if fc.kind == "exp_height":
         d0 = _exp_clip(-fc.k * (o[1] - fc.y0))
         d_end = _exp_clip(-fc.k * (o[1] + t * d[1] - fc.y0))
@@ -703,8 +711,9 @@ def field_tau(fc: FieldConsts, sigma_t, o, d, t):
 
 
 def field_tr_toward(fc: FieldConsts, sigma_t, x, target_dir, dist):
-    """exp(-tau) from x along unit target_dir for dist."""
-    return torch.exp(-field_tau(fc, sigma_t, x, target_dir, dist))
+    """exp(-tau) from x along unit target_dir for dist >= 0."""
+    return torch.exp(-field_tau(fc, sigma_t, x, target_dir, dist,
+                                nonneg=True))
 
 
 def field_tau_dk(fc: FieldConsts, o, d, t):
@@ -809,3 +818,333 @@ def field_sample_free(fc: FieldConsts, sigma_t, inv_maj_rate, o, d, u, rng,
         t = torch.where(done, t, t_new)
         done = done | accept | (t_new > t_cap)
     return torch.where(done, t, BIG)
+
+
+# --- voxel grids (vpt/kernels/prims.py:630-890, 1090-1207) ----------------
+#
+# `gc` is a GridConsts: the grid's geometry folded as vpt's _scene_consts
+# bakes it (python floats rounded to f32: origin, 1/spacing, the clamp
+# rails, the window cap, 1/M1 and 1/M2 folded in float64) and its packed
+# table, the int32 words of grid_table on the lanes' device. Transport is
+# the canonical piecewise-constant ray model: a constant head on [0, t0],
+# M1 midpoint segments over [t0, ta] and M2 over [ta, tb], a constant tail
+# beyond tb (grid_window); the optical depth, the free-flight inversion and
+# every transmittance come from the same segments.
+
+
+@dataclasses.dataclass(frozen=True)
+class GridConsts:
+    kind: str           # "grid"
+    dims: tuple         # (nx, ny, nz)
+    org: tuple          # world min corner, f32
+    inv_sp: tuple       # f32(1 / spacing)
+    lo: tuple           # clamp rails org + spacing / 2, f32
+    hi: tuple           # clamp rails org + (n - 1/2) spacing, f32
+    cap: float          # march_extent * the grid's diagonal, f32
+    n_march: int
+    m1: int             # segments of region A (the box crossing)
+    inv_m1: float       # f32(1 / M1)
+    inv_m2: float       # f32(1 / (M - M1))
+    nearest: bool       # transport interpolant xy-nearest / z-linear
+    tab: object = None  # int32 (T,) packed words on the lanes' device
+
+
+def grid_m_split(M: int):
+    """vpt's split of the n_march budget: M - max(1, M // 4) segments to
+    region A, the rest to region B."""
+    m2 = max(1, M // 4)
+    return M - m2, m2
+
+
+def grid_consts(field, device="cpu", tab=None) -> GridConsts:
+    """GridConsts of a voxel-grid DensityField, folded as vpt's
+    _scene_consts folds them (vpt/kernels/wavefront.py:101-126); tab
+    defaults to grid_table(field.params) on `device`."""
+    from ..media.density import grid_rails
+
+    nx, ny, nz = (int(n) for n in field.params.shape)
+    lo, hi = grid_rails(field)
+    diag = float(np.sqrt(sum((n * sp) ** 2 for n, sp in
+                             zip((nx, ny, nz), field.grid_spacing))))
+    M = int(field.n_march)
+    m1, m2 = grid_m_split(M)
+    if tab is None:
+        tab = grid_table(field.params).to(device)
+    return GridConsts(
+        kind="grid", dims=(nx, ny, nz),
+        org=tuple(f32(v) for v in field.grid_origin),
+        inv_sp=tuple(f32(1.0 / float(v)) for v in field.grid_spacing),
+        lo=tuple(f32(v) for v in lo), hi=tuple(f32(v) for v in hi),
+        cap=f32(float(field.march_extent) * diag), n_march=M, m1=m1,
+        inv_m1=f32(1.0 / float(m1)), inv_m2=f32(1.0 / float(m2)),
+        nearest=field.transport_interp == "nearest", tab=tab)
+
+
+def _u32_as_f32(x: torch.Tensor) -> torch.Tensor:
+    """uint32 bit patterns held in int64 -> float32 values."""
+    return ((x ^ 0x80000000) - 0x80000000).to(torch.int32).view(torch.float32)
+
+
+def grid_table(values: torch.Tensor) -> torch.Tensor:
+    """vpt's grid_table packing as int32 words (T,): word j holds bf16(g[j])
+    in its high 16 bits and bf16(g[j + 1]) in its low 16 (the last word
+    repeats g[T - 1]), rounded to nearest even as astype(bfloat16) rounds.
+    Elementwise, on the values' device; vpt's padding of the table to
+    (8k, 128) words is a TPU layout rule and is left out."""
+    flat = values.detach().reshape(-1).to(torch.float32)
+    u = flat.to(torch.bfloat16).view(torch.int16).to(torch.int64) & 0xFFFF
+    nxt = torch.cat([u[1:], u[-1:]])
+    word = (u << 16) | nxt
+    return ((word ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
+def grid_lookup_pair(tab: torch.Tensor, idx: torch.Tensor):
+    """(g[idx], g[idx + 1]) as the bf16 values of one table word."""
+    w = tab[idx].to(torch.int64) & 0xFFFFFFFF
+    return _u32_as_f32(w & 0xFFFF0000), _u32_as_f32((w << 16) & 0xFFFFFFFF)
+
+
+def _grid_u(gc: GridConsts, x, i):
+    return torch.clamp((x[i] - gc.org[i]) * gc.inv_sp[i] - 0.5, 0.0,
+                       gc.dims[i] - 1.0)
+
+
+def _trunc(u, hi: int):
+    # u >= 0 after the clip, so truncation is vpt's astype(int32); a NaN
+    # coordinate lands on cell 0
+    return torch.clamp(torch.nan_to_num(u, nan=0.0).to(torch.int64), 0, hi)
+
+
+def grid_cell(gc: GridConsts, x):
+    """Clamped trilinear cell of x: (base flat index, fx, fy, fz)."""
+    nx, ny, nz = gc.dims
+    ux, uy, uz = (_grid_u(gc, x, i) for i in range(3))
+    ix, iy, iz = _trunc(ux, nx - 2), _trunc(uy, ny - 2), _trunc(uz, nz - 2)
+    fx = torch.clamp(ux - ix.to(torch.float32), 0.0, 1.0)
+    fy = torch.clamp(uy - iy.to(torch.float32), 0.0, 1.0)
+    fz = torch.clamp(uz - iz.to(torch.float32), 0.0, 1.0)
+    return (ix * ny + iy) * nz + iz, fx, fy, fz
+
+
+def grid_density(gc: GridConsts, x):
+    """Trilinear clamp-to-edge density from four z-pair words."""
+    nz = gc.dims[2]
+    snx = gc.dims[1] * nz
+    base, fx, fy, fz = grid_cell(gc, x)
+    c000, c001 = grid_lookup_pair(gc.tab, base)
+    c010, c011 = grid_lookup_pair(gc.tab, base + nz)
+    c100, c101 = grid_lookup_pair(gc.tab, base + snx)
+    c110, c111 = grid_lookup_pair(gc.tab, base + snx + nz)
+    c00 = c000 + (c001 - c000) * fz
+    c01 = c010 + (c011 - c010) * fz
+    c10 = c100 + (c101 - c100) * fz
+    c11 = c110 + (c111 - c110) * fz
+    c0 = c00 + (c01 - c00) * fy
+    c1 = c10 + (c11 - c10) * fy
+    return c0 + (c1 - c0) * fx
+
+
+def grid_cell_nearest(gc: GridConsts, x):
+    """(base flat index, fz) of the xy-nearest / z-linear interpolant."""
+    nx, ny, nz = gc.dims
+    ux, uy, uz = (_grid_u(gc, x, i) for i in range(3))
+    rx = _trunc(ux + 0.5, nx - 1)
+    ry = _trunc(uy + 0.5, ny - 1)
+    iz = _trunc(uz, nz - 2)
+    fz = torch.clamp(uz - iz.to(torch.float32), 0.0, 1.0)
+    return (rx * ny + ry) * nz + iz, fz
+
+
+def grid_density_nearest(gc: GridConsts, x):
+    base, fz = grid_cell_nearest(gc, x)
+    c0, c1 = grid_lookup_pair(gc.tab, base)
+    return c0 + (c1 - c0) * fz
+
+
+def grid_pc_eval(gc: GridConsts, x):
+    """A density of the transport model: the grid's interpolant."""
+    return grid_density_nearest(gc, x) if gc.nearest else grid_density(gc, x)
+
+
+def grid_window(gc: GridConsts, o, d):
+    """(t0, ta, tb): the constant head before the slab entry t0, region A
+    to ta (the box crossing), region B to tb (the boundary slide to the
+    railing distance), the window capped at gc.cap."""
+    t_rail = torch.zeros_like(o[0])
+    t_enter = torch.full_like(o[0], -BIG)
+    t_exit = torch.full_like(o[0], BIG)
+    for i in range(3):
+        lo_r, hi_r = gc.lo[i], gc.hi[i]
+        di, oi = d[i], o[i]
+        moving = torch.abs(di) > 1e-12
+        inv = 1.0 / torch.where(moving, di, 1.0)
+        rail = torch.where(di > 0.0, hi_r, lo_r)
+        t_rail = torch.maximum(t_rail,
+                               torch.where(moving, (rail - oi) * inv, 0.0))
+        ta = (lo_r - oi) * inv
+        tb = (hi_r - oi) * inv
+        inside = (oi >= lo_r) & (oi <= hi_r)
+        near = torch.where(moving, torch.minimum(ta, tb),
+                           torch.where(inside, -BIG, BIG))
+        far = torch.where(moving, torch.maximum(ta, tb),
+                          torch.where(inside, BIG, -BIG))
+        t_enter = torch.maximum(t_enter, near)
+        t_exit = torch.minimum(t_exit, far)
+    box_hit = (t_enter <= t_exit) & (t_exit > 0.0)
+    t0 = torch.where(box_hit, torch.clamp_min(t_enter, 0.0), 0.0)
+    ta = torch.where(box_hit,
+                     torch.minimum(torch.minimum(t_exit, t_rail),
+                                   t0 + gc.cap),
+                     torch.clamp_max(t_rail, gc.cap) * 0.75)
+    ta = torch.maximum(ta, t0 + 1e-6)
+    tb = torch.minimum(t_rail, ta + gc.cap)
+    tb = torch.maximum(tb, ta + 1e-6)
+    return t0, ta, tb
+
+
+def _grid_segs(gc: GridConsts, t0, ta, tb):
+    """(seg0, width) of the canonical segments, in order."""
+    h1 = (ta - t0) * gc.inv_m1
+    h2 = (tb - ta) * gc.inv_m2
+    for i in range(gc.n_march):
+        if i < gc.m1:
+            yield t0 + float(i) * h1, h1
+        else:
+            yield ta + float(i - gc.m1) * h2, h2
+
+
+def _ray(o, d, t):
+    return [o[j] + t * d[j] for j in range(3)]
+
+
+def grid_tau_nonneg(gc: GridConsts, sigma_t, o, d, t):
+    """The model's optical depth for t >= 0."""
+    t0, ta, tb = grid_window(gc, o, d)
+    acc = torch.zeros_like(o[0])
+    for seg0, w in _grid_segs(gc, t0, ta, tb):
+        rho = grid_pc_eval(gc, _ray(o, d, seg0 + 0.5 * w))
+        acc = acc + rho * torch.clamp(t - seg0, torch.zeros_like(w), w)
+    h2 = (tb - ta) * gc.inv_m2
+    rho_head = grid_pc_eval(gc, [o[j] + 0.5 * t0 * d[j] for j in range(3)])
+    d_inf = grid_pc_eval(gc, _ray(o, d, tb + h2))
+    return sigma_t * (rho_head * torch.minimum(t, t0) + acc
+                      + d_inf * torch.clamp_min(t - tb, 0.0))
+
+
+def grid_tau(gc: GridConsts, sigma_t, o, d, t, nonneg=False):
+    """Signed model optical depth: tau(t < 0) = -tau_reverse(-t) (equi-
+    angular samples behind the origin); nonneg=True skips the reverse
+    march."""
+    pos = grid_tau_nonneg(gc, sigma_t, o, d, torch.clamp_min(t, 0.0))
+    if nonneg:
+        return pos
+    neg = grid_tau_nonneg(gc, sigma_t, o, [-d[0], -d[1], -d[2]],
+                          torch.clamp_min(-t, 0.0))
+    return torch.where(t >= 0.0, pos, -neg)
+
+
+def grid_sample_free_and_tau(gc: GridConsts, sigma_t, o, d, u, t_cap):
+    """One march gives the free-flight distance (the exact inversion of the
+    model's tau at -log1p(-u)) and tau(t_cap). Returns (d_s, tau_at_cap);
+    d_s == BIG when the flight escapes."""
+    t0, ta, tb = grid_window(gc, o, d)
+    tau_star = -torch.log1p(-u)
+    rho_head = grid_pc_eval(gc, [o[j] + 0.5 * t0 * d[j] for j in range(3)])
+    tau_head = sigma_t * rho_head * t0
+    cum = tau_head
+    tau_cap = torch.zeros_like(o[0])
+    d_found = tau_cap - 1.0
+    for seg0, w in _grid_segs(gc, t0, ta, tb):
+        rho = grid_pc_eval(gc, _ray(o, d, seg0 + 0.5 * w))
+        dtau = sigma_t * rho * w
+        tau_cap = tau_cap + rho * torch.clamp(t_cap - seg0,
+                                              torch.zeros_like(w), w)
+        cross = (d_found < 0.0) & (cum + dtau > tau_star)
+        d_i = seg0 + (tau_star - cum) / torch.clamp_min(sigma_t * rho, 1e-30)
+        d_found = torch.where(cross, d_i, d_found)
+        cum = cum + dtau
+    h2 = (tb - ta) * gc.inv_m2
+    in_head = tau_star < tau_head
+    d_head = torch.minimum(
+        tau_star / torch.clamp_min(sigma_t * rho_head, 1e-30), t0)
+    d_inf = grid_pc_eval(gc, _ray(o, d, tb + h2))
+    rate = sigma_t * d_inf
+    d_tail = tb + (tau_star - cum) / torch.clamp_min(rate, 1e-30)
+    d_nf = torch.where(rate > 1e-20, torch.clamp_max(d_tail, BIG), BIG)
+    d_s = torch.where(in_head, d_head,
+                      torch.where(d_found >= 0.0, d_found, d_nf))
+    tau_at_cap = sigma_t * (rho_head * torch.minimum(t_cap, t0) + tau_cap
+                            + d_inf * torch.clamp_min(t_cap - tb, 0.0))
+    return d_s, tau_at_cap
+
+
+def grid_pc_point(gc: GridConsts, o, d, t):
+    """(x, rho): the model's sample point at ray parameter t >= 0 and its
+    density (the sampling pdf's density, grid_pc_density)."""
+    t0, ta, tb = grid_window(gc, o, d)
+    h1 = (ta - t0) * gc.inv_m1
+    h2 = (tb - ta) * gc.inv_m2
+    kA = torch.clamp(torch.floor((t - t0) / h1), 0.0, gc.m1 - 1.0)
+    kB = torch.clamp(torch.floor((t - ta) / h2), 0.0,
+                     gc.n_march - gc.m1 - 1.0)
+    t_mid = torch.where(t < ta, t0 + (kA + 0.5) * h1, ta + (kB + 0.5) * h2)
+    t_s = torch.where(t < t0, 0.5 * t0, torch.where(t > tb, tb + h2, t_mid))
+    x = _ray(o, d, t_s)
+    return x, grid_pc_eval(gc, x)
+
+
+def grid_pc_density(gc: GridConsts, o, d, t):
+    """The model's own density at ray parameter t >= 0."""
+    return grid_pc_point(gc, o, d, t)[1]
+
+
+def grid_scatter_point(gc: GridConsts, x, w, gacc, gabs=None, interp=None):
+    """gacc (T,) += w * d(interp(x))/d(voxels), summed over the lanes
+    (each term rounded to f32, then added in gacc's dtype); gabs, if given,
+    gains the absolute value of each added term. interp None is the grid's
+    transport interpolant; "tri" scatters a trilinear appearance factor in
+    a nearest-transport grid. Only nonzero terms are added."""
+    nz = gc.dims[2]
+    snx = gc.dims[1] * nz
+    nearest = gc.nearest if interp is None else interp == "nearest"
+    if nearest:
+        base, fz = grid_cell_nearest(gc, x)
+        terms = [(0, w * (1.0 - fz)), (1, w * fz)]
+    else:
+        base, fx, fy, fz = grid_cell(gc, x)
+        terms = []
+        for a in (0, 1):
+            wa = fx if a else 1.0 - fx
+            for b in (0, 1):
+                wb = fy if b else 1.0 - fy
+                for c in (0, 1):
+                    wc = fz if c else 1.0 - fz
+                    terms.append((a * snx + b * nz + c, w * wa * wb * wc))
+    for off, v in terms:
+        v = v.reshape(-1)
+        keep = v != 0.0
+        idx = (base + off).reshape(-1)[keep]
+        v = v[keep].to(gacc.dtype)
+        gacc.index_add_(0, idx, v)
+        if gabs is not None:
+            gabs.index_add_(0, idx, torch.abs(v))
+
+
+def grid_march_scatter(gc: GridConsts, o, d, wA, tA, wB, tB, gacc,
+                       gabs=None):
+    """gacc += d/dv of (wA I(tA) + wB I(tB)), I the model's optical path per
+    unit sigma along (o, d): each segment's overlap with [0, t] at its
+    midpoint, then the constant head and tail."""
+    t0, ta, tb = grid_window(gc, o, d)
+    for seg0, w in _grid_segs(gc, t0, ta, tb):
+        zw = torch.zeros_like(w)
+        cm = (wA * torch.clamp(tA - seg0, zw, w)
+              + wB * torch.clamp(tB - seg0, zw, w))
+        grid_scatter_point(gc, _ray(o, d, seg0 + 0.5 * w), cm, gacc, gabs)
+    h2 = (tb - ta) * gc.inv_m2
+    ch = wA * torch.minimum(tA, t0) + wB * torch.minimum(tB, t0)
+    grid_scatter_point(gc, [o[j] + 0.5 * t0 * d[j] for j in range(3)], ch,
+                       gacc, gabs)
+    ct = (wA * torch.clamp_min(tA - tb, 0.0)
+          + wB * torch.clamp_min(tB - tb, 0.0))
+    grid_scatter_point(gc, _ray(o, d, tb + h2), ct, gacc, gabs)

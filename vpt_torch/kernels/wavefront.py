@@ -24,7 +24,10 @@ material-3 shells are launch parameters. A medium with an analytic density
 field (exp_height or blobs, media/density.py) runs in a second set of
 instantiations, one per pair again (csrc/wavefront_field*.cu): the field
 is a compile-time parameter, so the homogeneous kernels keep their code,
-and exp_height against blobs is a uniform switch inside them.
+and exp_height against blobs is a uniform switch inside them. A voxel grid
+runs in a third set (csrc/wavefront_grid*.cu), which reads the grid's
+packed table (prims.grid_table, on the launch's device) beside the launch
+parameters; its transport interpolant is a launch parameter.
 
 Draw-order contract (what makes per-pixel parity with vpt possible): every
 iteration takes every draw the vpt body takes, in the same order, whether
@@ -37,16 +40,15 @@ cone draws. Without NEE the MIS and medium-NEE draws do not exist. The "ld"
 sampler's offsets come from a second PCG stream drawn once before the loop.
 A blobs field's free flight takes 2 * max_null more draws right after
 u_dist (delta tracking's u1, u2 per null step, taken whether or not the
-lane has accepted); exp_height takes none, and neither does equi-angular
-sampling in a field.
+lane has accepted); exp_height takes none, nor does a grid (its free
+flight inverts the march of its transport model with u_dist), nor
+equi-angular sampling in a field.
 
 Lanes and pixels: a lane renders pixel min(lane, npix - 1) and seeds its
 PCG streams with the lane id, as vpt's tiles do. ``render_raw`` returns
 per-lane radiance sums for contiguous tiles (vpt's ``make_raw``) or for a
 list of tile bases in one launch (``make_raw_scatter``, the second pass of
 adaptive sampling). A tile is LANES_PER_TILE lanes.
-
-Not here: vpt's voxel grids (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -95,6 +97,10 @@ KERNEL_ENTRIES = {
 # the same pairs in an analytic density field (csrc/wavefront_field*.cu)
 FIELD_ENTRIES = {key: entry + "_field"
                  for key, entry in KERNEL_ENTRIES.items()}
+# and in a voxel grid (csrc/wavefront_grid*.cu), whose entries take the
+# grid's table
+GRID_ENTRIES = {key: entry + "_grid"
+                for key, entry in KERNEL_ENTRIES.items()}
 
 # Lanes per tile: the unit in which render_raw renders tiles and adaptive
 # sampling selects them. vpt's tile is one Pallas program, (32, 128) lanes
@@ -181,10 +187,14 @@ class Packed:
     hg_1mg2: float
     hg_1mg: float
     hg_inv2g: float
-    # the analytic density field (None: homogeneous) and 1/(sigma_t
+    # the density field (None: homogeneous), analytic (pr.FieldConsts) or
+    # a voxel grid (pr.GridConsts, its table on the CPU), and 1/(sigma_t
     # majorant) folded in float64 (delta tracking's step scale)
-    field: pr.FieldConsts | None
+    field: object
     inv_maj_rate: float
+    # a grid's table per device, filled by table()
+    _tabs: dict = dataclasses.field(default_factory=dict, compare=False,
+                                    repr=False)
 
     ATTR_KEYS = ("cx", "cy", "cz", "ar", "ag", "ab", "rr", "rg", "rb",
                  "er", "eg", "eb", "kr", "kg", "kb", "alpha",
@@ -193,6 +203,27 @@ class Packed:
     @property
     def npix(self) -> int:
         return self.width * self.height
+
+    @property
+    def grid(self):
+        """The grid's GridConsts, or None without a voxel grid."""
+        fc = self.field
+        return fc if fc is not None and fc.kind == "grid" else None
+
+    def table(self, device) -> torch.Tensor:
+        """The grid's packed table on `device`, copied there once."""
+        dev = torch.device(device)
+        key = str(dev)
+        if key not in self._tabs:
+            self._tabs[key] = self.grid.tab.to(dev).contiguous()
+        return self._tabs[key]
+
+    def field_on(self, device):
+        """The field for lanes on `device`: a grid's with its table
+        there."""
+        if self.grid is None:
+            return self.field
+        return dataclasses.replace(self.grid, tab=self.table(device))
 
     @property
     def num_tiles(self) -> int:
@@ -250,7 +281,9 @@ class Packed:
         pad_f(self.alpha)
         for tab in (self.c, self.alb, self.rad, self.eta, self.kap):
             pad_f(tab, 3)
-        buf.extend(field_words(self.field, self.inv_maj_rate).tobytes())
+        analytic = None if self.grid is not None else self.field
+        buf.extend(field_words(analytic, self.inv_maj_rate).tobytes())
+        buf.extend(grid_words(self.grid).tobytes())
         return np.frombuffer(bytes(buf), np.int32).copy()
 
 
@@ -270,6 +303,19 @@ def field_words(fc: pr.FieldConsts | None, inv_maj_rate: float) -> np.ndarray:
         for i, b in enumerate(fc.blobs):
             fl[5 + i * len(BLOB_KEYS):5 + (i + 1) * len(BLOB_KEYS)] = [
                 float(getattr(b, key)) for key in BLOB_KEYS]
+    return np.concatenate([ints, fl.view(np.int32)])
+
+
+def grid_words(gc) -> np.ndarray:
+    """csrc/path.cuh's GridParams as 32-bit words: nx, ny, nz, n_march, M1,
+    nearest, then origin, 1/spacing, the low and high rails, the window
+    cap, 1/M1 and 1/M2. All zeros without a grid."""
+    ints = np.zeros(6, np.int32)
+    fl = np.zeros(15, np.float32)
+    if gc is not None:
+        ints[:] = (*gc.dims, gc.n_march, gc.m1, int(gc.nearest))
+        fl[:] = (*gc.org, *gc.inv_sp, *gc.lo, *gc.hi, gc.cap, gc.inv_m1,
+                 gc.inv_m2)
     return np.concatenate([ints, fl.view(np.int32)])
 
 
@@ -318,9 +364,12 @@ def pack_scene(scene: Scene, camera: Camera, width: int, height: int,
         if fld.kind == "blobs" and fld.params.shape[0] > MAX_BLOBS:
             raise ValueError(f"{fld.params.shape[0]} blobs; the kernels take "
                              f"at most {MAX_BLOBS} (VPT_MAX_BLOBS)")
-        field = pr.field_consts(fld.kind, f64(fld.params), fld.majorant,
-                                fld.max_null)
-        inv_maj_rate = f32(1.0 / (sigma_t * float(fld.majorant)))
+        if fld.kind == "grid":
+            field = pr.grid_consts(fld)
+        else:
+            field = pr.field_consts(fld.kind, f64(fld.params), fld.majorant,
+                                    fld.max_null)
+            inv_maj_rate = f32(1.0 / (sigma_t * float(fld.majorant)))
 
     def rows3(t):
         return tuple(_f32_tuple(row) for row in f64(t).reshape(-1, 3))
@@ -371,10 +420,12 @@ def _render_lanes(pk: Packed, seed: torch.Tensor, lane: torch.Tensor,
     float32 radiance sums. `stats`, if given, gains the work it took: the
     thread-iterations (lanes still short of spp, summed over iterations)
     and the surface-shading and medium-scattering events, and in a density
-    field the optical depths ("taus"), the densities and the delta-tracking
-    null steps ("null_steps") the kernel's threads evaluate."""
+    field the optical depths ("taus"; in a grid its marches), the densities
+    and the delta-tracking null steps ("null_steps") the kernel's threads
+    evaluate."""
     dev = seed.device
-    fc = pk.field
+    fc = pk.field_on(dev)
+    grid = pk.grid is not None
     W, H, spp = pk.width, pk.height, pk.spp
     N = lane.shape[0]
     n_em = len(pk.emitters)
@@ -525,6 +576,14 @@ def _render_lanes(pk: Packed, seed: torch.Tensor, lane: torch.Tensor,
             phase_2pi = pr.hg_phase_const(pk, pr.dot3(d, wl)) * TWO_PI
         else:
             phase_2pi = pk.nee_phase
+        if grid:
+            # vpt leaves the grid's transmittance out of the weight and
+            # multiplies the radiance by it after (its merged NEE march)
+            w = torch.where(visible,
+                            phase_2pi * torch.clamp_min(1.0 - cos_max, 1e-12),
+                            0.0)
+            tr_l = pr.field_tr_toward(fc, pk.sigma_t, xt, wl, t)
+            return [lrad[i] * w * tr_l for i in range(3)]
         if fc is None:
             tr_l = torch.exp(-pk.sigma_t * t)
         else:
@@ -559,17 +618,26 @@ def _render_lanes(pk: Packed, seed: torch.Tensor, lane: torch.Tensor,
         if fc is None:
             tr_actual = torch.where(hit, torch.exp(-pk.sigma_t * t), 0.0)
         elif distance == "free":
-            tr_actual = torch.where(hit, torch.exp(
-                -pr.field_tau(fc, pk.sigma_t, o, d, t_eff)), 0.0)
+            if not grid:    # a grid's comes from its free-flight march
+                tr_actual = torch.where(hit, torch.exp(
+                    -pr.field_tau(fc, pk.sigma_t, o, d, t_eff)), 0.0)
         else:
             t_det = torch.where(hit, t, 0.0)
             tr_actual = torch.where(hit, torch.exp(
-                -pr.field_tau(fc, pk.sigma_t, o, d, t_det)), 0.0)
+                -pr.field_tau(fc, pk.sigma_t, o, d, t_det, nonneg=True)), 0.0)
             if stats is not None:
                 counts[3] += (hit & act).sum()
         if distance == "free":
             if fc is None:
                 d_s = -torch.log1p(-u_dist) * pk.inv_sigma_t
+            elif grid:
+                # one march of the transport model: the inverted distance
+                # and the surface's optical depth
+                d_s, tau_cap = pr.grid_sample_free_and_tau(
+                    fc, pk.sigma_t, o, d, u_dist, t_eff)
+                tr_actual = torch.where(hit, torch.exp(-tau_cap), 0.0)
+                if stats is not None:
+                    counts[3] += act.sum()
             else:
                 # analytic inversion (exp_height) or delta tracking (blobs)
                 d_s = pr.field_sample_free(
@@ -708,7 +776,7 @@ def _render_lanes(pk: Packed, seed: torch.Tensor, lane: torch.Tensor,
                 n_md = medium.sum() * (
                     int(nee) + int(distance != "free")
                     + int(distance == "free" and not nee
-                          and not pk.physical))
+                          and not pk.physical and not grid))
                 counts[3] += n_sh + n_md
                 if distance != "free":
                     counts[4] += medium.sum()
@@ -794,9 +862,10 @@ def _check_seed(seed: torch.Tensor) -> None:
 def _launch(pk: Packed, seed: torch.Tensor, bases, n_lanes: int,
             sums: bool) -> torch.Tensor:
     """One launch of the kernel instantiation for (pk.nee, pk.distance),
-    in a density field its field instantiation, on seed.device's current
-    stream, without synchronising."""
-    entries = KERNEL_ENTRIES if pk.field is None else FIELD_ENTRIES
+    in a density field its field instantiation, in a voxel grid its grid
+    one, on seed.device's current stream, without synchronising."""
+    entries = (KERNEL_ENTRIES if pk.field is None else
+               GRID_ENTRIES if pk.grid is not None else FIELD_ENTRIES)
     entry = entries.get((pk.nee, pk.distance))
     if entry is None:
         raise NotImplementedError(
@@ -812,12 +881,13 @@ def _launch(pk: Packed, seed: torch.Tensor, bases, n_lanes: int,
             f"VptParams layout mismatch: python packs {words.size} words, "
             f"the kernel expects {lib.vpt_params_words()}")
     out = torch.empty((n_lanes, 3), dtype=torch.float32, device=seed.device)
+    tab = () if pk.grid is None else (pk.table(seed.device).data_ptr(),)
     with torch.cuda.device(seed.device):
         stream = torch.cuda.current_stream(seed.device).cuda_stream
         err = getattr(lib, entry)(
             words.ctypes.data, seed.data_ptr(),
             None if bases is None else bases.data_ptr(), int(n_lanes),
-            int(sums), out.data_ptr(), stream)
+            int(sums), out.data_ptr(), *tab, stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: "
                            f"{_build.error_string(err)} ({err})")

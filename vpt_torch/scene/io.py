@@ -16,8 +16,10 @@ Values are written as exact python floats, so a scene saved by either
 package rebuilds the same f32 values in the other, and both render the same
 thing. A heterogeneous medium rides in an optional "density" entry,
 {"kind", "majorant", "max_null", "params"}, as vpt/scene/io.py:68-133 writes
-it (params: [[k, y0]] for exp_height, one [cx, cy, cz, r, w] row per blob).
-Voxel grids (kind "grid") are ROADMAP Queue 1 item 7 and are refused.
+it (params: [[k, y0]] for exp_height, one [cx, cy, cz, r, w] row per blob);
+a voxel grid adds "shape", "origin", "spacing" and "n_march", with its
+values flat in "params" (vpt/scene/io.py:78-83, 120-130). The transport
+interpolant is not stored, in either package: a loaded grid is trilinear.
 """
 from __future__ import annotations
 
@@ -65,11 +67,18 @@ def scene_to_dict(scene: Scene, camera: Camera | None = None) -> dict:
     fld = scene.medium.density
     if fld is not None:   # omitted when homogeneous
         p = _f64(fld.params)
-        out["density"] = {
-            "kind": fld.kind, "majorant": float(fld.majorant),
-            "max_null": int(fld.max_null),
-            "params": [list(map(float, row)) for row in p.reshape(
-                -1, p.shape[-1] if p.ndim > 1 else p.shape[0])]}
+        dd = {"kind": fld.kind, "majorant": float(fld.majorant),
+              "max_null": int(fld.max_null)}
+        if fld.kind == "grid":
+            dd["shape"] = list(p.shape)
+            dd["params"] = list(map(float, p.reshape(-1)))
+            dd["origin"] = list(map(float, fld.grid_origin))
+            dd["spacing"] = list(map(float, fld.grid_spacing))
+            dd["n_march"] = int(fld.n_march)
+        else:
+            dd["params"] = [list(map(float, row)) for row in p.reshape(
+                -1, p.shape[-1] if p.ndim > 1 else p.shape[0])]
+        out["density"] = dd
     if camera is not None:
         out["camera"] = {
             "origin": list(map(float, _f64(camera.origin))),
@@ -102,10 +111,16 @@ def scene_from_dict(d: dict, dtype=torch.float32, device="cpu"):
         p = np.asarray(dd["params"], np.float64)
         if dd["kind"] == EXP_HEIGHT:
             p = p.reshape(-1)[:2]
+        kw = {}
+        if dd["kind"] == "grid":
+            p = p.reshape(dd["shape"])
+            kw = dict(grid_origin=tuple(dd["origin"]),
+                      grid_spacing=tuple(dd["spacing"]),
+                      n_march=int(dd.get("n_march", 32)))
         density = DensityField(
             params=torch.as_tensor(p).to(dtype), kind=str(dd["kind"]),
             majorant=float(dd.get("majorant", 1.0)),
-            max_null=int(dd.get("max_null", 64)))
+            max_null=int(dd.get("max_null", 64)), **kw)
     scene = make_scene(spheres, sigma_a=float(d.get("sigma_a", 0.001)),
                        sigma_s=float(d.get("sigma_s", 0.009)),
                        g=float(d.get("g", 0.0)), density=density,

@@ -9,10 +9,9 @@ reference (include/Sphere.h:18-21):
   0 = Lambertian, 1 = Beckmann microfacet conductor, 2 = smooth dielectric,
   3 = volumetric boundary (participating-medium shell).
 
-A medium is homogeneous, or scaled by one of vpt's analytic density
-fields (media/density.py: exp_height ground fog, Gaussian blobs); the scenes
-foggy_cornell and blob_cloud carry one each. Voxel grids are ROADMAP Queue 1
-item 7.
+A medium is homogeneous, or scaled by one of vpt's density fields
+(media/density.py: exp_height ground fog, Gaussian blobs, voxel grids); the
+scenes foggy_cornell and blob_cloud carry the analytic ones.
 """
 from __future__ import annotations
 
@@ -43,7 +42,8 @@ class Medium:
     density is None.
 
     g: Henyey-Greenstein anisotropy; 0 is isotropic.
-    density: a media.density.DensityField (exp_height or blobs) or None."""
+    density: a media.density.DensityField (exp_height, blobs or grid) or
+    None."""
 
     sigma_a: torch.Tensor
     sigma_s: torch.Tensor
