@@ -93,17 +93,34 @@ plain torch version on the card:
      1024x1024x64 "ld", timed, with bounds from counters at a smaller
      frame; the diff_grid pair there, fwd+bwd, K2 and K3 timed, the scatter
      mode reported; then examples/recover_grid.py at its defaults through
-     fit_grid.
+     fit_grid;
+ 17. the rest of the pair, in its extended instantiations (equi-angular
+     distances, the implicit and physical estimators, material-3 shells,
+     HG in a grid): ptxas of the six new kernels and the 28 older ones
+     held to their numbers; each new K2/K3 against its plain version at
+     64x32x8 under both samplers (the image and K3's rows bit for bit, the
+     voxel gradient per voxel within GVEC_TOL of its terms' absolute sum)
+     and K2 against K1's image of the same estimator (vpt's contract 1),
+     the equi-angular diff_grid pair also at vpt's test shape and at
+     recover_grid's 128x96x8; the equi-angular voxel gradient against
+     CRN FD; the equi-angular, physical, implicit, fog equi-angular,
+     medium_shell and equi-angular diff_grid pairs timed at 1024x1024x64
+     through make_diff_renderer; the reference's research question in
+     gradient form (free flight against equi-angular, 40 seeds each at
+     256x256x16); and examples/recover_grid.py --distance equiangular
+     through fit_grid for RG_EA_STEPS steps.
 
 The main-frame plain versions (phases 4, 7, 10, 12, 14 and 15) and the
-plain checks of phases 15 and 16 run in worker processes on the same card
+plain checks of phases 15-17 run in worker processes on the same card
 while the kernels build (PlainPool); they are collected before the first
 timing. `--recover-fog-multiview STEPS` runs the card, the build and that
 example's fit alone; `--recover-grid STEPS` the same for
 examples/recover_grid.py at vpt's round-4 setting (RG_ROUND4; 250 steps
-is that run, about 80 s of fitting).
+is that run, about 80 s of fitting); `--recover-grid-ea STEPS` runs
+tools/studies/tomo_quality_study.py's rows B (free flight) and F
+(equi-angular) of that example (RG_ROWS).
 
-Each main path (phases 4, 7, 8, 10, 11, 12, 13, 14, 15 and 16) runs with every
+Each main path (phases 4, 7, 8, 10, 11, 12, 13, 14, 15, 16 and 17) runs with every
 launch count set to 0 just before it and read just after. The line before the last is the
 per-kernel JSON record, the last line the device record. Any failed phase
 raises and the script exits non-zero; without a CUDA device it exits
@@ -413,6 +430,8 @@ def plain_job(spec: tuple) -> tuple:
     stats = {}
     if kind in ("gk1", "gpair"):
         return grid_plain_job(spec, dev, cam)
+    if kind == "xpair":
+        return ext_plain_job(spec, dev, cam)
     if kind in ("pair", "k2"):
         frame = spec[4] if kind == "pair" else main_frame()
         dp, pvec, seed, gbar = pair_inputs(name, spec[2], spec[3], frame,
@@ -481,6 +500,8 @@ class PlainPool:
         """(output on dev, work counters, ms) of one job; a pair job's
         output is (image, per-pixel rows)."""
         out, stats, ms = self.jobs[spec].get()
+        if out is None:
+            return None, stats, ms
         if isinstance(out, tuple):
             return tuple(torch.from_numpy(o).to(dev) for o in out), stats, ms
         return torch.from_numpy(out).to(dev), stats, ms
@@ -512,7 +533,8 @@ def plain_specs() -> list:
     """The plain runs of phases 4-16."""
     k1 = [k1_spec(integ, sname, g) for _, integ, sname, g in VARIANTS]
     k1 += [k1_spec(integ, sname) for integ, sname in FIELD_VARIANTS]
-    return [k1_spec("explicit_free"), pair_spec(), GEOM0_SPEC, GEOM7_SPEC,
+    return [*ext_specs(), k1_spec("explicit_free"), pair_spec(), GEOM0_SPEC,
+            GEOM7_SPEC,
             *k1, pair_spec("foggy_cornell", 0.0, ("diff_field",)),
             pair_spec("foggy_cornell", 0.5, ("diff_g", "diff_field")),
             pair_spec("cornell_vpt", 0.5), *HG_CHECKS, HG_TRAINER_CHECK,
@@ -1083,7 +1105,7 @@ FOG_MV_CAMS = [((0.0, 0.0, 0.0), None),
                ((35.0, 30.0, 180.0), (0.0, -10.0, 0.0)),
                ((-38.0, -20.0, 150.0), (10.0, 0.0, -40.0)),
                ((0.0, 25.0, 60.0), (0.0, -10.0, 200.0))]
-FOG_MV_STEPS = 1200
+FOG_MV_STEPS = 600
 # K2/K3 against their plain versions: at 64x32x8 (the baked g under both
 # samplers, the traced g, the fog with the traced g and falloff; seeds 3 and
 # 11), and at recover_fog_multiview's shape (192x192, 16 spp per render, 32
@@ -1906,7 +1928,8 @@ def grid_pair_vs_plain(spec, plains, camera, dev) -> dict:
     return res
 
 
-def crn_fd(key: tuple, frame: tuple, camera, dev) -> dict:
+def crn_fd(key: tuple, frame: tuple, camera, dev,
+           distance: str = "free") -> dict:
     """vpt's test_diff_grid_voxel_grads_match_crn_fd on the card: the
     voxel with the largest |gradient| at seed 11 among those whose value
     exceeds h (v - h must stay a density: on recover_grid's truth the
@@ -1918,7 +1941,7 @@ def crn_fd(key: tuple, frame: tuple, camera, dev) -> dict:
     sc, _ = grid_scene(key)
     render = df.make_diff_renderer(sc, camera, w, h, spp, max_bounces=mb,
                                    sampler=sampler, diff_grid=True,
-                                   device="cuda")
+                                   distance=distance, device="cuda")
     base = {k: v.to(dev) for k, v in df.pack_params(sc, with_grid=True
                                                    ).items()}
 
@@ -1946,10 +1969,12 @@ def crn_fd(key: tuple, frame: tuple, camera, dev) -> dict:
     gm_, gse = float(np.mean(gs)), float(np.std(gs) / np.sqrt(K))
     fm, fse = float(np.mean(fds)), float(np.std(fds) / np.sqrt(K))
     tol = 4.0 * np.hypot(gse, fse) + 0.1 * max(abs(gm_), abs(fm))
-    res = dict(voxel=[int(v) for v in vox], grad=gm_, grad_se=gse, fd=fm,
+    res = dict(distance=distance, voxel=[int(v) for v in vox], grad=gm_,
+               grad_se=gse, fd=fm,
                fd_se=fse, tol=float(tol), met=bool(
                    np.isfinite([gm_, fm]).all() and abs(gm_ - fm) < tol))
-    print(f"phase 16 CRN FD {w}x{h}x{spp} {sampler} {mb} bounces {key}: "
+    print(f"phase {16 if distance == 'free' else 17} CRN FD {distance} "
+          f"{w}x{h}x{spp} {sampler} {mb} bounces {key}: "
           f"voxel {res['voxel']}: K3 {gm_:.6g} (se {gse:.3g}) against FD "
           f"{fm:.6g} (se {fse:.3g}), |diff| {abs(gm_ - fm):.4g} < "
           f"{tol:.4g}: {res['met']}", flush=True)
@@ -1959,16 +1984,19 @@ def crn_fd(key: tuple, frame: tuple, camera, dev) -> dict:
 
 
 def recover_grid(camera, card: str, steps: int = 150, spp: int = 8,
-                 reg_l1: float = 2e-3) -> dict:
+                 reg_l1: float = 2e-3, reg_tv: float = 0.0,
+                 interp: str = "tri", distance: str = "free") -> dict:
     """examples/recover_grid.py through the port at its defaults (n = 16,
     6 views, 128x96 targets at 64 spp through K1, fit_grid from 0.05
-    everywhere: lr 3e-2, L1 2e-3, trilinear, free flight, seed 7) or
-    another steps / spp / reg_l1 (the round-4 setting: RG_ROUND4)."""
+    everywhere: lr 3e-2, L1 2e-3, no TV, trilinear, free flight, seed 7)
+    or another steps / spp / reg_l1 / reg_tv / interp / distance (the
+    round-4 setting: RG_ROUND4; tomo_quality_study.py's rows B and F:
+    --recover-grid-ea)."""
     from vpt_torch.dist.tomography import _grid_scene
     from vpt_torch.scene.camera import look_at
     n, views, res, tspp = 16, 6, 128, 64
     W, H = res, (res * 3) // 4
-    truth, vals_true = grid_scene(("truth", n, "tri"))
+    truth, vals_true = grid_scene(("truth", n, interp))
     cams = [camera] + [look_at(o, t) for o, t in RG_CAMS][:views - 1]
     reset_counts()
     t0 = time.perf_counter()
@@ -1984,7 +2012,7 @@ def recover_grid(camera, card: str, steps: int = 150, spp: int = 8,
     rec, losses = vpt_torch.dist.fit_grid(
         _grid_scene(truth, torch.from_numpy(init)), cams, targets,
         steps=steps, spp=spp, learning_rate=3e-2, max_bounces=8, seed=7,
-        reg_l1=reg_l1, device="cuda")
+        reg_l1=reg_l1, reg_tv=reg_tv, distance=distance, device="cuda")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {**wf.LAUNCHES_BY, **df.LAUNCHES_BY}
@@ -1992,14 +2020,16 @@ def recover_grid(camera, card: str, steps: int = 150, spp: int = 8,
     mae0 = float(np.abs(init - vals_true).mean())
     mae1 = float(np.abs(rec - vals_true).mean())
     corr = float(np.corrcoef(rec.ravel(), vals_true.ravel())[0, 1])
-    out = dict(steps=steps, spp=spp, reg_l1=reg_l1, loss_first=losses[0],
+    out = dict(steps=steps, spp=spp, reg_l1=reg_l1, reg_tv=reg_tv,
+               interp=interp, distance=distance, loss_first=losses[0],
                loss_last5=float(np.mean(losses[-5:])), mae_init=mae0,
                mae_final=mae1, corr=corr, fit_s=dt, targets_s=t_targets,
                launches=launches, finite=bool(np.isfinite(losses).all()
                                               and np.isfinite(rec).all()))
-    print(f"phase 16 recover_grid (n {n}, {views} views, {W}x{H}, targets "
-          f"{tspp} spp, {steps} steps at {spp} spp, lr 3e-2, L1 {reg_l1}, "
-          f"tri, free): loss {losses[0]:.6g} -> {out['loss_last5']:.6g} "
+    print(f"phase {16 if distance == 'free' else 17} recover_grid (n {n}, "
+          f"{views} views, {W}x{H}, targets {tspp} spp, {steps} steps at "
+          f"{spp} spp, lr 3e-2, L1 {reg_l1}, TV {reg_tv}, {interp}, "
+          f"{distance}): loss {losses[0]:.6g} -> {out['loss_last5']:.6g} "
           f"(mean of the last 5); voxel MAE {mae0:.4f} -> {mae1:.4f}, "
           f"corr(recovered, truth) {corr:.3f}; {dt:.3f} s fit, "
           f"{t_targets:.3f} s targets; launches {launches} on {card}",
@@ -2220,6 +2250,509 @@ def grid_phases(card: str, dev: torch.device, camera,
     return records
 
 
+# ---- phase 17: the rest of the pair (the extended instantiations):
+# equi-angular, the implicit and physical estimators, shells, HG in a grid
+
+# the extended kernels (mangled-name fragments), their sources and vpt's
+# calls they replace
+EXT_PAIR = {
+    f"vpt_diff_{kind}{sfx}_ext": (
+        f"vpt_diff14ext_{kind}_kernelILi{k}EE", f"diff{sfx}_ext_{kind}.cu",
+        f"vpt/kernels/diff.py:{1274 if kind == 'fwd' else 1303}")
+    for sfx, k in (("", 0), ("_field", 1), ("_grid", 2))
+    for kind in ("fwd", "bwd")}
+# ptxas of the grid kernels before this phase's sources (NVIDIA H100 80GB
+# HBM3, this toolkit; PERF.md section 6): with EXISTING_PTXAS the 28
+# kernels of the 27 sources from before the extended instantiations
+GRID_PTXAS = {
+    "_ZN13vpt_wavefront11grid_kernelILb0ELi0EEEv9VptParamsPKiS3_iiPfPKj":
+        (72, 0, 56),
+    "_ZN13vpt_wavefront11grid_kernelILb0ELi2EEEv9VptParamsPKiS3_iiPfPKj":
+        (72, 16, 72),
+    "_ZN13vpt_wavefront11grid_kernelILb1ELi0EEEv9VptParamsPKiS3_iiPfPKj":
+        (120, 0, 56),
+    "_ZN13vpt_wavefront11grid_kernelILb1ELi1EEEv9VptParamsPKiS3_iiPfPKj":
+        (121, 0, 56),
+    "_ZN8vpt_diff15grid_bwd_kernelILi2EEEv10DiffParamsPKfPKiS3_PfS6_PKjS6_i":
+        (168, 0, 1408),
+    "_ZN8vpt_diff15grid_fwd_kernelILi2EEEv10DiffParamsPKfPKiPfPKj":
+        (119, 0, 32),
+}
+EA = (("distance", "equiangular"),)
+IMPLICIT = (("nee", False), ("physical", True))
+# K2/K3 against their plain versions at 64x32x8, 8 bounces, seed 3: (scene
+# key, g, traced flags, estimator); every extended kernel under both
+# samplers, each estimator and field kind at least once
+EXT_CHECK_CFGS = [
+    ("cornell_vpt", 0.0, (), EA, "ld"),
+    ("cornell_vpt", 0.5, (), EA, "random"),
+    ("cornell_vpt", 0.5, ("diff_g",), EA + IMPLICIT, "ld"),
+    ("cornell_vpt", 0.0, (), (("physical", True),), "random"),
+    ("medium_shell", 0.0, (), (), "ld"),
+    ("medium_shell", 0.0, (), IMPLICIT, "random"),
+    ("foggy_cornell", 0.0, ("diff_field",), EA, "ld"),
+    ("foggy_cornell", 0.5, ("diff_g", "diff_field"),
+     EA + (("physical", True),), "random"),
+    ("blob_cloud", 0.0, ("diff_blobs",), EA + IMPLICIT, "ld"),
+    (("cloud", "tri"), 0.5, ("diff_grid",), EA, "ld"),
+    (("cloud", "nearest"), 0.0, ("diff_grid",), EA + IMPLICIT, "random"),
+    (("cloud", "tri"), -0.3, ("diff_grid",), (), "random"),
+    (("cloud", "nearest"), 0.0, (), EA, "ld")]
+EXT_CHECKS = [("xpair", key, g, tr, est, (64, 32, 8, 8, sampler, 3))
+              for key, g, tr, est, sampler in EXT_CHECK_CFGS]
+# the EA diff_grid pair at vpt's test shape (grid_cloud, 16x12x4, 8
+# bounces, "random": tests/test_diff_kernel.py:528-537, whose K1 agreement
+# is 1e-6 absolute), and at recover_grid's training shape on its truth
+EXT_VPT_CHECK = ("xpair", ("cloud", "tri"), 0.0, ("diff_grid",), EA,
+                 (16, 12, 4, 8, "random", 3))
+EXT_TRAINER_CHECK = ("xpair", ("truth", 16, "tri"), 0.0, ("diff_grid",), EA,
+                     GRID_TRAIN_FRAME)
+# the timed cells at MAIN_CFG (label: scene key, g, traced, estimator);
+# their work counters come from the plain versions at EXT_COUNT_FRAME,
+# scaled by the paths
+EXT_TIMED = {
+    "ea": ("cornell_vpt", 0.0, (), EA),
+    "explicit_free_physical": ("cornell_vpt", 0.0, (), (("physical", True),)),
+    "implicit_free_physical": ("cornell_vpt", 0.0, (), IMPLICIT),
+    "fog_ea": ("foggy_cornell", 0.0, ("diff_field",), EA),
+    "medium_shell": ("medium_shell", 0.0, (), ()),
+    "grid_ea": (("truth", 16, "tri"), 0.0, ("diff_grid",), EA)}
+EXT_COUNT_FRAME = (128, 128, 8, 32, "ld", 0)
+# a fwd+bwd above this many ms at MAIN_CFG is timed at 512x512x64 instead,
+# and one above EXT_ONCE_MS once after its warm-up (the script's budget)
+EXT_SLOW_MS = 10000.0
+EXT_ONCE_MS = 2000.0
+# the research question in gradient form (BASELINE.md:273-289): cornell_vpt
+# at 256x256x16, the pair's default sampler, the mean-pixel loss, 40 seeds
+# per family; vpt's recorded means and sds (a TPU v5e: a record only)
+RQ_FRAME = (256, 256, 16)
+RQ_SEEDS = 40
+RQ_VPT = {"free": ((-16.893, 0.221), (-7.114, 0.207)),
+          "equiangular": ((-16.865, 0.464), (-7.070, 0.272))}
+# tools/studies/tomo_quality_study.py rows B and F (16^3, 6 views, 250
+# steps, L1 2e-2, TV 1e-2, nearest; free flight, then equi-angular): vpt's
+# corr and MAE (BASELINE.md:845-856, a TPU v5e); F is held to corr >= 0.65
+# and MAE <= 0.18
+RG_ROWS = {"free": (0.753, 0.138), "equiangular": (0.705, 0.159)}
+RG_EA_STEPS = 60        # the in-script EA recover_grid at its defaults
+
+
+def ext_spec(key, g, traced, est, frame) -> tuple:
+    return ("xpair", key, g, tuple(traced), tuple(est), frame)
+
+
+def ext_specs() -> list:
+    """Phase 17's plain runs, the longest first: the trainer-shape check,
+    the timed cells' counters, the checks."""
+    counters = [ext_spec(*cell, EXT_COUNT_FRAME)
+                for cell in EXT_TIMED.values()]
+    return [EXT_TRAINER_CHECK, *counters[::-1], EXT_VPT_CHECK, *EXT_CHECKS]
+
+
+def ext_inputs(key, g, traced, est, frame, camera, dev) -> tuple:
+    """(packed, P-vector, grid table or None, seed, cotangent) of an
+    extended pair."""
+    w, h, spp, mb, sampler, s = frame
+    sc = grid_scene(key)[0] if isinstance(key, tuple) else SCENES[key]()
+    sc = with_g(sc, g)
+    kw = dict.fromkeys(traced, True)
+    dp = df.pack_diff(sc, camera, w, h, spp, max_bounces=mb,
+                      sampler=sampler, **kw, **dict(est))
+    params = df.pack_params(sc, with_g="diff_g" in kw,
+                            with_field="diff_field" in kw,
+                            with_blobs="diff_blobs" in kw,
+                            with_grid="diff_grid" in kw)
+    pvec = df._flatten(params, sc.count).to(dev)
+    tab = None
+    if dp.pk.grid is not None:
+        tab = vpt_torch.kernels.prims.grid_table(
+            params["grid"].to(dev)) if dp.diff_grid else dp.pk.table(dev)
+    seed = torch.tensor([s], dtype=torch.int32, device=dev)
+    gbar = torch.from_numpy(np.random.default_rng(s).standard_normal(
+        (dp.npix, 3)).astype(np.float32)).to(dev)
+    return dp, pvec, tab, seed, gbar
+
+
+def ext_plain_job(spec: tuple, dev, camera) -> tuple:
+    """An "xpair" job of plain_job: the image, K3's per-pixel rows (with
+    diff_grid the voxel gradient and its terms' absolute sums), K2's
+    counters; a counter job (EXT_COUNT_FRAME) returns no output, and with
+    diff_grid runs no K3 (its plain time comes from EXT_TRAINER_CHECK)."""
+    _, key, g, traced, est, frame = spec
+    dp, pvec, tab, seed, gbar = ext_inputs(key, g, traced, est, frame,
+                                           camera, dev)
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = df.diff_fwd_plain(dp, pvec, seed, stats=stats, tab=tab)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counter = frame == EXT_COUNT_FRAME
+    if counter and dp.diff_grid:
+        return None, stats, ms
+    t0 = time.perf_counter()
+    out = df.diff_bwd_plain(dp, pvec, seed, gbar, per_lane=not counter,
+                            tab=tab, voxel_abs=True)
+    torch.cuda.synchronize()
+    stats["plain_bwd_ms"] = (time.perf_counter() - t0) * 1e3
+    if counter:
+        return None, stats, ms
+    G = out[0] if dp.diff_grid else out
+    rest = tuple(o.cpu().numpy() for o in out[1:]) if dp.diff_grid else ()
+    return (img.cpu().numpy(), G.cpu().numpy(), *rest), stats, ms
+
+
+def k1_image(pk: wf.Packed, seed: torch.Tensor) -> torch.Tensor:
+    """K1's image of the same estimator: its kernel where it has an
+    instantiation, else (equi-angular without NEE) its plain version on
+    the card."""
+    entries = (wf.KERNEL_ENTRIES if pk.field is None else
+               wf.GRID_ENTRIES if pk.grid is not None else wf.FIELD_ENTRIES)
+    if (pk.nee, pk.distance) in entries:
+        return wf.render_tile(pk, seed)
+    return wf.render_tile_plain(pk, seed)
+
+
+def ext_vs_plain(spec, plains, camera, dev) -> dict:
+    """An extended K2/K3 against its plain version: the image and K3's
+    rows bit for bit, the block-summed vector within GVEC_TOL of sum |G|,
+    the voxel gradient per voxel within GVEC_TOL of its terms' absolute
+    sum; and vpt's contract 1: K2's image against K1's of the same
+    estimator within 1e-5 of its scale (1e-6 absolute at EXT_VPT_CHECK,
+    vpt's own test of the diff_grid equi-angular pair against the baked
+    one)."""
+    _, key, g, traced, est, frame = spec
+    dp, pvec, tab, s, gbar = ext_inputs(key, g, traced, est, frame, camera,
+                                        dev)
+    k = df.diff_fwd(dp, pvec, s, tab)
+    out = df.diff_bwd(dp, pvec, s, gbar, per_lane=True, tab=tab)
+    outs = df.diff_bwd(dp, pvec, s, gbar, tab=tab)
+    G, gsum = (out[0], outs[0]) if dp.diff_grid else (out, outs)
+    plain, pstats, p_ms = plains.get(spec, dev)
+    p, Gp = plain[:2]
+    k1 = k1_image(dp.pk, s)
+    c1_tol = (1e-6 if spec == EXT_VPT_CHECK
+              else 1e-5 * max(1.0, float(k1.abs().max())))
+    # at the trainer's shape K1 and the pair round sigma differently on
+    # enough paths that a few pixels take another discrete branch: there
+    # the criterion is the image's q99 (Q99_TOL's form at 1e-5)
+    trainer = spec == EXT_TRAINER_CHECK
+    res = dict(equal=bool(torch.equal(k, p)), err=float((k - p).abs().max()),
+               rows=bool(torch.equal(G, Gp)),
+               over=int(((gsum - Gp.sum(0)).abs()
+                         > GVEC_TOL * Gp.abs().sum(0)).sum()),
+               g_err=float((gsum - Gp.sum(0)).abs().max()),
+               k1_err=float((k - k1).abs().max()), k1_tol=c1_tol,
+               k1_q99=q99_rel(k, k1),
+               plain_ms=p_ms, plain_bwd_ms=pstats["plain_bwd_ms"],
+               finite=bool(torch.isfinite(G).all()
+                           and torch.isfinite(k).all()))
+    w, h, spp, mb, sampler, seed = frame
+    label = (f"{w}x{h}x{spp} {sampler} {key} g={g} {'+'.join(traced) or '-'}"
+             f" {dict(est) or 'free NEE'}")
+    ok = (res["equal"] and res["rows"] and res["over"] == 0 and res["finite"]
+          and (res["k1_q99"] <= 1e-5 if trainer else res["k1_err"] <= c1_tol))
+    msg = (f"phase 17 K2/K3 {dp.entries[0][13:]} {label}: image bit-equal "
+           f"{res['equal']}, rows bit-equal {res['rows']}, summed entries "
+           f"over bound {res['over']} of {dp.P}, K2 - K1 {res['k1_err']:.3e}"
+           + (f" (q99 of |K2 - K1| / max(1, |K1|max) {res['k1_q99']:.3e} <= "
+              f"1e-5)" if trainer else f" (<= {c1_tol:.1e})"))
+    if dp.diff_grid:
+        over1, r1 = voxel_check(out[1], plain[2], plain[3])
+        over2, r2 = voxel_check(outs[1], plain[2], plain[3])
+        res.update(voxel_over=over1 + over2, voxel_ratio=max(r1, r2),
+                   voxel_finite=bool(torch.isfinite(outs[1]).all()))
+        msg += (f", voxels over {GVEC_TOL} of sum |terms| {over1 + over2} "
+                f"(largest err / sum |terms| {max(r1, r2):.3e})")
+        ok = ok and over1 + over2 == 0 and res["voxel_finite"]
+    print(msg, flush=True)
+    if not ok:
+        raise AssertionError(f"extended K2/K3 {label}: {res}")
+    res["entries"] = dp.entries
+    return res
+
+
+def ext_pair_bound(kernel: str, stats: dict, dpc: df.DiffPacked,
+                   dp: df.DiffPacked, scale: float) -> tuple[float, str]:
+    """The extended pair's bound from counters at EXT_COUNT_FRAME (dpc)
+    scaled to dp's frame, counted as ops_lower_bound and
+    variant_ops_lower_bound count: per thread-iteration 41 + 23 S (+60
+    equi-angular); per sample 29; per shading event 208 + 109 M + 23 S (2 +
+    M) with NEE, else 72; per medium event 102 + 23 S with NEE, else 14,
+    +8 for the equi-angular weight, +42 with an HG phase; an analytic
+    field's optical depths and densities (field_tau_ops,
+    field_density_ops), a grid's marches (grid_march_ops) and trilinear
+    densities (33); K3 on top as ops_lower_bound (without NEE 3 per
+    shading event), with diff_grid twice K2's work (two replays). Bytes:
+    bytes_moved, with a grid its table and K3's voxel gradient."""
+    pk = dpc.pk
+    S, M, E, A = pk.S, len(pk.mis_lights), len(pk.emitters), len(
+        dpc.lam_ids)
+    ea = dpc.distance == df.DIST_EA
+    it, sh, md = stats["thread_iters"], stats["shade"], stats["medium"]
+    samples = pk.npix * pk.spp
+    ops = (it * (41 + 23 * S + (60 if ea else 0)) + samples * 29
+           + sh * ((208 + 109 * M + 23 * S * (2 + M)) if dpc.nee else 72)
+           + md * (((102 + 23 * S) if dpc.nee else 14) + (8 if ea else 0)
+                   + (42 if dpc.hg_mode != df.HG_NONE else 0)))
+    if pk.grid is not None:
+        ops += stats["taus"] * grid_march_ops(pk) + (md * 33 if ea else 0)
+    elif pk.field is not None:
+        ops += stats["taus"] * field_tau_ops(pk) + (
+            md * field_density_ops(pk) if ea else 0)
+    if kernel == "diff_bwd":
+        ops += (it * 9 + sh * ((76 + 39 * M + 3 * E) if dpc.nee else 3)
+                + md * 42 + samples * (11 + 9 * A) + pk.npix * 3)
+        if dpc.diff_grid:
+            ops *= 2.0
+    by = bytes_moved(kernel, dp)
+    if dp.pk.grid is not None:
+        T = int(np.prod(dp.pk.grid.dims))
+        by += 4.0 * T * (2 if kernel == "diff_bwd" and dp.diff_grid else 1)
+    t_ops = ops * scale / PEAK_F32 * 1e3
+    t_bytes = by / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def ext_timed(label: str, camera, dev, plains, card: str) -> dict:
+    """One timed cell at MAIN_CFG through make_diff_renderer: the launches
+    of one render(params, seed).mean().backward() (counts set to 0 just
+    before), then fwd+bwd, K2 and K3 timed (median of 3; the
+    launch-counted call is the warm-up; a fwd+bwd over EXT_ONCE_MS is
+    timed once, and its K3 too); a fwd+bwd over EXT_SLOW_MS is timed at
+    512x512x64 instead."""
+    key, g, traced, est = EXT_TIMED[label]
+    cfg = vpt_torch.RenderConfig(**MAIN_CFG)
+    sc = grid_scene(key)[0] if isinstance(key, tuple) else SCENES[key]()
+    sc = with_g(sc, g)
+    kw = dict.fromkeys(traced, True)
+    w, h = cfg.width, cfg.height
+    for attempt in range(2):
+        render = df.make_diff_renderer(
+            sc, camera, w, h, cfg.spp, max_bounces=cfg.max_bounces,
+            sampler=cfg.sampler, device="cuda", **kw, **dict(est))
+        dp = render.packed
+        params = {k: v.to(dev).requires_grad_() for k, v in df.pack_params(
+            sc, with_field="diff_field" in kw,
+            with_grid="diff_grid" in kw).items()}
+        reset_counts()
+        _, first_ms = cuda_ms(lambda: render(params, cfg.seed).mean()
+                              .backward())
+        launched = dict(df.LAUNCHES_BY)
+        if launched != {dp.entries[0]: 1, dp.entries[1]: 1} or not all(
+                bool(torch.isfinite(v.grad).all()) for v in params.values()):
+            raise AssertionError(f"{label} fwd+bwd launched {launched}")
+        if first_ms <= EXT_SLOW_MS or attempt:
+            break
+        w, h = 512, 512
+    grads = {k: float(v.grad.abs().sum()) for k, v in params.items()}
+
+    def fwd_bwd():
+        for v in params.values():
+            v.grad = None
+        render(params, cfg.seed).mean().backward()
+
+    n = 1 if first_ms > EXT_ONCE_MS else 3
+    pair_ms, pair_times = median_ms(fwd_bwd, n=n, warm_up=False)
+    seed_t = torch.tensor([cfg.seed], dtype=torch.int32, device=dev)
+    pvec = df._flatten({k: v.detach() for k, v in params.items()}, sc.count)
+    tab = (vpt_torch.kernels.prims.grid_table(params["grid"].detach())
+           if dp.diff_grid else None)
+    gmean = torch.full((dp.npix, 3), 1.0 / (3 * dp.npix), device=dev)
+    k2_ms, k2_times = median_ms(lambda: df.diff_fwd(dp, pvec, seed_t, tab))
+    k3_ms, k3_times = median_ms(lambda: df.diff_bwd(dp, pvec, seed_t, gmean,
+                                                    tab=tab), n=n,
+                                warm_up=False)
+    cspec = ext_spec(key, g, traced, est, EXT_COUNT_FRAME)
+    _, cstats, cp_ms = plains.get(cspec, dev)
+    dpc, pvc, tabc, sc0, gbc = ext_inputs(key, g, traced, est,
+                                          EXT_COUNT_FRAME, camera, dev)
+    k2c_ms, _ = median_ms(lambda: df.diff_fwd(dpc, pvc, sc0, tabc))
+    # K3's plain time: at the counters' frame, or with diff_grid at the
+    # trainer check's (its plain K3 takes minutes at the counters' frame)
+    bframe = EXT_TRAINER_CHECK[5] if dp.diff_grid else EXT_COUNT_FRAME
+    if dp.diff_grid:
+        dpc3, pvc3, tabc3, s3, gb3 = ext_inputs(key, g, traced, est, bframe,
+                                                camera, dev)
+        cstats = dict(cstats, plain_bwd_ms=plains.get(
+            EXT_TRAINER_CHECK, dev)[1]["plain_bwd_ms"])
+    else:
+        dpc3, pvc3, tabc3, s3, gb3 = dpc, pvc, tabc, sc0, gbc
+    k3c_ms, _ = median_ms(lambda: df.diff_bwd(dpc3, pvc3, s3, gb3,
+                                              tab=tabc3))
+    n_paths = w * h * cfg.spp
+    wc, hc, sc_ = EXT_COUNT_FRAME[:3]
+    scale = n_paths / (wc * hc * sc_)
+    b2 = ext_pair_bound("diff_fwd", cstats, dpc, dp, scale)
+    b3 = ext_pair_bound("diff_bwd", cstats, dpc, dp, scale)
+    print(f"phase 17 {label} pair {w}x{h}x{cfg.spp} {cfg.sampler} "
+          f"({dp.entries[0]}): launches {launched}; fwd+bwd {pair_ms:.3f} "
+          f"ms (median of {pair_times}; first {first_ms:.3f}), "
+          f"{n_paths / (pair_ms / 1e3):.6e} camera paths/s; K2 {k2_ms:.3f} "
+          f"ms ({k2_times}), bound {b2[0]:.3f} ms ({b2[1]}); K3 "
+          f"{k3_ms:.3f} ms ({k3_times}), bound {b3[0]:.3f} ms ({b3[1]}); "
+          f"at {wc}x{hc}x{sc_}: K2 {k2c_ms:.3f} ms (plain {cp_ms:.3f}), "
+          f"at {bframe[0]}x{bframe[1]}x{bframe[2]}: K3 {k3c_ms:.3f} ms "
+          f"(plain {cstats['plain_bwd_ms']:.3f}, pooled);"
+          f" |grad| sums {grads} on {card}", flush=True)
+    return dict(frame=[w, h, cfg.spp], entries=dp.entries, launches=launched,
+                fwd_bwd_ms=pair_ms, k2_ms=k2_ms, k3_ms=k3_ms, bound2=b2,
+                bound3=b3, plain_ms=cp_ms, plain_bwd_ms=cstats["plain_bwd_ms"],
+                k2_ms_at_plain=k2c_ms, k3_ms_at_plain=k3c_ms,
+                k3_plain_frame=list(bframe[:3]), work=cstats)
+
+
+def gradient_question(camera, dev, card: str) -> dict:
+    """BASELINE.md:273-289 on the card: dL/dsigma_a and dL/dsigma_s of the
+    mean-pixel loss on cornell_vpt at RQ_FRAME through make_diff_renderer
+    (sampler "random", 32 bounces), RQ_SEEDS seeds under free flight and
+    under equi-angular; the two families' means must agree by vpt's rule
+    (tests/test_diff_kernel.py:113-117)."""
+    sc = vpt_torch.cornell_vpt()
+    w, h, spp = RQ_FRAME
+    out = {}
+    reset_counts()
+    for dist in ("free", "equiangular"):
+        render = df.make_diff_renderer(sc, camera, w, h, spp,
+                                       distance=dist, device="cuda")
+        base = {k: v.to(dev) for k, v in df.pack_params(sc).items()}
+        ga, gs = [], []
+        for s in range(RQ_SEEDS):
+            p = {k: v.clone().requires_grad_() for k, v in base.items()}
+            render(p, 1000 + s).mean().backward()
+            ga.append(float(p["sigma_a"].grad))
+            gs.append(float(p["sigma_s"].grad))
+        out[dist] = {n: (float(np.mean(v)), float(np.std(v)),
+                         float(np.std(v) / np.sqrt(len(v))))
+                     for n, v in (("sigma_a", ga), ("sigma_s", gs))}
+    launched = dict(df.LAUNCHES_BY)
+    agree = {}
+    for n in ("sigma_a", "sigma_s"):
+        (m1, _, se1), (m2, _, se2) = out["free"][n], out["equiangular"][n]
+        tol = 4.0 * np.hypot(se1, se2) + 0.05 * max(abs(m1), abs(m2))
+        agree[n] = bool(abs(m1 - m2) < tol)
+    ratio = {n: out["equiangular"][n][1] / out["free"][n][1]
+             for n in ("sigma_a", "sigma_s")}
+    res = dict(families=out, agree=agree, sd_ratio=ratio, launches=launched)
+    print(f"phase 17 research question in gradient form (cornell_vpt "
+          f"{w}x{h}x{spp}, random, {RQ_SEEDS} seeds per family): "
+          + "; ".join(f"{d} dL/dsigma_a {out[d]['sigma_a'][0]:.4f} (sd "
+                      f"{out[d]['sigma_a'][1]:.4f}), dL/dsigma_s "
+                      f"{out[d]['sigma_s'][0]:.4f} (sd "
+                      f"{out[d]['sigma_s'][1]:.4f})" for d in out)
+          + f"; means agree {agree}; sd ratio EA / free {ratio['sigma_a']:.3f}"
+          f" (sigma_a; vpt 2.1), {ratio['sigma_s']:.3f} (sigma_s; vpt 1.3); "
+          f"vpt's means -16.893 / -7.114 (free), -16.865 / -7.070 (EA), a "
+          f"TPU v5e; launches {launched} on {card}", flush=True)
+    if not all(agree.values()):
+        raise AssertionError(f"free and EA gradient means disagree: {res}")
+    return res
+
+
+def ext_phases(card: str, dev: torch.device, camera,
+               plains: PlainPool) -> list:
+    """Phase 17; returns the extended instantiations' kernel records."""
+    t17 = time.perf_counter()
+    rep = ptxas_report()
+    ext_ptxas = {}
+    for entry, (frag, _, _) in EXT_PAIR.items():
+        hits = [v for k, v in rep.items() if frag in k]
+        if len(hits) != 1:
+            raise AssertionError(f"ptxas reports {len(hits)} kernels for "
+                                 f"{frag}")
+        ext_ptxas[entry] = hits[0]
+        print(f"phase 17 ptxas {entry}: {hits[0][0]} registers, {hits[0][1]}"
+              f" B spill stores, {hits[0][2]} B stack", flush=True)
+    held = {**EXISTING_PTXAS, **GRID_PTXAS}
+    changed = {k: (rep.get(k), v) for k, v in held.items() if rep.get(k) != v}
+    print(f"phase 17 ptxas of the {len(held)} kernels from before the "
+          f"extended instantiations: "
+          f"{'unchanged' if not changed else changed}", flush=True)
+    if changed:
+        raise AssertionError(f"kernels changed: {changed}")
+
+    # -- every extended K2/K3 against its plain version and K1
+    t0 = time.perf_counter()
+    errs = dict.fromkeys(EXT_PAIR, 0.0)
+    c1 = {}
+    voxel = dict(over=0, ratio=0.0)
+    for spec in EXT_CHECKS + [EXT_VPT_CHECK, EXT_TRAINER_CHECK]:
+        r = ext_vs_plain(spec, plains, camera, dev)
+        fwd, bwd = r["entries"]
+        errs[fwd] = max(errs[fwd], r["err"])
+        errs[bwd] = max(errs[bwd], r["g_err"])
+        c1[fwd] = max(c1.get(fwd, 0.0), r["k1_err"])
+        if "voxel_over" in r:
+            voxel.update(over=voxel["over"] + r["voxel_over"],
+                         ratio=max(voxel["ratio"], r["voxel_ratio"]))
+    print(f"phase 17 checks {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- the equi-angular voxel gradient against CRN finite differences
+    fd = crn_fd(("truth", 16, "tri"), (128, 96, 8, 8, "ld"), camera, dev,
+                distance="equiangular")
+
+    # -- timings at MAIN_CFG
+    timed = {label: ext_timed(label, camera, dev, plains, card)
+             for label in EXT_TIMED}
+
+    # -- the research question, in gradient form and in tomography form
+    rq = gradient_question(camera, dev, card)
+    rg = recover_grid(camera, card, steps=RG_EA_STEPS, distance="equiangular")
+    if not (rg["finite"] and rg["mae_final"] < rg["mae_init"]
+            and rg["loss_last5"] < rg["loss_first"]):
+        raise AssertionError(f"recover_grid --distance equiangular: {rg}")
+    print(f"phase 17 {time.perf_counter() - t17:.1f} s", flush=True)
+
+    # -- the records
+    common = {"route": "cuda", "library_ms": None, "card": card}
+    rows = {"vpt_diff_fwd_ext": "ea", "vpt_diff_bwd_ext": "ea",
+            "vpt_diff_fwd_field_ext": "fog_ea",
+            "vpt_diff_bwd_field_ext": "fog_ea",
+            "vpt_diff_fwd_grid_ext": "grid_ea",
+            "vpt_diff_bwd_grid_ext": "grid_ea"}
+    records = []
+    for entry, (_, src, repl) in EXT_PAIR.items():
+        fwd = "_fwd" in entry
+        t = timed[rows[entry]]
+        b = t["bound2" if fwd else "bound3"]
+        regs, spill, stack = ext_ptxas[entry]
+        rec = {
+            "name": f"{entry[4:]} {rows[entry]}", **common,
+            "source": f"vpt_torch/csrc/{src}", "replaces": repl,
+            "launches": sum(tt["launches"].get(entry, 0)
+                            for tt in timed.values()),
+            "max_abs_err": errs[entry],
+            "ms": t["k2_ms" if fwd else "k3_ms"],
+            "frame": t["frame"], "fwd_bwd_ms": t["fwd_bwd_ms"],
+            "plain_ms": t["plain_ms" if fwd else "plain_bwd_ms"],
+            "plain_frame": (list(EXT_COUNT_FRAME[:3]) if fwd
+                            else t["k3_plain_frame"]),
+            "plain_alone": False,
+            "ms_at_plain_frame": t["k2_ms_at_plain" if fwd
+                                   else "k3_ms_at_plain"],
+            "bound_ms": b[0], "bound_by": b[1],
+            "work_at_plain_frame": t["work"],
+            "ptxas": {"registers": regs, "spill_stores": spill,
+                      "stack": stack}}
+        if fwd:
+            rec["k2_minus_k1"] = c1.get(entry, 0.0)
+        others = {lab: {k: tt[k] for k in ("frame", "k2_ms", "k3_ms",
+                                           "fwd_bwd_ms", "launches",
+                                           "bound2", "bound3")}
+                  for lab, tt in timed.items()
+                  if tt["entries"][0 if fwd else 1] == entry
+                  and lab != rows[entry]}
+        if others:
+            rec["cells"] = others
+        if entry == "vpt_diff_bwd_grid_ext":
+            rec.update(voxel_check=voxel, crn_fd=fd, recover_grid_ea=rg,
+                       launches_recover_grid=rg["launches"].get(entry, 0))
+        if entry == "vpt_diff_bwd_ext":
+            rec["gradient_question"] = rq
+        records.append(rec)
+    return records
+
+
 def parse_args(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the vpt_torch "
@@ -2236,6 +2769,12 @@ def parse_args(argv=None):
                     help="the card, the build and examples/recover_grid.py "
                          "at the round-4 setting (--spp 16 --reg-l1 2e-2) "
                          "for STEPS steps (250: the round-4 run)")
+    ap.add_argument("--recover-grid-ea", type=int, default=None,
+                    metavar="STEPS",
+                    help="the card, the build and tomo_quality_study.py's "
+                         "rows B (free flight) and F (equi-angular) of "
+                         "examples/recover_grid.py for STEPS steps each "
+                         "(250: the study's rows)")
     return ap.parse_args(argv)
 
 
@@ -2244,7 +2783,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; no result")
     plains = None
-    if args.recover_fog_multiview is None and args.recover_grid is None:
+    if (args.recover_fog_multiview is None and args.recover_grid is None
+            and args.recover_grid_ea is None):
         plains = PlainPool(plain_specs())
     try:
         return run(args, plains)
@@ -2299,6 +2839,28 @@ def run(args, plains: PlainPool | None) -> int:
         print(f"chip_smoke: partial run, {time.perf_counter() - t_start:.1f}"
               f" s", flush=True)
         return 0
+    if args.recover_grid_ea is not None:
+        rows = {dist: recover_grid(camera, card, steps=args.recover_grid_ea,
+                                   reg_l1=2e-2, reg_tv=1e-2,
+                                   interp="nearest", distance=dist)
+                for dist in ("free", "equiangular")}
+        ea = rows["equiangular"]
+        met = bool(ea["finite"] and ea["corr"] >= 0.65
+                   and ea["mae_final"] <= 0.18)
+        free_better = rows["free"]["corr"] > ea["corr"]
+        print(f"recover_grid rows B / F (16^3, 6 views, "
+              f"{args.recover_grid_ea} steps, L1 2e-2, TV 1e-2, nearest): "
+              f"free corr {rows['free']['corr']:.3f}, MAE "
+              f"{rows['free']['mae_final']:.4f}; equi-angular corr "
+              f"{ea['corr']:.3f} (>= 0.65), MAE {ea['mae_final']:.4f} (<= "
+              f"0.18): {'met' if met else 'not met'}; free flight beats "
+              f"equi-angular: {free_better} (vpt on a TPU v5e: B 0.753 / "
+              f"0.138, F 0.705 / 0.159)", flush=True)
+        print(json.dumps({"recover_grid_rows": rows, "f_met": met,
+                          "free_beats_ea": free_better, "card": card}))
+        print(f"chip_smoke: partial run, {time.perf_counter() - t_start:.1f}"
+              f" s", flush=True)
+        return 0 if met else 1
 
     # ---- phase 3: K1 against its plain version, small frame
     for sampler in ("random", "ld"):
@@ -2995,6 +3557,11 @@ def run(args, plains: PlainPool | None) -> int:
 
     # ---- phase 16: voxel grids in K1 and the pair, fit_grid, recover_grid
     records += grid_phases(card, dev, camera, plains)
+    print(f"phases 1-16: {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- phase 17: the rest of the pair: equi-angular, the implicit and
+    # physical estimators, shells, HG in a grid
+    records += ext_phases(card, dev, camera, plains)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

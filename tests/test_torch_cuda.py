@@ -4,7 +4,9 @@ the adaptive and noise-target entry points), the differentiable pair K2/K3
 and the dual kernel K4; K1's and the pair's field instantiations on
 foggy_cornell and blob_cloud; the pair's HG instantiations (a baked g and
 the traced diff_g) and fit_multiview; K1's and the pair's grid
-instantiations (diff_grid's voxel gradient included) and fit_grid.
+instantiations (diff_grid's voxel gradient included) and fit_grid; the
+pair's extended instantiations (equi-angular, the implicit and physical
+estimators, shells, HG in a grid) and fit_grid under equi-angular.
 
 Run on a machine with an NVIDIA GPU (--noconftest: tests/conftest.py
 imports jax, which the port's machines need not have):
@@ -468,3 +470,86 @@ def test_fit_grid_goes_through_the_grid_kernels(cuda):
                               "vpt_diff_bwd_grid": 8}
     assert np.isfinite(losses).all() and values.is_cuda
     assert values.min() >= 0.0
+
+
+# the pair's extended instantiations (csrc/diff_ext_*.cu,
+# diff_field_ext_*.cu, diff_grid_ext_*.cu): (scene, g, traced, estimator,
+# sampler)
+EXT_PAIRS = [
+    ("cornell_vpt", 0.0, {}, dict(distance="equiangular"), "ld"),
+    ("cornell_vpt", 0.5, {"diff_g": True},
+     dict(distance="equiangular", nee=False, physical=True), "random"),
+    ("cornell_vpt", 0.0, {}, dict(physical=True), "ld"),
+    ("medium_shell", 0.0, {}, {}, "random"),
+    ("foggy_cornell", 0.5, {"diff_g": True, "diff_field": True},
+     dict(distance="equiangular", physical=True), "random"),
+    ("blob_cloud", 0.0, {"diff_blobs": True},
+     dict(nee=False, physical=True), "ld"),
+    ("grid", 0.5, {"diff_grid": True}, dict(distance="equiangular"), "ld"),
+    ("grid_nearest", 0.0, {"diff_grid": True},
+     dict(distance="equiangular", nee=False, physical=True), "random"),
+    ("grid", -0.3, {"diff_grid": True}, {}, "random"),
+    ("grid", 0.0, {}, dict(distance="equiangular"), "ld")]
+
+
+@pytest.mark.parametrize("name,g,kw,est,sampler", EXT_PAIRS, ids=[
+    f"{c[0]}-g{c[1]}-{'-'.join(c[2]) or 'baked'}-"
+    f"{'-'.join(f'{k}={v}' for k, v in c[3].items()) or 'free'}-{c[4]}"
+    for c in EXT_PAIRS])
+def test_ext_pair_matches_plain_on_card(cuda, name, g, kw, est, sampler):
+    """The extended K2/K3: the image bit for bit, K3's per-pixel rows row
+    for row, the block-summed vector within 1e-5 of sum_lanes |G_lane, k|,
+    the voxel gradient per voxel within 1e-5 of its terms' absolute sum;
+    launched under the "_ext" entries."""
+    import dataclasses
+
+    if name.startswith("grid"):
+        sc = _grid_cloud("nearest" if name == "grid_nearest" else "tri")
+    else:
+        sc = vpt_torch.SCENES[name]()
+    sc = dataclasses.replace(sc, medium=dataclasses.replace(
+        sc.medium, g=torch.tensor(g)))
+    dp = df.pack_diff(sc, vpt_torch.default_camera(), 64, 32, 8,
+                      max_bounces=8, sampler=sampler, **kw, **est)
+    params = df.pack_params(sc, with_g=kw.get("diff_g", False),
+                            with_field=kw.get("diff_field", False),
+                            with_blobs=kw.get("diff_blobs", False),
+                            with_grid=kw.get("diff_grid", False))
+    pvec = df._flatten(params, sc.count).to(cuda)
+    tab = (vpt_torch.kernels.prims.grid_table(params["grid"].to(cuda))
+           if "grid" in params else None)
+    seed = torch.tensor([3], dtype=torch.int32, device=cuda)
+    gbar = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (dp.npix, 3)).astype(np.float32)).to(cuda)
+    df.LAUNCHES_BY.clear()
+    k = df.diff_fwd(dp, pvec, seed, tab)
+    got = df.diff_bwd(dp, pvec, seed, gbar, tab=tab)
+    lanes = df.diff_bwd(dp, pvec, seed, gbar, per_lane=True, tab=tab)
+    fwd, bwd = dp.entries
+    assert fwd.endswith("_ext") and df.LAUNCHES_BY == {fwd: 1, bwd: 2}
+    p = df.diff_fwd_plain(dp, pvec, seed, tab=tab)
+    want = df.diff_bwd_plain(dp, pvec, seed, gbar, per_lane=True, tab=tab,
+                             voxel_abs=True)
+    torch.cuda.synchronize()
+    G, Gp = (lanes[0], want[0]) if dp.diff_grid else (lanes, want)
+    g_ = got[0] if dp.diff_grid else got
+    assert torch.isfinite(G).all() and torch.equal(k, p)
+    assert torch.equal(G, Gp)
+    assert bool(((g_ - Gp.sum(0)).abs() <= 1e-5 * Gp.abs().sum(0)).all())
+    if dp.diff_grid:
+        tiny = torch.finfo(torch.float32).tiny
+        for gg in (lanes[1], got[1]):
+            assert ((gg - want[1]).abs() <= 1e-5 * want[2] + tiny).all()
+
+
+def test_ea_fit_grid_goes_through_the_ext_kernels(cuda):
+    sc = _grid_cloud("nearest")
+    cam = vpt_torch.default_camera()
+    targets = [torch.rand(24, 32, 3, device=cuda) for _ in range(2)]
+    df.LAUNCHES_BY.clear()
+    values, losses = vpt_torch.dist.fit_grid(
+        sc, [cam, cam], targets, steps=2, spp=2, reg_l1=2e-3,
+        distance="equiangular", device="cuda")
+    assert df.LAUNCHES_BY == {"vpt_diff_fwd_grid_ext": 8,
+                              "vpt_diff_bwd_grid_ext": 8}
+    assert np.isfinite(losses).all() and values.min() >= 0.0

@@ -165,38 +165,43 @@ def _grid_scene():
 # (tests/test_torch_grid_diff.py); their cases check what stays refused
 # with them: equi-angular, physical, material-3 shells, an HG phase in a
 # grid, the dual kernel in a grid, vpt's engine backend of the grid trainer
+# what stays refused: the shard variant (item 8), K4's branches (item 5),
+# the engine (item 9); vpt's own refusal of the non-physical implicit pair
+# names the engine too
 REFUSED = {
-    "diff_g": lambda: df.make_diff_renderer(SCENE, CAM, 8, 4, 1, diff_g=True,
-                                            distance="equiangular",
-                                            device="cpu"),
+    "diff_g": lambda: df.make_diff_renderer(
+        SCENE, CAM, 8, 4, 1, diff_g=True, distance="equiangular",
+        device="cpu").make_shard(1),
     "diff_field": lambda: df.make_diff_renderer(SCENE, CAM, 8, 4, 1,
                                                 diff_field=True, device="cpu"),
     "diff_blobs": lambda: df.make_diff_renderer(SCENE, CAM, 8, 4, 1,
                                                 diff_blobs=True, device="cpu"),
     "diff_grid": lambda: df.make_diff_renderer(
         _grid_scene(), CAM, 8, 4, 1, diff_grid=True, distance="equiangular",
+        device="cpu").make_shard(1),
+    "equiangular": lambda: vpt_torch.kernels.geom.make_geom_renderer(
+        SCENE, CAM, 8, 4, 1, sphere=8, distance="equiangular",
         device="cpu"),
-    "equiangular": lambda: df.make_diff_renderer(
-        SCENE, CAM, 8, 4, 1, distance="equiangular", device="cpu"),
-    "physical": lambda: df.make_diff_renderer(SCENE, CAM, 8, 4, 1,
-                                              physical=True, device="cpu"),
-    "with_g": lambda: df.make_diff_renderer(_grid_scene(), CAM, 8, 4, 1,
-                                            diff_g=True, diff_grid=True,
-                                            device="cpu"),
+    "physical": lambda: vpt_torch.kernels.geom.make_geom_renderer(
+        SCENE, CAM, 8, 4, 1, sphere=8, physical=True, device="cpu"),
+    "with_g": lambda: vpt_torch.kernels.geom.make_geom_renderer(
+        vpt_torch.make_scene(list(vpt_torch.scene.scene.CORNELL_VPT_SPHERES),
+                             g=0.3), CAM, 8, 4, 1, sphere=8, device="cpu"),
     "with_grid": lambda: vpt_torch.dist.fit_grid(
         _grid_scene(), [CAM], [torch.zeros(4, 8, 3)], steps=1,
         backend="engine", device="cpu"),
     "hg_scene": lambda: df.make_diff_renderer(
         vpt_torch.make_scene(list(vpt_torch.scene.scene.CORNELL_VPT_SPHERES),
-                             g=0.3), CAM, 8, 4, 1, physical=True,
+                             g=0.3), CAM, 8, 4, 1, nee=False, physical=False,
         device="cpu"),
-    "medium_shell": lambda: df.make_diff_renderer(
-        vpt_torch.scene.scene.medium_shell(), CAM, 8, 4, 1, device="cpu"),
+    "medium_shell": lambda: vpt_torch.kernels.geom.make_geom_renderer(
+        vpt_torch.scene.scene.medium_shell(), CAM, 8, 4, 1, sphere=6,
+        device="cpu"),
     "make_shard": lambda: df.make_diff_renderer(
         SCENE, CAM, 8, 4, 1, device="cpu").make_shard(1),
-    "fit_kernel_diff_g": lambda: vpt_torch.dist.fit_kernel(
-        vpt_torch.scene.scene.medium_shell(), CAM, torch.zeros(4, 8, 3),
-        steps=1, diff_g=True, device="cpu"),
+    "fit_kernel_diff_g": lambda: vpt_torch.dist.fit_grid(
+        _grid_scene(), [CAM], [torch.zeros(4, 8, 3)], steps=1,
+        backend="engine", distance="equiangular", device="cpu"),
     # the traced field parameters need their field kind
     "diff_field_blob_scene": lambda: df.make_diff_renderer(
         vpt_torch.scene.scene.blob_cloud(), CAM, 8, 4, 1, diff_field=True,

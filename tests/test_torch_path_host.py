@@ -96,6 +96,9 @@ def host_lib():
                                      ctypes.c_int, ctypes.c_void_p,
                                      ctypes.c_void_p]
     so.vpt_diff_bwd_host.restype = None
+    so.vpt_diff_ext_host.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] \
+        + [ctypes.c_void_p] * 4
+    so.vpt_diff_ext_host.restype = None
     so.vpt_geom_params_words.argtypes = []
     so.vpt_geom_params_words.restype = ctypes.c_int
     so.vpt_geom_fwd_host.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
@@ -415,6 +418,89 @@ def _check_host_pair(host_lib, scene, sampler, jitter, kw, max_flips=0,
     assert np.quantile(rel, 0.99) < 1e-4, np.quantile(rel, 0.99)
     tiny = zero_tol * np.maximum(1.0, np.abs(Gp).max(0))
     assert np.array_equal(np.abs(G[~flips]) > tiny, np.abs(Gp[~flips]) > tiny)
+
+
+# the pair's extended instantiations (diff_pixel<kGrads, kField, true,
+# true>): equi-angular (homogeneous, in the fog with diff_g + diff_field,
+# on the grid with diff_grid at a baked g), the implicit and physical
+# estimators, material-3 shells, HG in a grid under free flight: (scene, g,
+# traced, estimator, sampler)
+EXT_CASES = [
+    ("cornell_vpt", 0.0, {}, dict(distance="equiangular"), "ld"),
+    ("cornell_vpt", 0.5, {"diff_g": True},
+     dict(distance="equiangular", nee=False, physical=True), "random"),
+    ("cornell_vpt", 0.0, {}, dict(physical=True), "random"),
+    ("medium_shell", 0.0, {}, {}, "ld"),
+    ("foggy_cornell", 0.5, {"diff_g": True, "diff_field": True},
+     dict(distance="equiangular", physical=True), "random"),
+    ("blob_cloud", 0.0, {"diff_blobs": True},
+     dict(distance="equiangular"), "ld"),
+    ("grid", 0.5, {"diff_grid": True}, dict(distance="equiangular"), "ld"),
+    ("grid_nearest", 0.0, {"diff_grid": True},
+     dict(distance="equiangular", nee=False, physical=True), "random"),
+    ("grid", -0.3, {"diff_grid": True}, {}, "random")]
+
+
+@pytest.mark.parametrize("case", EXT_CASES, ids=[
+    f"{c[0]}-g{c[1]}-{'-'.join(c[2]) or 'baked'}-"
+    f"{'-'.join(f'{k}={v}' for k, v in c[3].items()) or 'free'}-{c[4]}"
+    for c in EXT_CASES])
+def test_host_build_of_ext_pair_matches_plain(host_lib, case):
+    """The extended estimators read at run time: K2's image, K3's per-pixel
+    rows and (diff_grid) the voxel gradient against the plain pair, as the
+    grid pair's test holds them; the image criterion's flip lanes (an ulp
+    of libm against torch deciding a discrete event) at most 1."""
+    name, g, traced, est, sampler = case
+    if name.startswith("grid"):
+        scene, cam = port_scene("nearest" if name == "grid_nearest"
+                                else "tri")
+    else:
+        scene, cam = vpt_torch.SCENES[name](), vpt_torch.default_camera()
+    scene = dataclasses.replace(scene, medium=dataclasses.replace(
+        scene.medium, g=torch.tensor(g)))
+    dp = df.pack_diff(scene, cam, W, H, SPP, max_bounces=MB, sampler=sampler,
+                      **traced, **est)
+    assert dp.ext
+    words = np.ascontiguousarray(dp.words())
+    assert words.size == host_lib.vpt_diff_params_words()   # struct layout
+    params = df.pack_params(scene, with_g=traced.get("diff_g", False),
+                            with_field=traced.get("diff_field", False),
+                            with_blobs=traced.get("diff_blobs", False),
+                            with_grid=traced.get("diff_grid", False))
+    pvec = df._flatten(params, scene.count).contiguous()
+    grid = dp.pk.grid is not None
+    tab = tp.grid_table(scene.medium.density.params) if grid else None
+    tab_p = tab.data_ptr() if grid else None
+    seed = torch.tensor([SEED], dtype=torch.int32)
+    out = np.full((W * H, 3), np.nan, np.float32)
+    host_lib.vpt_diff_ext_host(words.ctypes.data, pvec.data_ptr(), SEED,
+                               None, tab_p, out.ctypes.data, None)
+    ref = df.diff_fwd_plain(dp, pvec, seed, tab=tab).numpy()
+    assert np.isfinite(out).all()
+    rel = np.abs(out - ref) / max(1.0, float(np.abs(ref).max()))
+    assert np.quantile(rel, 0.99) < 1e-4, np.quantile(rel, 0.99)
+    flips = (np.abs(out - ref).max(1)
+             / np.maximum(1.0, np.abs(ref).max(1))) > 1e-4
+    assert flips.sum() <= 1, np.flatnonzero(flips)
+    gbar = np.random.default_rng(0).standard_normal((W * H, 3)).astype(
+        np.float32)
+    G = np.full((W * H, dp.P), np.nan, np.float32)
+    dg = dp.diff_grid
+    gg = np.zeros(int(np.prod(dp.pk.grid.dims)) if grid else 1, np.float32)
+    host_lib.vpt_diff_ext_host(words.ctypes.data, pvec.data_ptr(), SEED,
+                               gbar.ctypes.data, tab_p, G.ctypes.data,
+                               gg.ctypes.data if dg else None)
+    refg = df.diff_bwd_plain(dp, pvec, seed, torch.from_numpy(gbar),
+                             per_lane=True, tab=tab, voxel_abs=True)
+    Gp = (refg[0] if dg else refg).numpy()
+    assert np.isfinite(G).all()
+    rel = (np.abs(G - Gp) / np.maximum(1.0, np.abs(Gp).max(0))).max(1)
+    assert np.quantile(rel, 0.99) < 1e-4, np.quantile(rel, 0.99)
+    if dg:
+        want, gabs = refg[1].numpy().reshape(-1), refg[2].numpy()
+        assert np.isfinite(gg).all() and np.abs(want).max() > 0
+        rel = np.abs(gg - want) / max(1.0, float(gabs.max()))
+        assert np.quantile(rel, 0.99) < 1e-4, np.quantile(rel, 0.99)
 
 
 # K4 at every tangent count the host build is tested for, both samplers:

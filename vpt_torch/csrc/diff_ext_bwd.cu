@@ -1,0 +1,9 @@
+// K3 with the extended estimators in a homogeneous medium. The kernel is in
+// csrc/diff_kernel.cuh.
+#include "diff_kernel.cuh"
+
+extern "C" int vpt_diff_bwd_ext(const void* params, const void* pvec, const void* seed,
+                                const void* gbar, void* partials, void* per_lane, void* stream) {
+  return vpt_diff::launch_ext_bwd<vpt::kHomogeneous>(params, pvec, seed, gbar, partials, per_lane,
+                                                     nullptr, nullptr, stream);
+}

@@ -1,0 +1,9 @@
+// K2 with the extended estimators in a voxel grid (equi-angular, the
+// implicit and physical estimators, an HG phase). The kernel is in
+// csrc/diff_kernel.cuh.
+#include "diff_kernel.cuh"
+
+extern "C" int vpt_diff_fwd_grid_ext(const void* params, const void* pvec, const void* seed,
+                                     void* out, const void* tab, void* stream) {
+  return vpt_diff::launch_ext_fwd<vpt::kGridField>(params, pvec, seed, out, tab, stream);
+}

@@ -279,3 +279,167 @@ inline bool read_grid_params(const void* params, DiffParams& D) {
 }
 
 }  // namespace vpt_diff
+
+namespace vpt_diff {
+
+// ---- the extended estimators (csrc/diff_ext*.cu) --------------------------
+
+// K2 and K3 with diff_pixel<..., kHG = true, kExt = true>: equi-angular
+// distances, the implicit estimator, the physical credit, material-3 shells
+// and any phase, read from DiffParams at run time, in a homogeneous medium,
+// an analytic field (kField = vpt::kAnalytic) or a voxel grid
+// (vpt::kGridField, with the table tab and, with diff_grid, the voxel
+// gradient ggrid as in grid_bwd_kernel); tab and ggrid are NULL outside a
+// grid. One template of each per field kind, each in a source of its own.
+template <int kField>
+__global__ void __launch_bounds__(kThreads)
+    ext_fwd_kernel(const __grid_constant__ DiffParams D, const float* __restrict__ pvec,
+                   const int* __restrict__ seed, float* __restrict__ out,
+                   const uint32_t* __restrict__ tab) {
+  constexpr bool kAn = kField == vpt::kAnalytic;
+  __shared__ float pv[max_params<kAn, true>()];
+  const FieldParams& F = stage<kAn>(D, pvec, pv);
+  const int npix = D.base.width * D.base.height;
+  const int pixel = blockIdx.x * kThreads + threadIdx.x;
+  if (pixel >= npix) return;
+  float L[3];
+  vpt::diff_pixel<false, kField, true, true>(D, pv, F, pixel, seed[0], nullptr, L, nullptr, tab);
+  out[3 * pixel + 0] = L[0];
+  out[3 * pixel + 1] = L[1];
+  out[3 * pixel + 2] = L[2];
+}
+
+template <int kField>
+__global__ void __launch_bounds__(kThreads)
+    ext_bwd_kernel(const __grid_constant__ DiffParams D, const float* __restrict__ pvec,
+                   const int* __restrict__ seed, const float* __restrict__ gbar,
+                   float* __restrict__ partials, float* __restrict__ per_lane,
+                   const uint32_t* __restrict__ tab, float* __restrict__ ggrid, int shared) {
+  constexpr bool kAn = kField == vpt::kAnalytic;
+  constexpr int kMaxP = max_params<kAn, true>();
+  __shared__ float pv[kMaxP];
+  __shared__ float warp_sum[kWarps][kMaxP];
+  extern __shared__ float sgrid[];
+  const FieldParams& F = stage<kAn>(D, pvec, pv);
+  const int P = D.n_params;
+  float* acc = ggrid;
+  int T = 0;
+  if constexpr (kField == vpt::kGridField) {
+    T = D.base.grid.n[0] * D.base.grid.n[1] * D.base.grid.n[2];
+    if (ggrid != nullptr && shared) {
+      for (int k = threadIdx.x; k < T; k += kThreads) sgrid[k] = 0.0f;
+      __syncthreads();
+      acc = sgrid;
+    }
+  }
+  const int npix = D.base.width * D.base.height;
+  const int pixel = blockIdx.x * kThreads + threadIdx.x;
+  float g[kMaxP];
+  if (pixel < npix) {
+    vpt::diff_pixel<true, kField, true, true>(D, pv, F, pixel, seed[0], gbar + 3 * pixel, nullptr,
+                                              g, tab, acc);
+    if (per_lane != nullptr)
+      for (int k = 0; k < P; ++k) per_lane[(size_t)pixel * P + k] = g[k];
+  } else {
+    for (int k = 0; k < P; ++k) g[k] = 0.0f;
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int k = 0; k < P; ++k) {
+    float v = g[k];
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) warp_sum[warp][k] = v;
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < P; k += kThreads) {
+    float s = warp_sum[0][k];
+    for (int w = 1; w < kWarps; ++w) s += warp_sum[w][k];
+    partials[(size_t)blockIdx.x * P + k] = s;
+  }
+  if constexpr (kField == vpt::kGridField) {
+    if (ggrid != nullptr && shared) {  // flush the block's voxel terms
+      for (int k = threadIdx.x; k < T; k += kThreads) {
+        const float v = sgrid[k];
+        if (v != 0.0f) atomicAdd(ggrid + k, v);
+      }
+    }
+  }
+}
+
+// A DiffParams of an extended launch: the field kind kField, any HG mode, a
+// known distance, and not the refused nee = 0, physical = 0
+template <int kField>
+bool read_ext_params(const void* params, DiffParams& D) {
+  memcpy(&D, params, sizeof D);
+  bool field_ok;
+  if constexpr (kField == vpt::kGridField) {
+    const GridParams& G = D.base.grid;
+    field_ok = G.n[0] >= 2 && G.n[1] >= 2 && G.n[2] >= 2 && G.n_march >= 1 &&
+               D.base.field.kind == 0 && D.n_fp == 0;
+  } else if constexpr (kField == vpt::kAnalytic) {
+    field_ok = D.base.field.kind != 0;
+  } else {
+    field_ok = D.base.field.kind == 0 && D.n_fp == 0;
+  }
+  constexpr int kMaxP = max_params<kField == vpt::kAnalytic, true>();
+  return field_ok && D.hg_mode >= 0 && D.hg_mode <= vpt::kHgTraced &&
+         (D.distance == 0 || D.distance == vpt::kDistEa) && (D.nee != 0 || D.physical != 0) &&
+         D.n_fp >= 0 && D.n_fp <= VPT_MAX_FP && D.n_params > 0 && D.n_params <= kMaxP &&
+         D.n_params == vpt::field_slot0(D) + D.n_fp;
+}
+
+// The bytes of dynamic shared memory an extended grid K3 uses for T voxels
+// (as grid_shared_bytes)
+template <int kField>
+int ext_shared_bytes(int T) {
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, ext_bwd_kernel<kField>) != cudaSuccess) return 0;
+  const size_t need = (size_t)T * sizeof(float);
+  return need + attr.sharedSizeBytes <= (size_t)optin ? (int)need : 0;
+}
+
+// As launch_fwd; tab: a grid's packed table (NULL outside a grid)
+template <int kField>
+int launch_ext_fwd(const void* params, const void* pvec, const void* seed, void* out,
+                   const void* tab, void* stream) {
+  DiffParams D;
+  if (!read_ext_params<kField>(params, D) || (kField == vpt::kGridField) != (tab != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int npix = D.base.width * D.base.height;
+  if (npix <= 0) return 0;
+  const int blocks = (npix + kThreads - 1) / kThreads;
+  ext_fwd_kernel<kField><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      D, (const float*)pvec, (const int*)seed, (float*)out, (const uint32_t*)tab);
+  return (int)cudaGetLastError();
+}
+
+// As launch_bwd; tab and ggrid as launch_grid_bwd's in a grid, NULL
+// outside one
+template <int kField>
+int launch_ext_bwd(const void* params, const void* pvec, const void* seed, const void* gbar,
+                   void* partials, void* per_lane, const void* tab, void* ggrid, void* stream) {
+  DiffParams D;
+  constexpr bool kGrid = kField == vpt::kGridField;
+  if (!read_ext_params<kField>(params, D) || kGrid != (tab != nullptr) ||
+      (kGrid && D.diff_grid != 0) != (ggrid != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int npix = D.base.width * D.base.height;
+  if (npix <= 0) return 0;
+  const int blocks = (npix + kThreads - 1) / kThreads;
+  int smem = 0;
+  if (ggrid != nullptr) {
+    smem = ext_shared_bytes<kField>(D.base.grid.n[0] * D.base.grid.n[1] * D.base.grid.n[2]);
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(ext_bwd_kernel<kField>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  }
+  ext_bwd_kernel<kField><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      D, (const float*)pvec, (const int*)seed, (const float*)gbar, (float*)partials,
+      (float*)per_lane, (const uint32_t*)tab, (float*)ggrid, smem > 0 ? 1 : 0);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace vpt_diff

@@ -52,12 +52,16 @@ struct DiffParams {
   int fp_kind;     // 0 none, kFpFogK, kFpBlobs
   int hg_mode;     // 0 isotropic, kHgBaked (the scene's g), kHgTraced (diff_g)
   int diff_grid;   // 1: K3 also returns the voxel gradient (a grid's pair)
+  int distance;    // 0 free flight, kDistEa (vpt's equi-angular branch)
+  int nee;         // 1: next-event estimation; 0: every emitter hit counts
+  int physical;    // 1: credited emission times 1/cp
 };
 
 namespace vpt {
 
 enum FpKind { kFpFogK = 1, kFpBlobs = 2 };
 enum HgMode { kHgBaked = 1, kHgTraced = 2 };
+enum PairDistance { kDistEa = 1 };
 
 // the packed index of the first traced field parameter: after the traced g
 VPT_HD int field_slot0(const DiffParams& D) {
@@ -92,10 +96,12 @@ VPT_HD void pair_field(const DiffParams& D, const float* pv, FieldParams& F) {
 }
 
 // vpt's fp_dI: d(optical path per unit sigma along (o, d) to t)/dtheta for
-// the n_fp traced slots
-VPT_HD void fp_dI(const FieldParams& F, int fp_kind, V3 o, V3 d, float t, float* out) {
+// the n_fp traced slots; guard: field_tau_dk's overflow guard (the extended
+// instantiations)
+VPT_HD void fp_dI(const FieldParams& F, int fp_kind, V3 o, V3 d, float t, float* out,
+                  bool guard = false) {
   if (fp_kind == kFpFogK) {
-    out[0] = field_tau_dk(F, o, d, t);
+    out[0] = field_tau_dk(F, o, d, t, guard);
   } else {
     for (int b = 0; b < F.n_blobs; ++b) blob_tau_grads(F.blob[b], o, d, t, out + 5 * b);
   }
@@ -136,8 +142,8 @@ VPT_HD Attr attrs_p(const VptParams& P, const float* pv, int sid) {
 // slots dk[f] = d/d(slot f) of the light strategy, or through the grid
 // P.grid and its table tab (kGridField). gg (a grid with diff_grid): each
 // light strategy's voxel terms, the transmittance's -sigma_t dI/dv times
-// sum_i wtp[i] term[i], are scattered into gg.
-template <bool kGrads, int kField>
+// sum_i wtp[i] term[i], are scattered into gg. kExt: fp_dI's overflow guard.
+template <bool kGrads, int kField, bool kExt = false>
 VPT_HD void diff_mis_v2(const VptParams& P, const float* pv, const FieldParams& F, int fp_kind,
                         int n_fp, float sigma_t, Pcg& rng, const Attr& at, V3 xs, V3 n, V3 d,
                         float acc[3], float dsig[3], float dalb[3], float dle[3],
@@ -196,7 +202,7 @@ VPT_HD void diff_mis_v2(const VptParams& P, const float* pv, const FieldParams& 
     if constexpr (kGrads && kField == kAnalytic) {
       if (n_fp > 0) {  // d(tr)/dtheta = tr (-sigma_t dI/dtheta)
         float dIs[VPT_MAX_FP];
-        fp_dI(F, fp_kind, xs, wc, normcx, dIs);
+        fp_dI(F, fp_kind, xs, wc, normcx, dIs, kExt);
         for (int f = 0; f < n_fp; ++f)
           for (int i = 0; i < 3; ++i) {
             float term = pv[rad0 + 3 * e + i] * fr[i] * w_vis * wf;
@@ -283,8 +289,9 @@ VPT_HD void diff_mis_v2(const VptParams& P, const float* pv, const FieldParams& 
 // (d/dsigma_t of the transmittance is -att * value), the cone direction wl
 // and the shadow distance t_sh. kHG: the phase toward wl from the incoming
 // direction d at the baked g, or at the traced g gph with dlogp = d/dg log
-// phase (the pathwise dL/dg factor of this NEE value)
-template <int kField, bool kHG>
+// phase (the pathwise dL/dg factor of this NEE value). kExt: the phase may
+// also be isotropic (hg_mode 0)
+template <int kField, bool kHG, bool kExt = false>
 VPT_HD void diff_medium_nee(const VptParams& P, const FieldParams& F, float sigma_t, int hg_mode,
                             float gph, V3 d, V3 xt, V3 lc, const float lrad[3], float lr,
                             int lid, float u1, float u2, float out[3], float& w, float& att,
@@ -312,7 +319,7 @@ VPT_HD void diff_medium_nee(const VptParams& P, const FieldParams& F, float sigm
     if (hg_mode == kHgTraced) {
       phase_2pi = hg_phase_traced(cos_nee, gph) * TWO_PI;
       dlogp = dlog_hg_dg(cos_nee, gph);
-    } else {
+    } else if (!kExt || hg_mode == kHgBaked) {
       phase_2pi = hg_phase_const(P, cos_nee) * TWO_PI;
     }
   }
@@ -351,7 +358,21 @@ VPT_HD void diff_medium_nee(const VptParams& P, const FieldParams& F, float sigm
 // among them (the free-flight event scores against wLtot, the pathwise
 // transmittance terms of pLight, medium NEE and the MIS light strategy);
 // the iteration cap doubles.
-template <bool kGrads, int kField = kHomogeneous, bool kHG = false>
+//
+// kExt: the estimators beyond free-flight NEE, read from D at run time
+// (csrc/diff_ext*.cu). D.distance == kDistEa is vpt's equi-angular branch
+// (vpt/kernels/diff.py:680-716, 751-760, 942-971): K1's equiAngularParams2
+// on the pair's arithmetic, then the Bernoulli(Tr) draw u_ev; the sigma
+// scores are the event's log-probabilities, the medium factor sigma_s T /
+// (cp pSuccess) (times dens(xt) in a field) adds its pathwise terms, a
+// field's slots their Bernoulli scores and deferred medium terms, and with
+// diff_grid the voxel scores and the value chains of T (forward or reversed
+// march by the sign of I), of 1/pSuccess and of dens(xt) (a trilinear
+// scatter) are scattered against wLtot at once. D.nee == 0 credits every
+// emitter hit and takes no pLight, MISv2 or medium-NEE draw; D.physical
+// multiplies credited emission by 1/cp. pLight takes K1's material-3
+// cascade, and the phase may be isotropic, baked or traced in any field.
+template <bool kGrads, int kField = kHomogeneous, bool kHG = false, bool kExt = false>
 VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& F, int pixel,
                        int seed, const float* gbar, float out[3], float* gout,
                        const uint32_t* tab = nullptr, float* gg = nullptr) {
@@ -381,6 +402,10 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
   constexpr int kFp = (kGrads && kAnalyticField) ? VPT_MAX_FP : 1;
   // vpt's two-phase replay (K3 with diff_grid)
   const bool two_phase = kGrads && kField == kGridField && gg != nullptr;
+  // the estimator (kExt): equi-angular, NEE, the physical credit
+  const bool ea = kExt && D.distance == kDistEa;
+  const bool nee = !kExt || D.nee != 0;
+  const bool physical = kExt && D.physical != 0;
 
   const float px = (float)(pixel % P.width);
   const float py = (float)(P.height - 1 - pixel / P.width);
@@ -494,19 +519,106 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
       lr = P.r[lid];
     }
 
-    float d_s, tau_cap = 0.0f;
-    if constexpr (kField == kGridField)
-      d_s = grid_sample_free_and_tau(P.grid, tab, sigma_t, o, d, u_dist, t_eff, tau_cap);
-    else if constexpr (kAnalyticField)
-      d_s = field_sample_free(F, sigma_t, inv_mr, o, d, u_dist, rng, t_eff);
-    else
-      d_s = -log1pf(-u_dist) * inv_st;
-    bool surface = d_s > t_eff && hit;
-    if (kField) live = live && (d_s < 0.5f * BIG || surface);  // escaped: dies
-    V3 xt = ray_at(o, d_s, d);
+    float d_s = 0.0f, tau_cap = 0.0f;
+    bool surface;
+    V3 xt;
+    // equi-angular: the sample's distance along the ray, the optical path
+    // per unit sigma to the surface (0 off any surface), Tr, its floored
+    // complement and pSuccess
+    float d_along = 0.0f, t_det0 = 0.0f, att_t = 0.0f, tr_act = 0.0f, one_m_tr = 1.0f,
+          pdf_success = 1.0f;
+    if (ea) {
+      const V3 lo = sub3(lc, o);
+      const float delta = dot3(lo, d);
+      const float Dq = sqrtf(vmax(dot3(lo, lo) - delta * delta, 1e-12f));
+      const float th_a = atan2_posx(-delta, Dq);
+      const float th_b = atan2_posx(t_eff - delta, Dq);
+      const float sample_t =
+          vclip(Dq * tan_sc((1.0f - u_dist) * th_a + u_dist * th_b), -BIG, BIG);
+      d_along = sample_t + delta;
+      xt = ray_at(o, d_along, d);
+      const float dist_pdf =
+          Dq / (vmax(fabsf(th_b - th_a), 1e-12f) * (sample_t * sample_t + Dq * Dq));
+      t_det0 = hit ? t : 0.0f;
+      if (hit) {
+        if constexpr (kField == kGridField)
+          att_t = grid_tau(P.grid, tab, 1.0f, o, d, t_det0, true);
+        else if constexpr (kAnalyticField)
+          att_t = field_tau(F, 1.0f, o, d, t_det0);
+        else
+          att_t = t_det0;
+        tr_act = expf(-sigma_t * att_t);
+      }
+      const float u_ev = rng.next();
+      surface = u_ev <= tr_act && hit;
+      one_m_tr = vmax(1.0f - tr_act, 1e-20f);
+      pdf_success = vmax(dist_pdf * one_m_tr, 1e-30f);
+    } else {
+      if constexpr (kField == kGridField)
+        d_s = grid_sample_free_and_tau(P.grid, tab, sigma_t, o, d, u_dist, t_eff, tau_cap);
+      else if constexpr (kAnalyticField)
+        d_s = field_sample_free(F, sigma_t, inv_mr, o, d, u_dist, rng, t_eff);
+      else
+        d_s = -log1pf(-u_dist) * inv_st;
+      surface = d_s > t_eff && hit;
+      if (kField) live = live && (d_s < 0.5f * BIG || surface);  // escaped: dies
+      xt = ray_at(o, d_s, d);
+    }
     bool medium = live && !surface;
     bool shade_pre = live && surface;
+    // equi-angular on medium lanes: the signed optical path per unit sigma
+    // to the sample (odd in the distance), its sign, T
+    float I_along = 0.0f, att_along = 0.0f, sign_I = 1.0f, t_xt = 0.0f;
+    if (ea && medium) {
+      if constexpr (kField == kGridField)
+        I_along = grid_tau(P.grid, tab, 1.0f, o, d, d_along, false);
+      else if constexpr (kAnalyticField)
+        I_along = field_tau(F, 1.0f, o, d, d_along);
+      att_along = kField ? fabsf(I_along) : fabsf(d_along);
+      sign_I = I_along >= 0.0f ? 1.0f : -1.0f;
+      t_xt = expf(-sigma_t * att_along);
+    }
+    // a field's d(optical path)/dtheta to the surface (equi-angular)
+    float dI_t0[kFp];
+    if constexpr (kGrads && kAnalyticField) {
+      if (ea && n_fp > 0) {
+        if (hit && (shade_pre || medium))
+          fp_dI(F, fp_kind, o, d, t_det0, dI_t0, kExt);
+        else
+          for (int f = 0; f < n_fp; ++f) dI_t0[f] = 0.0f;
+      }
+    }
     if constexpr (kGrads) {
+      if (ea) {
+        // Bernoulli(Tr): log Tr = -sigma_t att_t at the surface, log(1 - Tr)
+        // in the medium; the equi-angular pdf is sigma-independent
+        const float k_sc =
+            shade_pre ? -att_t : ((medium && hit) ? att_t * tr_act / one_m_tr : 0.0f);
+        const float wL0 = wl[0] * Lps[0] + wl[1] * Lps[1] + wl[2] * Lps[2];
+        A_st = A_st + k_sc;
+        B_st = B_st + k_sc * wL0;
+        if constexpr (kField == kGridField) {
+          if (two_phase && phB && (shade_pre || medium)) {
+            // the voxel event scores: dlog Tr/dv = -sigma dI(t)/dv,
+            // dlog(1 - Tr)/dv = sigma dI(t)/dv Tr/(1 - Tr); one march
+            const float w_sc = wLtot - wL0;
+            const float w_ev = shade_pre ? -sigma_t * w_sc
+                                         : (hit ? sigma_t * w_sc * tr_act / one_m_tr : 0.0f);
+            grid_march_scatter(P.grid, o, d, w_ev, t_det0, 0.0f, 0.0f, gg);
+          }
+        }
+        if constexpr (kAnalyticField) {
+          for (int f = 0; f < n_fp; ++f) {  // the field parameters' Bernoulli scores
+            const float k_f =
+                shade_pre ? -sigma_t * dI_t0[f]
+                          : ((medium && hit) ? sigma_t * dI_t0[f] * tr_act / one_m_tr : 0.0f);
+            A_fp[f] = A_fp[f] + k_f;
+            B_fp[f] = B_fp[f] + k_f * wL0;
+          }
+        }
+      }
+    }
+    if constexpr (kGrads) if (!ea) {
       // free-flight score vs the L-prefix before this bounce
       float k_sc;
       if constexpr (kField == kGridField) {
@@ -552,9 +664,9 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
           // field-parameter event scores: dlog dens(x_d)/dtheta - sigma
           // dI(d)/dtheta (medium), -sigma dI(t)/dtheta (surface)
           float dI[kFp], dld[kFp];
-          if (shade_pre) fp_dI(F, fp_kind, o, d, t_eff, dI);
+          if (shade_pre) fp_dI(F, fp_kind, o, d, t_eff, dI, kExt);
           if (medium) {
-            fp_dI(F, fp_kind, o, d, d_s, dI);
+            fp_dI(F, fp_kind, o, d, d_s, dI, kExt);
             fp_dlogdens(F, fp_kind, xt, dld);
           }
           for (int f = 0; f < n_fp; ++f) {
@@ -568,20 +680,31 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
     }
 
     bool em_hit = surface && at.is_em;
-    if (live && em_hit && depth == 0) {
+    // NEE credits the camera ray's emitter hits only, the implicit
+    // estimator every one
+    if (live && em_hit && (!nee || depth == 0)) {
       for (int i = 0; i < 3; ++i) {
         float add = at.rad[i] * tp[i];
+        if (physical) add = add * inv_cp;  // compensate this iteration's RR
         L[i] = L[i] + add;
         Lps[i] = Lps[i] + add;
-        if constexpr (kGrads) gv[rad0 + 3 * sid + i] = gv[rad0 + 3 * sid + i] + wl[i] * tp[i];
+        if constexpr (kGrads) {
+          float gw = wl[i] * tp[i];
+          if (physical) gw = gw * inv_cp;
+          gv[rad0 + 3 * sid + i] = gv[rad0 + 3 * sid + i] + gw;
+        }
       }
     }
     bool shade = live && surface && !em_hit;
 
-    if (shade) {  // surface NEE: pLight + MISv2
+    if (nee && shade) {  // surface NEE: pLight + MISv2
       float dist_l;
       V3 dl;
-      float le_scale = plight_le_scale(P, lc, xs, dist_l, dl);
+      float le_scale;
+      if constexpr (kExt)  // with K1's material-3 cascade
+        le_scale = plight_le_scale_vol(P, lc, xs, dist_l, dl);
+      else
+        le_scale = plight_le_scale(P, lc, xs, dist_l, dl);
       V3 wi = neg3(dl);
       float fr[3];
       eval_fr_nee(at, nrm, d, wi, true, fr);
@@ -608,7 +731,7 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
       int sid2;
       float wtp[3];
       for (int i = 0; i < 3; ++i) wtp[i] = wl[i] * tp[i] * inv_cp;
-      diff_mis_v2<kGrads, kField>(P, pv, F, fp_kind, n_fp, sigma_t, rng, at, xs, nrm, d, ldm,
+      diff_mis_v2<kGrads, kField, kExt>(P, pv, F, fp_kind, n_fp, sigma_t, rng, at, xs, nrm, d, ldm,
                                   dsig, dalb, dle, drad, dk, sid2, tab,
                                   two_phase ? gg : nullptr, wtp);
       for (int i = 0; i < 3; ++i) {
@@ -632,7 +755,7 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
         if constexpr (kAnalyticField) {
           if (n_fp > 0) {  // pLight's and the MIS light strategy's d(tr)/dtheta
             float dI_pl[kFp];
-            fp_dI(F, fp_kind, xs, wlight, dist_l, dI_pl);
+            fp_dI(F, fp_kind, xs, wlight, dist_l, dI_pl, kExt);
             for (int f = 0; f < n_fp; ++f) {
               float gk = 0.0f;
               for (int i = 0; i < 3; ++i)
@@ -661,12 +784,16 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
           }
         }
       }
-    } else {
+    } else if (nee) {
       rng.skip(mis_draws);
     }
     float b1 = rng.next(), b2 = rng.next(), b3 = rng.next();  // sample_bsdf
     float u_p1 = rng.next(), u_p2 = rng.next();               // phase
-    float m1 = rng.next(), m2 = rng.next();                   // medium NEE cone
+    float m1 = 0.0f, m2 = 0.0f;                               // medium NEE cone
+    if (nee) {
+      m1 = rng.next();
+      m2 = rng.next();
+    }
 
     if (shade) {
       float fs[3], pdf_b;
@@ -690,51 +817,106 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
         }
       }
     } else if (medium) {
-      float ld_med[3], w_med, att_nee, t_nee, dlogp_nee;
-      V3 wl_nee;
-      diff_medium_nee<kField, kHG>(P, F, sigma_t, hg_mode, gph, d, xt, lc, lrad, lr, lid, m1,
-                                   m2, ld_med, w_med, att_nee, wl_nee, t_nee, dlogp_nee, tab);
-      float adds[3], wL1 = 0.0f;
-      for (int i = 0; i < 3; ++i) {
-        adds[i] = ld_med[i] * inv_ps * tp[i] * ar_cp;
-        L[i] = L[i] + adds[i];
-        Lps[i] = Lps[i] + adds[i];
+      // the medium factor and d(its log)/dsigma_t: free flight's (sigma_s /
+      // sigma_t) / cp, or equi-angular's sigma_s(xt) T / (cp pSuccess)
+      float med_scale = ar_cp, med_dsig_m = med_dsig, dens_xt = 1.0f;
+      if (ea) {
+        med_scale = ss * t_xt * inv_cp / pdf_success;
+        if constexpr (kField == kGridField) {  // sigma_s(xt), trilinear
+          dens_xt = grid_density(P.grid, tab, xt);
+          med_scale = med_scale * dens_xt;
+        } else if constexpr (kAnalyticField) {
+          dens_xt = field_density(F, xt);
+          med_scale = med_scale * dens_xt;
+        }
+        med_dsig_m = -att_along - att_t * tr_act / one_m_tr;
+      }
+      float wL1 = 0.0f, gx = 0.0f;
+      if (nee) {
+        float ld_med[3], w_med, att_nee, t_nee, dlogp_nee;
+        V3 wl_nee;
+        diff_medium_nee<kField, kHG, kExt>(P, F, sigma_t, hg_mode, gph, d, xt, lc, lrad, lr, lid,
+                                           m1, m2, ld_med, w_med, att_nee, wl_nee, t_nee,
+                                           dlogp_nee, tab);
+        float adds[3];
+        for (int i = 0; i < 3; ++i) {
+          adds[i] = ld_med[i] * inv_ps * tp[i] * med_scale;
+          L[i] = L[i] + adds[i];
+          Lps[i] = Lps[i] + adds[i];
+        }
+        if constexpr (kGrads) {
+          float gs = 0.0f;
+          for (int i = 0; i < 3; ++i) {
+            gs = gs + wl[i] * adds[i] * (-att_nee + med_dsig_m);
+            gx = gx + wl[i] * adds[i];
+          }
+          g_st = g_st + gs;
+          g_ssx = g_ssx + gx * inv_ss;
+          if constexpr (kField == kGridField)  // medium NEE's transmittance
+            if (two_phase)
+              grid_march_scatter(P.grid, xt, wl_nee, -sigma_t * (0.0f + gx), t_nee, 0.0f, 0.0f,
+                                 gg);
+          if constexpr (kAnalyticField) {
+            if (n_fp > 0) {  // the medium-NEE transmittance's d/dtheta
+              float dI_nee[kFp];
+              fp_dI(F, fp_kind, xt, wl_nee, t_nee, dI_nee, kExt);
+              for (int f = 0; f < n_fp; ++f)
+                gv[IK + f] = gv[IK + f] + gx * (-sigma_t * dI_nee[f]);
+            }
+          }
+          if (traced_g) gv[IG] = gv[IG] + gx * dlogp_nee;  // the NEE phase value
+          if (lid >= 0)
+            for (int i = 0; i < 3; ++i)
+              gv[rad0 + 3 * lid + i] =
+                  gv[rad0 + 3 * lid + i] + wl[i] * w_med * inv_ps * tp[i] * med_scale;
+        }
       }
       if constexpr (kGrads) {
-        float gs = 0.0f, gx = 0.0f;
-        for (int i = 0; i < 3; ++i) {
-          gs = gs + wl[i] * adds[i] * (-att_nee + med_dsig);
-          gx = gx + wl[i] * adds[i];
-        }
-        g_st = g_st + gs;
-        g_ssx = g_ssx + gx * inv_ss;
-        if constexpr (kField == kGridField)  // medium NEE's transmittance
-          if (two_phase)
-            grid_march_scatter(P.grid, xt, wl_nee, -sigma_t * (0.0f + gx), t_nee, 0.0f, 0.0f, gg);
-        if constexpr (kAnalyticField) {
-          if (n_fp > 0) {  // the medium-NEE transmittance's d/dtheta
-            float dI_nee[kFp];
-            fp_dI(F, fp_kind, xt, wl_nee, t_nee, dI_nee);
-            for (int f = 0; f < n_fp; ++f)
-              gv[IK + f] = gv[IK + f] + gx * (-sigma_t * dI_nee[f]);
-          }
-        }
-        if (traced_g) gv[IG] = gv[IG] + gx * dlogp_nee;  // the NEE phase value
-        if (lid >= 0)
-          for (int i = 0; i < 3; ++i)
-            gv[rad0 + 3 * lid + i] =
-                gv[rad0 + 3 * lid + i] + wl[i] * w_med * inv_ps * tp[i] * ar_cp;
         // deferred medium-factor terms vs the L-prefix after this bounce
         wL1 = wl[0] * Lps[0] + wl[1] * Lps[1] + wl[2] * Lps[2];
-        A_st = A_st + med_dsig;
-        B_st = B_st + med_dsig * wL1;
+        A_st = A_st + med_dsig_m;
+        B_st = B_st + med_dsig_m * wL1;
         A_ssx = A_ssx + inv_ss;
         B_ssx = B_ssx + inv_ss * wL1;
+        if constexpr (kAnalyticField) {
+          if (ea && n_fp > 0) {
+            // equi-angular: T = e^{-sigma |I|} (dlog = -sigma sign(I)
+            // dI(d_along)), the 1/pSuccess chain and sigma_s(xt)'s dlog dens
+            float dI_al[kFp], dld[kFp];
+            fp_dI(F, fp_kind, o, d, d_along, dI_al, kExt);
+            fp_dlogdens(F, fp_kind, xt, dld);
+            for (int f = 0; f < n_fp; ++f) {
+              const float k_f = -sigma_t * sign_I * dI_al[f] -
+                                sigma_t * dI_t0[f] * tr_act / one_m_tr + dld[f];
+              A_fp[f] = A_fp[f] + k_f;
+              B_fp[f] = B_fp[f] + k_f * wL1;
+            }
+          }
+        }
+        if constexpr (kField == kGridField) {
+          if (ea && two_phase && phB) {
+            // the medium factor's voxel chains (vpt/kernels/diff.py:1050-
+            // 1086): it weights this bounce's NEE (gx) and every later
+            // emission (wLtot - wL1), scattered at once. T marches the
+            // forward ray for I >= 0, the reversed one for samples behind
+            // the origin; 1/pSuccess rides the forward march; dens(xt) is a
+            // trilinear appearance scatter whatever the transport
+            const float adjv = (nee ? gx : 0.0f) + wLtot - wL1;
+            const float w_pos = I_along >= 0.0f ? -sigma_t * adjv : 0.0f;
+            const float w_neg = I_along < 0.0f ? -sigma_t * adjv : 0.0f;
+            const float w_ps = -sigma_t * adjv * tr_act / one_m_tr;
+            grid_march_scatter(P.grid, o, d, w_pos, vmax(d_along, 0.0f), w_ps, t_det0, gg);
+            grid_march_scatter(P.grid, o, neg3(d), w_neg, vmax(-d_along, 0.0f), 0.0f, 0.0f, gg);
+            grid_scatter_point(P.grid, xt, adjv / vmax(dens_xt, 1e-30f), gg, true);
+          }
+        }
       }
-      for (int i = 0; i < 3; ++i) tp[i] = tp[i] * ar_cp;
+      for (int i = 0; i < 3; ++i) tp[i] = tp[i] * med_scale;
       o = xt;
       if constexpr (kHG) {  // the scatter direction at the baked or traced g
-        V3 wi_m = traced_g ? hg_dir_traced(d, gph, u_p1, u_p2) : hg_dir(P, d, u_p1, u_p2);
+        V3 wi_m = traced_g                          ? hg_dir_traced(d, gph, u_p1, u_p2)
+                  : (!kExt || hg_mode == kHgBaked) ? hg_dir(P, d, u_p1, u_p2)
+                                                    : uniform_sphere(u_p1, u_p2);
         if (kGrads && traced_g) {
           // the phase draw's score reweights later contributions only
           float k_g = dlog_hg_dg(dot3(d, wi_m), gph);

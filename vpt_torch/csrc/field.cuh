@@ -20,6 +20,7 @@ namespace vpt {
 enum FieldKind { kExpHeight = 1, kBlobs = 2 };
 
 constexpr float TAU_CAP = 3.0e7f;  // unit-sigma optical-path cap (vpt _TAU_CAP)
+constexpr float F32_MAX = 3.40282347e38f;
 // sqrt(1/2) and sqrt(pi/2) as f32: the traced pair's blob constants
 constexpr float SQRT_HALF = (float)0.7071067811865476;
 constexpr float SQRT_HALF_PI = (float)1.2533141373155001;
@@ -128,7 +129,7 @@ VPT_HD float field_sample_free(const FieldParams& F, float sigma_t, float inv_ma
 
 // d/dk of the exp_height optical path per unit sigma; the |m| < 1e-6 limit
 // is -(a0 + a1)/2 d0 t
-VPT_HD float field_tau_dk(const FieldParams& F, V3 o, V3 d, float t) {
+VPT_HD float field_tau_dk(const FieldParams& F, V3 o, V3 d, float t, bool guard = false) {
   float a0 = o.y - F.y0;
   float a1 = o.y + t * d.y - F.y0;
   float d0 = exp_clip(-F.k * a0);
@@ -137,8 +138,19 @@ VPT_HD float field_tau_dk(const FieldParams& F, V3 o, V3 d, float t) {
   bool cnst = fabsf(m) < 1e-6f;
   float safe_m = cnst ? 1.0f : m;
   float inv_m = 1.0f / safe_m;
-  float gen = ((a1 * d1 - a0 * d0) - (d0 - d1) * d.y * inv_m) * inv_m;
-  float lim = -0.5f * (a0 + a1) * d0 * t;
+  float gen, lim;
+  if (guard) {
+    // each product that can overflow clamped to +-FLT_MAX (prims.py
+    // field_tau_dk): far below the fog plane a0 d0 and a1 d1 reach -inf,
+    // and the unguarded form gives inf - inf = NaN
+    gen = ((vclip(a1 * d1, -F32_MAX, F32_MAX) - vclip(a0 * d0, -F32_MAX, F32_MAX)) -
+           vclip((d0 - d1) * d.y * inv_m, -F32_MAX, F32_MAX)) *
+          inv_m;
+    lim = vclip(-0.5f * (a0 + a1) * d0, -F32_MAX, F32_MAX) * t;
+  } else {
+    gen = ((a1 * d1 - a0 * d0) - (d0 - d1) * d.y * inv_m) * inv_m;
+    lim = -0.5f * (a0 + a1) * d0 * t;
+  }
   return vclip(cnst ? lim : gen, -TAU_CAP, TAU_CAP);
 }
 

@@ -221,11 +221,14 @@ VPT_HD void grid_add(float* g, int idx, float v) {
 #endif
 }
 
-// g += w d(interp(x))/d(voxels), interp the grid's transport interpolant
-VPT_HD void grid_scatter_point(const GridParams& G, V3 x, float w, float* g) {
+// g += w d(interp(x))/d(voxels), interp the grid's transport interpolant,
+// or trilinear where `trilinear` (an appearance factor such as the
+// equi-angular sigma_s(xt) in a nearest-transport grid)
+VPT_HD void grid_scatter_point(const GridParams& G, V3 x, float w, float* g,
+                               bool trilinear = false) {
   if (w == 0.0f) return;
   const int nz = G.n[2], snx = G.n[1] * nz;
-  if (G.nearest) {
+  if (G.nearest && !trilinear) {
     float fz;
     const int base = grid_cell_nearest(G, x, fz);
     grid_add(g, base, w * (1.0f - fz));

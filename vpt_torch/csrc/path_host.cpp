@@ -128,6 +128,40 @@ extern "C" void vpt_diff_grid_host(const void* params, const float* pvec, int se
   }
 }
 
+// The extended instantiations' path code (diff_pixel<..., true, true>,
+// csrc/diff_ext*.cu): a homogeneous medium, an analytic field or (tab set)
+// a voxel grid, picked as the wrapper picks them. gbar NULL: K2, out
+// float32[npix * 3]; else K3, out float32[npix * P], ggrid NULL or
+// float32[T] (diff_grid)
+template <int kField>
+static void ext_host(const DiffParams& D, const float* pvec, const FieldParams& F, int seed,
+                     const float* gbar, const uint32_t* tab, float* out, float* ggrid) {
+  const int npix = D.base.width * D.base.height;
+  for (int p = 0; p < npix; ++p) {
+    if (gbar != nullptr)
+      vpt::diff_pixel<true, kField, true, true>(D, pvec, F, p, seed, gbar + 3 * p, nullptr,
+                                                out + (size_t)D.n_params * p, tab, ggrid);
+    else
+      vpt::diff_pixel<false, kField, true, true>(D, pvec, F, p, seed, nullptr, out + 3 * p,
+                                                 nullptr, tab);
+  }
+}
+
+extern "C" void vpt_diff_ext_host(const void* params, const float* pvec, int seed,
+                                  const float* gbar, const uint32_t* tab, float* out,
+                                  float* ggrid) {
+  DiffParams D;
+  memcpy(&D, params, sizeof D);
+  FieldParams F;
+  vpt::pair_field(D, pvec, F);
+  if (tab != nullptr)
+    ext_host<vpt::kGridField>(D, pvec, F, seed, gbar, tab, out, ggrid);
+  else if (F.kind != 0)
+    ext_host<vpt::kAnalytic>(D, pvec, F, seed, gbar, nullptr, out, nullptr);
+  else
+    ext_host<vpt::kHomogeneous>(D, pvec, F, seed, gbar, nullptr, out, nullptr);
+}
+
 extern "C" int vpt_geom_params_words(void) { return (int)(sizeof(GeomParams) / 4); }
 
 template <int K>

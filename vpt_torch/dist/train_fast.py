@@ -167,8 +167,8 @@ def fit_kernel(scene: Scene, camera: Camera, target, *, steps: int = 100,
     diff_blobs=True, from a target (H, W, 3) image with the render pair on
     `device` ("cuda": K2/K3 or raise; "cpu": their plain versions).
     `param_filter(updated, initial) -> params` can freeze entries (e.g. keep
-    everything but sigma_s fixed). Returns (params, losses). diff_g and
-    diff_grid raise NotImplementedError naming their ROADMAP item."""
+    everything but sigma_s fixed). Returns (params, losses). `distance`
+    is the pair's: "free", or any other for its equi-angular branch."""
     height, width = target.shape[:2]
     dev = torch.device(device)
     params = {k: v.to(dev).requires_grad_()

@@ -133,6 +133,19 @@ def load() -> ctypes.CDLL:
     lib.vpt_diff_bwd_grid.restype = ci
     lib.vpt_diff_grid_shared_bytes.argtypes = [ci]
     lib.vpt_diff_grid_shared_bytes.restype = ci
+    # ... and with the extended estimators (equi-angular, the implicit and
+    # physical estimators, shells, HG in a grid: csrc/diff_ext*.cu,
+    # diff_field_ext*.cu, diff_grid_ext*.cu), with the signatures above
+    for sfx, n_fwd, n_bwd in (("_ext", 5, 7), ("_field_ext", 5, 7),
+                              ("_grid_ext", 6, 9)):
+        fwd = getattr(lib, "vpt_diff_fwd" + sfx)
+        fwd.argtypes = [vp] * n_fwd
+        fwd.restype = ci
+        bwd = getattr(lib, "vpt_diff_bwd" + sfx)
+        bwd.argtypes = [vp] * n_bwd
+        bwd.restype = ci
+    lib.vpt_diff_grid_ext_shared_bytes.argtypes = [ci]
+    lib.vpt_diff_grid_ext_shared_bytes.restype = ci
     lib.vpt_diff_params_words.argtypes = []
     lib.vpt_diff_params_words.restype = ctypes.c_int
     lib.vpt_diff_block_threads.argtypes = []

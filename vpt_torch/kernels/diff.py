@@ -75,9 +75,27 @@ terms of the pLight, medium-NEE and MIS light-strategy transmittances. The
 iteration cap doubles. The grid runs in csrc/diff_grid_fwd.cu and
 diff_grid_bwd.cu; the voxel gradient comes back in the grid's shape.
 
-Scope: nee=True, distance="free", physical=False, no material-3 shell,
-samplers "random" and "ld", no HG phase in a grid. Everything else raises
-NotImplementedError naming its ROADMAP item.
+The estimators beyond free-flight NEE (vpt's distance, nee and physical,
+diff.py:227-232, 680-716, 751-760, 785-799, 817-855, 942-972, 1044-1086):
+any distance other than "free" is vpt's equi-angular branch
+(equiAngularParams2, then the Bernoulli(Tr) draw u_ev), whose sigma scores
+are the event's log-probabilities and whose medium factor sigma_s T /
+(cp pSuccess) (times dens(xt) in a field) adds pathwise terms; in an
+analytic field the traced slots gain the Bernoulli scores and the deferred
+medium terms, and with diff_grid the voxel scores and the value chains of
+T (a forward or reversed march by the sign of I), 1/pSuccess and dens(xt)
+(a trilinear scatter) are scattered against wLtot in phase B. nee=False
+credits every emitter hit and takes no pLight, MISv2 or medium-NEE draw;
+physical=True multiplies credited emission by 1/cp; nee=False with
+physical=False is refused, as vpt refuses it. pLight takes K1's material-3
+cascade, and the HG phase runs in a grid too. All of these run in the
+kernels' extended instantiations (csrc/diff_ext_*.cu, diff_field_ext_*.cu,
+diff_grid_ext_*.cu: diff_pixel<..., kExt>, the estimator read from
+DiffParams at run time).
+
+Scope: every estimator and field vpt's pair takes, samplers "random" and
+"ld". The shard variant (make_shard) raises NotImplementedError naming its
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -117,10 +135,25 @@ def __getattr__(name: str):
 FP_NONE, FP_FOG_K, FP_BLOBS = 0, 1, 2
 # DiffParams.hg_mode: the phase (csrc/diff_path.cuh HgMode)
 HG_NONE, HG_BAKED, HG_TRACED = 0, 1, 2
+# DiffParams.distance: free flight, or vpt's equi-angular branch (any
+# distance other than "free")
+DIST_FREE, DIST_EA = 0, 1
 
 def _todo(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} in the differentiable pair is ROADMAP Queue 1 item {item}")
+
+
+def _check_estimator(nee: bool, physical: bool) -> None:
+    """vpt's refusal of the non-physical implicit estimator, with its
+    reason (vpt/kernels/diff.py:227-232)."""
+    if not nee and not physical:
+        raise NotImplementedError(
+            "the differentiable pair implements the explicit (NEE) and "
+            "physical estimators; the non-physical implicit_free (1-Tr) "
+            "medium weight is forward-kernel/engine-only (the engine is "
+            "ROADMAP Queue 1 item 9): build with physical=True or "
+            "nee=True")
 
 
 def pack_params(scene: Scene, with_g: bool = False, with_field: bool = False,
@@ -244,14 +277,43 @@ class DiffPacked:
         return self.pk.npix
 
     @property
+    def distance(self) -> int:
+        """The estimator's distances (pk.distance; any but "free" is vpt's
+        equi-angular branch)."""
+        return DIST_FREE if self.pk.distance == "free" else DIST_EA
+
+    @property
+    def nee(self) -> bool:
+        """Next-event estimation (else every emitter hit is credited)."""
+        return self.pk.nee
+
+    @property
+    def physical(self) -> bool:
+        """Credited emission times 1/cp."""
+        return self.pk.physical
+
+    @property
+    def ext(self) -> bool:
+        """Whether the launch needs the extended instantiations
+        (csrc/diff_ext*.cu): equi-angular distances, no NEE, the physical
+        credit, material-3 shells, or an HG phase in a voxel grid."""
+        return (self.distance != DIST_FREE or not self.nee or self.physical
+                or bool(self.pk.vol)
+                or (self.pk.grid is not None and self.hg_mode != HG_NONE))
+
+    @property
     def entries(self) -> tuple:
         """The C entries of K2 and K3 for this scene: the field
         instantiations in an analytic density field, the grid ones in a
-        voxel grid, the HG ones with a phase g."""
-        if self.pk.grid is not None:
-            return "vpt_diff_fwd_grid", "vpt_diff_bwd_grid"
-        sfx = (("" if self.pk.field is None else "_field")
-               + ("" if self.hg_mode == HG_NONE else "_hg"))
+        voxel grid, the HG ones with a phase g; "_ext" where `ext`."""
+        if self.ext:
+            sfx = ("_grid" if self.pk.grid is not None else
+                   "" if self.pk.field is None else "_field") + "_ext"
+        elif self.pk.grid is not None:
+            sfx = "_grid"
+        else:
+            sfx = (("" if self.pk.field is None else "_field")
+                   + ("" if self.hg_mode == HG_NONE else "_hg"))
         return "vpt_diff_fwd" + sfx, "vpt_diff_bwd" + sfx
 
     def words(self) -> np.ndarray:
@@ -259,7 +321,8 @@ class DiffPacked:
         mask = lambda ids: sum(1 << s for s in ids)   # noqa: E731
         ints = np.asarray([self.P, mask(self.alb_ids), mask(self.lam_ids),
                            self.n_fp, self.fp_kind, self.hg_mode,
-                           int(self.diff_grid)], np.int32)
+                           int(self.diff_grid), self.distance, int(self.nee),
+                           int(self.physical)], np.int32)
         return np.concatenate([self.pk.words(), fl, ints])
 
 
@@ -267,15 +330,18 @@ def pack_diff(scene: Scene, camera: Camera, width: int, height: int,
               spp: int, *, continue_prob: float = 0.6, max_bounces: int = 32,
               sampler: str = "random", jitter: bool = True,
               diff_g: bool = False, diff_field: bool = False,
-              diff_blobs: bool = False, diff_grid: bool = False
-              ) -> DiffPacked:
-    """Freeze scene, camera and frame for the pair. The geometry, the
-    emitter structure, the materials, the density field and the HG g are
-    baked, as in vpt; sigma, albedo and radiance come from the parameter
-    vector at each call, and so do the HG g (diff_g: the scene's g is then
-    ignored), the fog falloff (diff_field), the blob rows (diff_blobs) or
-    the voxel values (diff_grid: the table is rebuilt at each call). vpt's
-    guards (diff.py:205-237) carry over."""
+              diff_blobs: bool = False, diff_grid: bool = False,
+              nee: bool = True, distance: str = "free",
+              physical: bool = False) -> DiffPacked:
+    """Freeze scene, camera, frame and estimator for the pair. The
+    geometry, the emitter structure, the materials, the density field and
+    the HG g are baked, as in vpt; sigma, albedo and radiance come from the
+    parameter vector at each call, and so do the HG g (diff_g: the scene's
+    g is then ignored), the fog falloff (diff_field), the blob rows
+    (diff_blobs) or the voxel values (diff_grid: the table is rebuilt at
+    each call). Any distance other than "free" is vpt's equi-angular
+    branch. vpt's guards (diff.py:205-237) carry over."""
+    _check_estimator(nee, physical)
     fld = scene.medium.density
     grid = fld is not None and fld.kind == "grid"
     if diff_grid and not grid:
@@ -297,11 +363,9 @@ def pack_diff(scene: Scene, camera: Camera, width: int, height: int,
             "other fields train on vpt's engine: ROADMAP Queue 1 item 9)")
     pk = pack_scene(scene, camera, width, height, spp,
                     continue_prob=continue_prob, max_bounces=max_bounces,
-                    sampler=sampler, jitter=jitter)
-    if pk.vol:
-        raise _todo("material-3 volumetric shells", "4.5")
-    if grid and (diff_g or pk.g != 0.0):
-        raise _todo("the Henyey-Greenstein phase in a voxel grid", "4.4")
+                    sampler=sampler, jitter=jitter, nee=nee,
+                    distance="free" if distance == "free" else "equiangular",
+                    physical=physical)
     is_em = [any(v > 0 for v in pk.rad[s]) for s in range(pk.S)]
     # vpt: the albedo gradient lives on non-microfacet non-emitters (pLight's
     # lambert fr also covers glass); the deferred lambert terms on lamberts
@@ -395,6 +459,10 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
     # that this sum's own rounding stays far below the kernel's (f32
     # atomics in another order)
     two_phase = grads and dp.diff_grid
+    # the estimator: equi-angular distances (else free flight), NEE (else
+    # every emitter hit is credited, and no NEE draw is taken)
+    ea = dp.distance == DIST_EA
+    nee = dp.nee
     if two_phase:
         T = int(np.prod(pk.grid.dims))
         gg = torch.zeros(T, dtype=torch.float64, device=dev)
@@ -406,7 +474,9 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
         inv_mr = 1.0 / (sigma_t * fc.maj)   # delta tracking's step scale
     if dp.fp_kind == FP_FOG_K:
         def fp_dI(o_, d_, t_):
-            return [pr.field_tau_dk(fc, o_, d_, t_)]
+            # the extended instantiations guard its overflow (an
+            # equi-angular path can leave the box for the far fog)
+            return [pr.field_tau_dk(fc, o_, d_, t_, guard=dp.ext)]
 
         def fp_dlogdens(x_):
             return [-(x_[1] - fc.y0)]
@@ -707,7 +777,40 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
                              xs[2] - at["cz"]])
         lc, lrad, lr, lid = light_attrs(u_pick)
 
-        if fc is None:
+        if ea:
+            # equiAngularParams2 and the Bernoulli(Tr) event
+            # (vpt/kernels/diff.py:680-716): u_ev after the EA quantities
+            lo_v = [lc[i] - o[i] for i in range(3)]
+            delta = pr.dot3(lo_v, d)
+            Dq = torch.sqrt(torch.clamp_min(pr.dot3(lo_v, lo_v)
+                                            - delta * delta, 1e-12))
+            th_a = pr.atan2_posx(-delta, Dq)
+            th_b = pr.atan2_posx(t_eff - delta, Dq)
+            sample_t = torch.clamp(
+                Dq * pr.tan_sc((1.0 - u_dist) * th_a + u_dist * th_b),
+                -BIG, BIG)
+            d_along = sample_t + delta
+            xt = [o[i] + d_along * d[i] for i in range(3)]
+            dist_pdf = Dq / (torch.clamp_min(torch.abs(th_b - th_a), 1e-12)
+                             * (sample_t * sample_t + Dq * Dq))
+            # att_*: the optical paths per unit sigma (the distances when
+            # homogeneous), shared by the weights, the scores and med_dsig
+            t_det0 = torch.where(hit, t, 0.0)
+            if fc is None:
+                att_t = t_det0
+                att_along = torch.abs(d_along)
+            else:
+                att_t = pr.field_tau(fc, 1.0, o, d, t_det0, nonneg=True)
+                I_along = pr.field_tau(fc, 1.0, o, d, d_along)
+                att_along = torch.abs(I_along)
+                sign_I = torch.where(I_along >= 0.0, 1.0, -1.0)
+            tr_act = torch.where(hit, torch.exp(-sigma_t * att_t), 0.0)
+            u_ev = rng()
+            surface = (u_ev <= tr_act) & hit
+            one_m_tr = torch.clamp_min(1.0 - tr_act, 1e-20)
+            pdf_success = torch.clamp_min(dist_pdf * one_m_tr, 1e-30)
+            t_xt = torch.exp(-sigma_t * att_along)
+        elif fc is None:
             d_s = -torch.log1p(-u_dist) * inv_st
             surface = (d_s > t_eff) & hit
         elif grid:
@@ -726,11 +829,46 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
                 work=counts[4:5] if stats is not None else None)
             surface = (d_s > t_eff) & hit
             alive = alive & ((d_s < 0.5 * BIG) | surface)
-        xt = [o[i] + d_s * d[i] for i in range(3)]
+        if not ea:
+            xt = [o[i] + d_s * d[i] for i in range(3)]
         medium = alive & ~surface
         shade_pre = alive & surface
+        if ea and fc is not None and stats is not None:
+            # the kernel's optical depths: to the surface on lanes that hit
+            # one, to the sample on medium lanes
+            counts[3] += (hit & act).sum() + medium.sum()
 
-        if grads:
+        if grads and ea:
+            # Bernoulli(Tr): log Tr = -sigma_t att_t at the surface, log(1 -
+            # Tr) in the medium; the EA pdf itself is sigma-independent
+            k_med = att_t * tr_act / one_m_tr
+            k_sc = torch.where(shade_pre, -att_t,
+                               torch.where(medium & hit, k_med, 0.0))
+            wL0 = _wdot(wl, Lps)
+            acc["A_st"] = acc["A_st"] + k_sc
+            acc["B_st"] = acc["B_st"] + k_sc * wL0
+            if two_phase:
+                # the voxel event scores: dlog Tr/dv = -sigma dI(t)/dv,
+                # dlog(1 - Tr)/dv = sigma dI(t)/dv Tr/(1 - Tr); one march
+                w_sc = torch.where(phB & (shade_pre | medium),
+                                   acc["wLtot"] - wL0, 0.0)
+                w_ev = torch.where(
+                    shade_pre, -sigma_t * w_sc,
+                    torch.where(medium & hit,
+                                sigma_t * w_sc * tr_act / one_m_tr, 0.0))
+                pr.grid_march_scatter(fc, o, d, w_ev, t_det0, z, z, gg, gabs)
+            if n_fp:
+                # the field-parameter Bernoulli scores
+                dI_t0 = fp_dI(o, d, t_det0)
+                for f in range(n_fp):
+                    k_f = torch.where(
+                        shade_pre, -sigma_t * dI_t0[f],
+                        torch.where(medium & hit,
+                                    sigma_t * dI_t0[f] * tr_act / one_m_tr,
+                                    0.0))
+                    acc[("A_fp", f)] = acc[("A_fp", f)] + k_f
+                    acc[("B_fp", f)] = acc[("B_fp", f)] + k_f * wL0
+        elif grads:
             # free-flight score vs the L-prefix before this bounce
             if fc is None:
                 k_sc = torch.where(shade_pre, -t_eff,
@@ -787,80 +925,93 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
                     acc[("B_fp", f)] = acc[("B_fp", f)] + k_f * wL0
 
         em_hit = surface & at["is_em"]
-        credit = alive & em_hit & (depth == 0)
+        # NEE credits an emitter hit by the camera ray only; without NEE
+        # every hit counts (vpt/kernels/diff.py:831-851)
+        credit = alive & em_hit & (depth == 0) if nee else alive & em_hit
         radh = [at["rr"], at["rg"], at["rb"]]
         for i in range(3):
-            add = torch.where(credit, radh[i] * tp[i], 0.0)
+            add = radh[i] * tp[i]
+            if dp.physical:
+                # compensate the iteration's own RR survival
+                add = add * inv_cp
+            add = torch.where(credit, add, 0.0)
             L[i] = L[i] + add
             Lps[i] = Lps[i] + add
         if grads:
             for e in em:
                 m = credit & (at["sid"] == e)
                 for i in range(3):
+                    gw = wl[i] * tp[i]
+                    if dp.physical:
+                        gw = gw * inv_cp
                     acc[("rad", e, i)] = acc[("rad", e, i)] + torch.where(
-                        m, wl[i] * tp[i], 0.0)
+                        m, gw, 0.0)
         shade = alive & surface & ~em_hit
-
-        ldp, ldp_coef, ldp_lam, dist_ls = plight_term(at, xs, nrm, d, lc,
-                                                      lrad)
-        if fc is None:
-            att_pl = dist_ls
-        else:
-            inv_dl = 1.0 / torch.clamp_min(dist_ls, 1e-20)
-            wlight = [(lc[i] - xs[i]) * inv_dl for i in range(3)]
-            att_pl = pr.field_tau(fc, 1.0, xs, wlight, dist_ls, nonneg=True)
-        trs = torch.exp(-sigma_t * att_pl)
-        wtp = ([wl[i] * tp[i] * inv_cp for i in range(3)] if two_phase
-               else None)
-        ldm, misp = mis_v2(rng, at, xs, nrm, d, wtp)
-        for i in range(3):
-            add = torch.where(
-                shade, (ldp[i] * trs * inv_ps + ldm[i]) * tp[i] * inv_cp, 0.0)
-            L[i] = L[i] + add
-            Lps[i] = Lps[i] + add
-        if grads:
-            gs = z
+        if nee:
+            ldp, ldp_coef, ldp_lam, dist_ls = plight_term(
+                at, xs, nrm, d, lc, lrad)
+            if fc is None:
+                att_pl = dist_ls
+            else:
+                inv_dl = 1.0 / torch.clamp_min(dist_ls, 1e-20)
+                wlight = [(lc[i] - xs[i]) * inv_dl for i in range(3)]
+                att_pl = pr.field_tau(fc, 1.0, xs, wlight, dist_ls,
+                                      nonneg=True)
+            trs = torch.exp(-sigma_t * att_pl)
+            wtp = ([wl[i] * tp[i] * inv_cp for i in range(3)] if two_phase
+                   else None)
+            ldm, misp = mis_v2(rng, at, xs, nrm, d, wtp)
             for i in range(3):
-                gs = gs + wl[i] * (ldp[i] * trs * (-att_pl) * inv_ps
-                                   + misp["dsig"][i]) * tp[i] * inv_cp
-            acc["g_st"] = acc["g_st"] + torch.where(shade, gs, 0.0)
-            if two_phase:
-                gpl = z
+                add = torch.where(
+                    shade, (ldp[i] * trs * inv_ps + ldm[i]) * tp[i] * inv_cp,
+                    0.0)
+                L[i] = L[i] + add
+                Lps[i] = Lps[i] + add
+            if grads:
+                gs = z
                 for i in range(3):
-                    gpl = gpl + (wl[i] * ldp[i] * trs * inv_ps * tp[i]
-                                 * inv_cp)
-                gpl = torch.where(shade, gpl, 0.0)
-            if n_fp:
-                # the field-parameter terms of pLight's and the MIS light
-                # strategy's transmittances
-                dI_pl = fp_dI(xs, wlight, dist_ls)
-                for f in range(n_fp):
-                    gk = z
+                    gs = gs + wl[i] * (ldp[i] * trs * (-att_pl) * inv_ps
+                                       + misp["dsig"][i]) * tp[i] * inv_cp
+                acc["g_st"] = acc["g_st"] + torch.where(shade, gs, 0.0)
+                if two_phase:
+                    gpl = z
                     for i in range(3):
-                        gk = gk + wl[i] * (
-                            ldp[i] * trs * (-sigma_t * dI_pl[f]) * inv_ps
-                            + misp["dk"][f][i]) * tp[i] * inv_cp
-                    acc[("g_fp", f)] = acc[("g_fp", f)] + torch.where(
-                        shade, gk, 0.0)
-            for e in em:
-                m = shade & (lid == e)
-                for i in range(3):
-                    g = torch.where(m, wl[i] * ldp_coef[i] * trs * inv_ps
-                                    * tp[i] * inv_cp, 0.0)
-                    if e in misp["drad"]:
+                        gpl = gpl + (wl[i] * ldp[i] * trs * inv_ps * tp[i]
+                                     * inv_cp)
+                    gpl = torch.where(shade, gpl, 0.0)
+                if n_fp:
+                    # the field-parameter terms of pLight's and the MIS light
+                    # strategy's transmittances
+                    dI_pl = fp_dI(xs, wlight, dist_ls)
+                    for f in range(n_fp):
+                        gk = z
+                        for i in range(3):
+                            gk = gk + wl[i] * (
+                                ldp[i] * trs * (-sigma_t * dI_pl[f]) * inv_ps
+                                + misp["dk"][f][i]) * tp[i] * inv_cp
+                        acc[("g_fp", f)] = acc[("g_fp", f)] + torch.where(
+                            shade, gk, 0.0)
+                for e in em:
+                    m = shade & (lid == e)
+                    for i in range(3):
+                        g = torch.where(m, wl[i] * ldp_coef[i] * trs * inv_ps
+                                        * tp[i] * inv_cp, 0.0)
+                        if e in misp["drad"]:
+                            g = g + torch.where(
+                                shade,
+                                wl[i] * misp["drad"][e][i] * tp[i] * inv_cp,
+                                0.0)
                         g = g + torch.where(
-                            shade, wl[i] * misp["drad"][e][i] * tp[i] * inv_cp,
+                            shade & (misp["sid2"] == e),
+                            wl[i] * misp["dle"][i] * tp[i] * inv_cp, 0.0)
+                        acc[("rad", e, i)] = acc[("rad", e, i)] + g
+                for s in dp.alb_ids:
+                    m = shade & (at["sid"] == s)
+                    for i in range(3):
+                        acc[("alb", s, i)] = acc[("alb", s, i)] + torch.where(
+                            m, wl[i] * (ldp_lam[i] * trs * inv_ps
+                                        + misp["dalb"][i]) * tp[i] * inv_cp,
                             0.0)
-                    g = g + torch.where(
-                        shade & (misp["sid2"] == e),
-                        wl[i] * misp["dle"][i] * tp[i] * inv_cp, 0.0)
-                    acc[("rad", e, i)] = acc[("rad", e, i)] + g
-            for s in dp.alb_ids:
-                m = shade & (at["sid"] == s)
-                for i in range(3):
-                    acc[("alb", s, i)] = acc[("alb", s, i)] + torch.where(
-                        m, wl[i] * (ldp_lam[i] * trs * inv_ps
-                                    + misp["dalb"][i]) * tp[i] * inv_cp, 0.0)
 
         fs, wi_s, pdf_b = pr.sample_bsdf(rng, at, d, nrm)
         cosine = pr.dot3(nrm, wi_s)
@@ -874,16 +1025,39 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
             wi_m = pr.hg_dir(pk, d, u_p1, u_p2)
         else:
             wi_m = pr.uniform_sphere(u_p1, u_p2)
-        med_scale = ar_cp
-        med_dsig = -inv_st
-        ld_med, w_med, att_nee, dlogp_nee, wl_nee, t_nee = medium_nee(
-            rng, d, xt, lc, lrad, lr, lid)
-        adds = [torch.where(medium, ld_med[i] * inv_ps * tp[i] * med_scale,
-                            0.0) for i in range(3)]
-        for i in range(3):
-            L[i] = L[i] + adds[i]
-            Lps[i] = Lps[i] + adds[i]
-        if grads:
+        if not ea:
+            med_scale = ar_cp
+            med_dsig = -inv_st
+        else:
+            # the explicit T and 1/pSuccess (vpt/kernels/diff.py:942-971);
+            # in a field sigma_s(xt) = sigma_s dens(xt), dens being
+            # sigma-independent
+            med_scale = ss * t_xt * inv_cp / pdf_success
+            if fc is not None:
+                dens_xt = pr.field_density(fc, xt)
+                med_scale = med_scale * dens_xt
+            med_dsig = -att_along - att_t * tr_act / one_m_tr
+            if n_fp:
+                # t_xt = e^{-sigma |I|} (dlog = -sigma sign(I) dI(d_along)),
+                # the 1/pSuccess chain and sigma_s(xt)'s dlog dens
+                d_along_g = torch.where(medium, d_along, 0.0)
+                xt_g2 = [torch.where(medium, xt[j], 0.0) for j in range(3)]
+                dI_along = fp_dI(o, d, d_along_g)
+                dI_tb = fp_dI(o, d, t_det0)
+                dlogd_xt = fp_dlogdens(xt_g2)
+                med_dfp = [-sigma_t * sign_I * dI_along[f]
+                           - sigma_t * dI_tb[f] * tr_act / one_m_tr
+                           + dlogd_xt[f] for f in range(n_fp)]
+        if nee:
+            ld_med, w_med, att_nee, dlogp_nee, wl_nee, t_nee = medium_nee(
+                rng, d, xt, lc, lrad, lr, lid)
+            adds = [torch.where(medium,
+                                ld_med[i] * inv_ps * tp[i] * med_scale, 0.0)
+                    for i in range(3)]
+            for i in range(3):
+                L[i] = L[i] + adds[i]
+                Lps[i] = Lps[i] + adds[i]
+        if grads and nee:
             gs = z
             gx = z
             for i in range(3):
@@ -933,6 +1107,38 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
             acc["B_st"] = acc["B_st"] + k_med_st * wL1
             acc["A_ssx"] = acc["A_ssx"] + k_med_ssx
             acc["B_ssx"] = acc["B_ssx"] + k_med_ssx * wL1
+            if ea and n_fp:
+                # the EA medium factor's field-parameter terms
+                for f in range(n_fp):
+                    k_f = torch.where(medium, med_dfp[f], 0.0)
+                    acc[("A_fp", f)] = acc[("A_fp", f)] + k_f
+                    acc[("B_fp", f)] = acc[("B_fp", f)] + k_f * wL1
+            if ea and two_phase:
+                # med_scale's voxel chains (vpt/kernels/diff.py:1050-1086):
+                # it weights this bounce's NEE (gx) and every later
+                # emission (wLtot - wL1), so the adjoint scatters at once
+                adjv = torch.where(phB & medium,
+                                   (gx if nee else z) + acc["wLtot"] - wL1,
+                                   0.0)
+                # t_xt = e^{-sigma |I(d_along)|}: the forward ray for I >= 0,
+                # the reversed ray for samples behind the origin; the
+                # 1/pSuccess chain (-sigma dI(t)/dv Tr/(1 - Tr)) rides the
+                # forward march
+                w_pos = torch.where(I_along >= 0.0, -sigma_t * adjv, 0.0)
+                w_neg = torch.where(I_along < 0.0, -sigma_t * adjv, 0.0)
+                w_ps = -sigma_t * adjv * tr_act / one_m_tr
+                pr.grid_march_scatter(fc, o, d, w_pos,
+                                      torch.clamp_min(d_along, 0.0), w_ps,
+                                      t_det0, gg, gabs)
+                pr.grid_march_scatter(fc, o, [-d[0], -d[1], -d[2]], w_neg,
+                                      torch.clamp_min(-d_along, 0.0), z, z,
+                                      gg, gabs)
+                # sigma_s(xt) = sigma_s dens(xt): a trilinear appearance
+                # scatter whatever the transport interpolant
+                xt_dg = [torch.where(medium, xt[j], 0.0) for j in range(3)]
+                pr.grid_scatter_point(
+                    fc, xt_dg, adjv / torch.clamp_min(dens_xt, 1e-30), gg,
+                    gabs, interp="tri")
             if traced_g:
                 # the phase draw's score, deferred against later
                 # contributions
@@ -952,7 +1158,7 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
         if stats is not None:
             counts[1] += shade.sum()
             counts[2] += medium.sum()
-            if fc is not None:
+            if fc is not None and nee:
                 # K2's field optical depths: pLight and the MIS lights on
                 # shading lanes, medium NEE on medium lanes
                 counts[3] += (shade.sum() * (1 + len(pk.mis_lights))
@@ -1202,13 +1408,11 @@ def make_diff_renderer(scene: Scene, camera: Camera, width: int, height: int,
     with_field=True for diff_field, with_blobs=True for diff_blobs,
     with_grid=True for diff_grid) through torch autograd. "cuda" runs K2/K3
     (their field instantiations in an analytic density field, their grid
-    ones in a voxel grid, their HG ones at a g != 0 or with diff_g) or
-    raises; "cpu" runs their plain versions."""
-    if distance != "free":
-        raise _todo(f"distance={distance!r}" + (" (with diff_grid)"
-                                                 if diff_grid else ""), "4.4")
-    if physical or not nee:
-        raise _todo("the physical and implicit estimators", "4.4")
+    ones in a voxel grid, their HG ones at a g != 0 or with diff_g, the
+    extended ones for the other estimators, shells and HG in a grid) or
+    raises; "cpu" runs their plain versions. Any distance other than
+    "free" is vpt's equi-angular branch; nee=False needs physical=True."""
+    _check_estimator(nee, physical)
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("make_diff_renderer(device='cuda'): "
@@ -1217,7 +1421,8 @@ def make_diff_renderer(scene: Scene, camera: Camera, width: int, height: int,
                    continue_prob=continue_prob, max_bounces=max_bounces,
                    sampler=sampler, jitter=jitter, diff_g=diff_g,
                    diff_field=diff_field, diff_blobs=diff_blobs,
-                   diff_grid=diff_grid)
+                   diff_grid=diff_grid, nee=nee, distance=distance,
+                   physical=physical)
     S = dp.pk.S
     traced = {"g": diff_g, "fog_k": diff_field, "blobs": diff_blobs,
               "grid": diff_grid}

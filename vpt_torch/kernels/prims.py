@@ -587,6 +587,7 @@ _TWO_OVER_SQRTPI = 1.1283791670955126
 # unit-sigma optical-path cap: past total extinction at the sigma >= 1e-6
 # floor, far below f32 overflow in the score chains (vpt: _TAU_CAP)
 TAU_CAP = 3.0e7
+F32_MAX = float(np.finfo(np.float32).max)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -716,9 +717,14 @@ def field_tr_toward(fc: FieldConsts, sigma_t, x, target_dir, dist):
                                 nonneg=True))
 
 
-def field_tau_dk(fc: FieldConsts, o, d, t):
+def field_tau_dk(fc: FieldConsts, o, d, t, guard: bool = False):
     """d/dk of the exp_height optical path per unit sigma (the traced-k
-    pair's hook); the |m| < 1e-6 limit is -(a0 + a1)/2 d0 t."""
+    pair's hook); the |m| < 1e-6 limit is -(a0 + a1)/2 d0 t. guard (the
+    pair's extended estimators): each product that can overflow f32 is
+    clamped to +-FLT_MAX first. Far below the fog plane, where the density
+    saturates at e^80, a0 d0 and a1 d1 reach -inf and vpt's form gives inf
+    - inf = NaN (an equi-angular path that left the box scatters there);
+    the clamp changes no finite value."""
     a0 = o[1] - fc.y0
     a1 = o[1] + t * d[1] - fc.y0
     d0 = _exp_clip(-fc.k * a0)
@@ -727,8 +733,14 @@ def field_tau_dk(fc: FieldConsts, o, d, t):
     const = torch.abs(m) < 1e-6
     safe_m = torch.where(const, 1.0, m)
     inv_m = 1.0 / safe_m
-    gen = ((a1 * d1 - a0 * d0) - (d0 - d1) * d[1] * inv_m) * inv_m
-    lim = -0.5 * (a0 + a1) * d0 * t
+    if guard:
+        fin = lambda x: torch.clamp(x, -F32_MAX, F32_MAX)  # noqa: E731
+        gen = ((fin(a1 * d1) - fin(a0 * d0))
+               - fin((d0 - d1) * d[1] * inv_m)) * inv_m
+        lim = fin(-0.5 * (a0 + a1) * d0) * t
+    else:
+        gen = ((a1 * d1 - a0 * d0) - (d0 - d1) * d[1] * inv_m) * inv_m
+        lim = -0.5 * (a0 + a1) * d0 * t
     return torch.clamp(torch.where(const, lim, gen), -TAU_CAP, TAU_CAP)
 
 
@@ -1003,14 +1015,16 @@ def grid_window(gc: GridConsts, o, d):
 
 
 def _grid_segs(gc: GridConsts, t0, ta, tb):
-    """(seg0, width) of the canonical segments, in order."""
+    """(seg0, width) of the canonical segments, stacked in order along a
+    new first axis (n_march, *t0.shape): t0 + i h1 in region A, ta + (i -
+    m1) h2 in region B, each the f32 value of its segment."""
     h1 = (ta - t0) * gc.inv_m1
     h2 = (tb - ta) * gc.inv_m2
-    for i in range(gc.n_march):
-        if i < gc.m1:
-            yield t0 + float(i) * h1, h1
-        else:
-            yield ta + float(i - gc.m1) * h2, h2
+    i = torch.arange(gc.n_march, dtype=t0.dtype, device=t0.device).reshape(
+        (-1,) + (1,) * t0.dim())
+    in_a = i < gc.m1
+    return (torch.where(in_a, t0 + i * h1, ta + (i - gc.m1) * h2),
+            torch.where(in_a, h1, h2))
 
 
 def _ray(o, d, t):
@@ -1018,12 +1032,15 @@ def _ray(o, d, t):
 
 
 def grid_tau_nonneg(gc: GridConsts, sigma_t, o, d, t):
-    """The model's optical depth for t >= 0."""
+    """The model's optical depth for t >= 0 (the segments' terms computed
+    at once, summed in order)."""
     t0, ta, tb = grid_window(gc, o, d)
+    seg0, w = _grid_segs(gc, t0, ta, tb)
+    rho = grid_pc_eval(gc, _ray(o, d, seg0 + 0.5 * w))
+    terms = rho * torch.clamp(t - seg0, torch.zeros_like(w), w)
     acc = torch.zeros_like(o[0])
-    for seg0, w in _grid_segs(gc, t0, ta, tb):
-        rho = grid_pc_eval(gc, _ray(o, d, seg0 + 0.5 * w))
-        acc = acc + rho * torch.clamp(t - seg0, torch.zeros_like(w), w)
+    for term in terms:
+        acc = acc + term
     h2 = (tb - ta) * gc.inv_m2
     rho_head = grid_pc_eval(gc, [o[j] + 0.5 * t0 * d[j] for j in range(3)])
     d_inf = grid_pc_eval(gc, _ray(o, d, tb + h2))
@@ -1054,13 +1071,17 @@ def grid_sample_free_and_tau(gc: GridConsts, sigma_t, o, d, u, t_cap):
     cum = tau_head
     tau_cap = torch.zeros_like(o[0])
     d_found = tau_cap - 1.0
-    for seg0, w in _grid_segs(gc, t0, ta, tb):
-        rho = grid_pc_eval(gc, _ray(o, d, seg0 + 0.5 * w))
-        dtau = sigma_t * rho * w
-        tau_cap = tau_cap + rho * torch.clamp(t_cap - seg0,
-                                              torch.zeros_like(w), w)
+    # the segments' densities and terms at once; the sums and the crossing
+    # in order
+    segs, ws = _grid_segs(gc, t0, ta, tb)
+    rhos = grid_pc_eval(gc, _ray(o, d, segs + 0.5 * ws))
+    dtaus = sigma_t * rhos * ws
+    caps = rhos * torch.clamp(t_cap - segs, torch.zeros_like(ws), ws)
+    rates = torch.clamp_min(sigma_t * rhos, 1e-30)
+    for seg0, dtau, cap, rate in zip(segs, dtaus, caps, rates):
+        tau_cap = tau_cap + cap
         cross = (d_found < 0.0) & (cum + dtau > tau_star)
-        d_i = seg0 + (tau_star - cum) / torch.clamp_min(sigma_t * rho, 1e-30)
+        d_i = seg0 + (tau_star - cum) / rate
         d_found = torch.where(cross, d_i, d_found)
         cum = cum + dtau
     h2 = (tb - ta) * gc.inv_m2
@@ -1134,17 +1155,21 @@ def grid_march_scatter(gc: GridConsts, o, d, wA, tA, wB, tB, gacc,
                        gabs=None):
     """gacc += d/dv of (wA I(tA) + wB I(tB)), I the model's optical path per
     unit sigma along (o, d): each segment's overlap with [0, t] at its
-    midpoint, then the constant head and tail."""
+    midpoint, then the constant head and tail. The segments are stacked
+    into one scatter (each term the loop's f32 value, added in another
+    order)."""
     t0, ta, tb = grid_window(gc, o, d)
-    for seg0, w in _grid_segs(gc, t0, ta, tb):
-        zw = torch.zeros_like(w)
-        cm = (wA * torch.clamp(tA - seg0, zw, w)
-              + wB * torch.clamp(tB - seg0, zw, w))
-        grid_scatter_point(gc, _ray(o, d, seg0 + 0.5 * w), cm, gacc, gabs)
+    seg0, w = _grid_segs(gc, t0, ta, tb)
+    zw = torch.zeros_like(w)
+    cm = (wA * torch.clamp(tA - seg0, zw, w)
+          + wB * torch.clamp(tB - seg0, zw, w))
+    xm = _ray(o, d, seg0 + 0.5 * w)
     h2 = (tb - ta) * gc.inv_m2
     ch = wA * torch.minimum(tA, t0) + wB * torch.minimum(tB, t0)
-    grid_scatter_point(gc, [o[j] + 0.5 * t0 * d[j] for j in range(3)], ch,
-                       gacc, gabs)
+    xh = [o[j] + 0.5 * t0 * d[j] for j in range(3)]
     ct = (wA * torch.clamp_min(tA - tb, 0.0)
           + wB * torch.clamp_min(tB - tb, 0.0))
-    grid_scatter_point(gc, _ray(o, d, tb + h2), ct, gacc, gabs)
+    xt = _ray(o, d, tb + h2)
+    x = [torch.cat([xm[j], xh[j][None], xt[j][None]]) for j in range(3)]
+    grid_scatter_point(gc, x, torch.cat([cm, ch[None], ct[None]]), gacc,
+                       gabs)
