@@ -108,19 +108,36 @@ plain torch version on the card:
      through make_diff_renderer; the reference's research question in
      gradient form (free flight against equi-angular, 40 seeds each at
      256x256x16); and examples/recover_grid.py --distance equiangular
-     through fit_grid for RG_EA_STEPS steps.
+     through fit_grid for RG_EA_STEPS steps;
+ 18. the rest of the dual kernel K4, in its extended instantiations
+     (equi-angular distances, the implicit and physical estimators, a baked
+     HG g; material-3 shells run the default instantiations, as vpt's K4
+     has no shell cascade): ptxas of the six new kernels and the six older
+     K4 ones held to their numbers; every extended K against its plain
+     version at 64x32x8, bit for bit (image and every tangent plane:
+     equi-angular NEE at g = 0.5 for each K under both samplers, and at
+     K = 7 and K = 0 each estimator route and medium_shell), and the
+     K = 7 primal bit-equal to the K = 0 one; the geom main frame
+     (cornell_vpt, 1024x1024x64, "random", sphere 8 + camera) under
+     equi-angular, nee=False + physical, a baked g = 0.5 and medium_shell,
+     and K = 0 under equi-angular, through make_geom_renderer, timed, the
+     equi-angular K = 7 bit-equal to plain at 2 spp; K = 3, 4, 6 and 10
+     through make_geom_renderer at 128x128x8; and
+     examples/recover_camera.py at its own setting through
+     make_fd_geom_train_step with per-leaf decaying Adam rates.
 
 The main-frame plain versions (phases 4, 7, 10, 12, 14 and 15) and the
-plain checks of phases 15-17 run in worker processes on the same card
+plain checks of phases 9 and 14-18 run in worker processes on the same card
 while the kernels build (PlainPool); they are collected before the first
 timing. `--recover-fog-multiview STEPS` runs the card, the build and that
-example's fit alone; `--recover-grid STEPS` the same for
+example's fit alone; `--geom-ext` the card, the build and phase 18;
+`--recover-grid STEPS` the same for
 examples/recover_grid.py at vpt's round-4 setting (RG_ROUND4; 250 steps
 is that run, about 80 s of fitting); `--recover-grid-ea STEPS` runs
 tools/studies/tomo_quality_study.py's rows B (free flight) and F
 (equi-angular) of that example (RG_ROWS).
 
-Each main path (phases 4, 7, 8, 10, 11, 12, 13, 14, 15, 16 and 17) runs with every
+Each main path (phases 4, 7, 8, 10, 11, 12, 13, 14, 15, 16, 17 and 18) runs with every
 launch count set to 0 just before it and read just after. The line before the last is the
 per-kernel JSON record, the last line the device record. Any failed phase
 raises and the script exits non-zero; without a CUDA device it exits
@@ -228,6 +245,7 @@ def median_ms(fn, n: int = 3, warm_up: bool = True) -> tuple[float, list]:
 def reset_counts() -> None:
     wf.LAUNCHES_BY.clear()
     df.LAUNCHES_BY.clear()
+    gm.LAUNCHES_BY.clear()
     gm.LAUNCHES = 0
 
 
@@ -328,7 +346,9 @@ def geom_bound(stats: dict, gp: gm.GeomPacked) -> tuple[float, str]:
 #     with NEE (the medium NEE trace), +8 for the equi-angular weight,
 #     +30 for the HG direction at g != 0 and +12 for the HG phase value
 #     with NEE; the material-3 cascade and the physical credit count 0.
-def variant_ops_lower_bound(stats: dict, pk: wf.Packed) -> float:
+def variant_ops_lower_bound(stats: dict, pk: wf.Packed,
+                            n_lanes: int | None = None) -> float:
+    """n_lanes: the lanes launched where they are not pk's whole frame."""
     S, M = pk.S, len(pk.mis_lights)
     ea = pk.distance != "free"
     hg = pk.g != 0.0
@@ -336,13 +356,14 @@ def variant_ops_lower_bound(stats: dict, pk: wf.Packed) -> float:
     shade = 72 + ((136 + 109 * M + 23 * S * (2 + M)) if pk.nee else 0)
     medium = (14 + ((88 + 23 * S) if pk.nee else 0) + (8 if ea else 0)
               + (30 if hg else 0) + (12 if hg and pk.nee else 0))
-    return float(stats["thread_iters"] * it + pk.npix * pk.spp * 29
+    lanes = pk.npix if n_lanes is None else n_lanes
+    return float(stats["thread_iters"] * it + lanes * pk.spp * 29
                  + stats["shade"] * shade + stats["medium"] * medium)
 
 
 def variant_bound(stats: dict, pk: wf.Packed,
                   n_lanes: int | None = None) -> tuple[float, str]:
-    t_ops = variant_ops_lower_bound(stats, pk) / PEAK_F32 * 1e3
+    t_ops = variant_ops_lower_bound(stats, pk, n_lanes) / PEAK_F32 * 1e3
     # seed (and tile bases) in, 12 bytes of radiance out per lane
     lanes = pk.npix if n_lanes is None else n_lanes
     t_bytes = (4.0 + 12.0 * lanes) / PEAK_BYTES * 1e3
@@ -382,12 +403,15 @@ def bound(kernel: str, stats: dict, dp: df.DiffPacked) -> tuple[float, str]:
 # alone (NVIDIA H100 80GB HBM3: 18.5 s alone, 60.3 s in a pool started
 # after the build, so the workers slow each other, not the build):
 #   ("k1", scene, g, integrator): the render kernel's plain version;
+#   ("fk1", scene, integrator, sampler, seed): K1 in a field at 64x32x8;
+#   ("k4x", scene, g, estimator, K, frame): the dual kernel's at a frame
+#     (phases 9 and 18);
 #   ("k2", scene, g, traced): the pair's forward, traced a tuple of
 #     make_diff_renderer flags (diff_g, diff_field);
 #   ("k4", sphere, primal_only, spp): the dual kernel's at spp;
 #   ("pair", scene, g, traced, frame): the pair's image and K3's per-pixel
 #     rows at a pair_inputs frame.
-PLAIN_WORKERS = 6
+PLAIN_WORKERS = 8   # the card's host has 8 cores; the main process waits
 PLAIN_TIMEOUT_S = 600   # the pool took 211.6 s in all (NVIDIA H100 80GB HBM3)
 
 
@@ -432,6 +456,15 @@ def plain_job(spec: tuple) -> tuple:
         return grid_plain_job(spec, dev, cam)
     if kind == "xpair":
         return ext_plain_job(spec, dev, cam)
+    if kind == "k4x":
+        return geom_ext_plain_job(spec, dev, cam)
+    if kind == "fk1":
+        pk = field_k1_pack(spec, cam)
+        s = torch.tensor([spec[4]], dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        out = wf.render_tile_plain(pk, s)
+        torch.cuda.synchronize()
+        return out.cpu().numpy(), stats, (time.perf_counter() - t0) * 1e3
     if kind in ("pair", "k2"):
         frame = spec[4] if kind == "pair" else main_frame()
         dp, pvec, seed, gbar = pair_inputs(name, spec[2], spec[3], frame,
@@ -490,11 +523,16 @@ class PlainPool:
         self.pool.close()
         self.pool.join()
         ms = sorted(j.get()[2] for j in self.jobs.values())
+        by_kind = {}
+        for spec, job in self.jobs.items():
+            by_kind[spec[0]] = by_kind.get(spec[0], 0.0) + job.get()[2] / 1e3
         print(f"plain versions: {len(self.jobs)} main-frame runs in "
               f"{PLAIN_WORKERS} worker processes, "
               f"{time.perf_counter() - self.t0:.1f} s wall (each "
               f"{ms[0] / 1e3:.1f}-{ms[-1] / 1e3:.1f} s, "
-              f"{sum(ms) / 1e3:.1f} s in all)", flush=True)
+              f"{sum(ms) / 1e3:.1f} s in all; by kind "
+              f"{ {k: round(v, 1) for k, v in by_kind.items()} })",
+              flush=True)
 
     def get(self, spec: tuple, dev: torch.device) -> tuple:
         """(output on dev, work counters, ms) of one job; a pair job's
@@ -526,19 +564,25 @@ def pair_spec(scene: str = "cornell_vpt", g: float = 0.0,
 
 
 GEOM0_SPEC = ("k4", "cornell_vpt", 8, True, MAIN_CFG["spp"])
+# phase 9's checks at 64x32x8, 8 bounces: K = 7 (sphere 8 + camera) under
+# both samplers and seeds, K = 10 and K = 0 (phase 18's "k4x" jobs)
+GEOM9_CHECKS = [("k4x", "cornell_vpt", 0.0, (), k, (64, 32, 8, 8, sampler,
+                                                     seed))
+                for k, sampler, seed in ((7, "random", 3), (7, "random", 11),
+                                         (7, "ld", 3), (7, "ld", 11),
+                                         (10, "random", 3), (0, "random", 3))]
 GEOM7_SPEC = ("k4", "cornell_vpt", 8, False, 2)       # GEOM_CHECK_SPP
 
 
 def plain_specs() -> list:
-    """The plain runs of phases 4-16."""
+    """The plain runs of phases 4-18."""
     k1 = [k1_spec(integ, sname, g) for _, integ, sname, g in VARIANTS]
     k1 += [k1_spec(integ, sname) for integ, sname in FIELD_VARIANTS]
-    return [*ext_specs(), k1_spec("explicit_free"), pair_spec(), GEOM0_SPEC,
-            GEOM7_SPEC,
-            *k1, pair_spec("foggy_cornell", 0.0, ("diff_field",)),
+    return [*geom_ext_specs(), *ext_specs(), k1_spec("explicit_free"),
+            pair_spec(), GEOM0_SPEC, GEOM7_SPEC, *GEOM9_CHECKS, *k1, pair_spec("foggy_cornell", 0.0, ("diff_field",)),
             pair_spec("foggy_cornell", 0.5, ("diff_g", "diff_field")),
             pair_spec("cornell_vpt", 0.5), *HG_CHECKS, HG_TRAINER_CHECK,
-            *HG_MAIN_CHECKS.values(), *grid_specs()]
+            *HG_MAIN_CHECKS.values(), *grid_specs(), *FIELD_K1_CHECKS]
 
 
 # ---- phase 14: analytic density fields (exp_height, blobs) in K1 and the pair
@@ -555,6 +599,21 @@ HOMOGENEOUS_PTXAS = {
     "vpt_diff10bwd_kernelILb0ELb0E": (128, 56),      # K3
 }
 FIELD_SCENES = ("foggy_cornell", "blob_cloud")
+# K1's field instantiations against their plain versions at 64x32x8, 8
+# bounces: ("fk1", scene, integrator, sampler, seed)
+FIELD_K1_CHECKS = [("fk1", name, integrator, sampler, seed)
+                   for name in FIELD_SCENES
+                   for integrator in ("explicit_free", "explicit_equiangular",
+                                      "implicit_free")
+                   for sampler in ("random", "ld") for seed in (3, 11)]
+
+
+def field_k1_pack(spec: tuple, camera) -> wf.Packed:
+    _, name, integrator, sampler, _ = spec
+    nee, dist, phys = wf.KERNEL_INTEGRATORS[integrator]
+    return wf.pack_scene(SCENES[name](), camera, 64, 32, 8, max_bounces=8,
+                         sampler=sampler, nee=nee, distance=dist,
+                         physical=phys)
 # K1's field instantiations: (integrator, its first variant's scene at the
 # served frame)
 FIELD_VARIANTS = [("explicit_free", "foggy_cornell"),
@@ -681,28 +740,20 @@ def field_phases(card: str, dev: torch.device, camera, cfg,
         print(f"phase 14 ptxas {entry}: {regs} registers, {spill} B spill "
               f"stores, {stack} B stack", flush=True)
 
-    # -- K1 at a small frame, bit for bit
+    # -- K1 at a small frame, bit for bit (the plain versions from the pool)
     scenes = {n: SCENES[n]() for n in FIELD_SCENES}
     t0 = time.perf_counter()
-    for name in FIELD_SCENES:
-        for integrator in ("explicit_free", "explicit_equiangular",
-                           "implicit_free"):
-            nee, dist, phys = wf.KERNEL_INTEGRATORS[integrator]
-            for sampler in ("random", "ld"):
-                for seed in (3, 11):
-                    pk = wf.pack_scene(scenes[name], camera, 64, 32, 8,
-                                       max_bounces=8, sampler=sampler,
-                                       nee=nee, distance=dist,
-                                       physical=phys)
-                    s = torch.tensor([seed], dtype=torch.int32, device=dev)
-                    k = wf.render_tile(pk, s)
-                    p = wf.render_tile_plain(pk, s)
-                    if not (bool(torch.equal(k, p))
-                            and bool(torch.isfinite(k).all())):
-                        raise AssertionError(
-                            f"K1 field {name} {integrator} {sampler} seed "
-                            f"{seed}: not bit-equal to the plain version "
-                            f"(max abs {float((k - p).abs().max())})")
+    for spec in FIELD_K1_CHECKS:
+        _, name, integrator, sampler, seed = spec
+        pk = field_k1_pack(spec, camera)
+        s = torch.tensor([seed], dtype=torch.int32, device=dev)
+        k = wf.render_tile(pk, s)
+        p = plains.get(spec, dev)[0]
+        if not (bool(torch.equal(k, p)) and bool(torch.isfinite(k).all())):
+            raise AssertionError(
+                f"K1 field {name} {integrator} {sampler} seed {seed}: not "
+                f"bit-equal to the plain version (max abs "
+                f"{float((k - p).abs().max())})")
     print(f"phase 14 K1 field check 64x32x8: foggy_cornell and blob_cloud "
           f"under explicit_free, explicit_equiangular, implicit_free, both "
           f"samplers, seeds 3 and 11: all bit-equal to plain "
@@ -1835,28 +1886,30 @@ def grid_march_ops(pk: wf.Packed) -> int:
     return 34 + (gc.n_march + 2) * (13 + (15 if gc.nearest else 33))
 
 
-def grid_k1_bound(stats: dict, pk: wf.Packed, scale: float = 1.0
-                  ) -> tuple[float, str]:
-    """K1's grid bound from counters taken at another frame (scale: the
-    ratio of camera paths): the variant's operations plus a march per
-    optical depth the plain version counted; bytes: the seed and the table
-    in, the image out."""
-    ops = (variant_ops_lower_bound(stats, pk)
-           + stats["taus"] * grid_march_ops(pk)) * scale
+def grid_k1_bound(stats: dict, pkc: wf.Packed, pk: wf.Packed,
+                  scale: float) -> tuple[float, str]:
+    """K1's grid bound from counters taken at another frame (pkc's; scale:
+    the ratio of camera paths to pk's): the variant's operations plus a
+    march per optical depth the plain version counted; bytes: the seed and
+    the table in, pk's image out."""
+    ops = (variant_ops_lower_bound(stats, pkc)
+           + stats["taus"] * grid_march_ops(pkc)) * scale
     t_ops = ops / PEAK_F32 * 1e3
     t_bytes = (4.0 + 4.0 * int(np.prod(pk.grid.dims))
                + 12.0 * pk.npix) / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def grid_pair_bound(kernel: str, stats: dict, dp: df.DiffPacked,
-                    scale: float = 1.0) -> tuple[float, str]:
-    """K2: the pair's operations plus its marches (K2's counters). K3 with
+def grid_pair_bound(kernel: str, stats: dict, dpc: df.DiffPacked,
+                    dp: df.DiffPacked, scale: float) -> tuple[float, str]:
+    """K2: the pair's operations plus its marches (K2's counters, from a
+    plain run on dpc's frame, scaled by `scale` to dp's). K3 with
     diff_grid replays every sample twice (two-phase), so at least twice
     K2's operations; its scatters are not counted. Bytes: K2's or K3's
-    inputs and outputs plus the table, and K3's voxel gradient."""
-    ops = (ops_lower_bound("diff_fwd", stats, dp)
-           + stats["taus"] * grid_march_ops(dp.pk)) * scale
+    inputs and outputs on dp's frame plus the table, and K3's voxel
+    gradient."""
+    ops = (ops_lower_bound("diff_fwd", stats, dpc)
+           + stats["taus"] * grid_march_ops(dpc.pk)) * scale
     if kernel == "diff_bwd":
         ops *= 2.0
     T = int(np.prod(dp.pk.grid.dims))
@@ -2132,7 +2185,7 @@ def grid_phases(card: str, dev: torch.device, camera,
                             physical=pk.physical)
         kc_ms, _ = median_ms(lambda: wf.render_tile(pkc, torch.tensor(
             [0], dtype=torch.int32, device=dev)))
-        b = grid_k1_bound(stats, pk, scale)
+        b = grid_k1_bound(stats, pkc, pk, scale)
         timed[(key, integ)] = dict(ms=ms, launches=launched[entry], bound=b,
                                    plain_ms=p_ms, kernel_ms_at_plain=kc_ms,
                                    work=stats)
@@ -2186,8 +2239,8 @@ def grid_phases(card: str, dev: torch.device, camera,
                                                 dev)
     k2c_ms, _ = median_ms(lambda: df.diff_fwd(dpc, pvc, sc0, tabc))
     k3c_ms, _ = median_ms(lambda: df.diff_bwd(dpc, pvc, sc0, gbc, tab=tabc))
-    b2 = grid_pair_bound("diff_fwd", cstats, dp, scale)
-    b3 = grid_pair_bound("diff_bwd", cstats, dp, scale)
+    b2 = grid_pair_bound("diff_fwd", cstats, dpc, dp, scale)
+    b3 = grid_pair_bound("diff_bwd", cstats, dpc, dp, scale)
     print(f"phase 16 grid pair diff_grid 16^3 tri {cfg.width}x{cfg.height}x"
           f"{cfg.spp} {cfg.sampler}: launches {launched}; |grid grad| sum "
           f"{gsum:.6g}; fwd+bwd {pair_ms:.3f} ms (median of {pair_times}), "
@@ -2753,6 +2806,437 @@ def ext_phases(card: str, dev: torch.device, camera,
     return records
 
 
+# ---- phase 18: the rest of the dual kernel K4 (the extended
+# instantiations): equi-angular, the implicit and physical estimators, a
+# baked HG g; material-3 shells
+
+# the extended kernels (mangled-name fragments) and their sources
+GEOM_EXT = {f"vpt_geom_ext_k{k}": (f"19vpt_geom_ext_kernelILi{k}EE",
+                                   f"geom_ext_k{k}.cu")
+            for k in (0, 3, 4, 6, 7, 10)}
+# the tangent blocks of each K: (sphere 8's centre, camera origin + fov,
+# look direction)
+GEOM_BLOCKS = {0: dict(primal_only=True), 3: dict(cam_grads=False),
+               4: dict(sphere=None), 6: dict(cam_grads=False, dir_grads=True),
+               7: {}, 10: dict(dir_grads=True)}
+GEA = (("distance", "equiangular"),)
+GIMPLICIT = (("nee", False), ("physical", True))
+# K4 against its plain version at 64x32x8, 8 bounces, seed 3, under both
+# samplers: (scene, HG g, estimator, K); every extended K at equi-angular
+# NEE with g = 0.5, and at K = 7 and K = 0 each route
+GEOM_EXT_CFGS = [("cornell_vpt", 0.5, GEA, k) for k in (0, 3, 4, 6, 7, 10)]
+GEOM_EXT_CFGS += [
+    (name, g, est, k) for k in (7, 0)
+    for name, g, est in (
+        ("cornell_vpt", 0.0, GEA), ("cornell_vpt", 0.0, GIMPLICIT),
+        ("cornell_vpt", 0.0, (("physical", True),)),
+        ("cornell_vpt", 0.0, GEA + (("nee", False),)),
+        ("cornell_vpt", 0.5, ()), ("medium_shell", 0.0, ()))]
+GEOM_EXT_FRAME = (64, 32, 8, 8)
+GEOM_EXT_CHECKS = [("k4x", name, g, est, k, (*GEOM_EXT_FRAME, sampler, 3))
+                   for name, g, est, k in GEOM_EXT_CFGS
+                   for sampler in ("random", "ld")]
+# the timed cells at the geom main frame (cornell_vpt, 1024x1024x64,
+# "random", K = 7 sphere 8 + camera; label: scene, g, estimator, K); their
+# work counters come from K = 0 plain versions at GEOM_COUNT_FRAME, scaled
+# by the paths (equi-angular's from its 2-spp check at the main frame)
+GEOM_TIMED = {"ea": ("cornell_vpt", 0.0, GEA, 7),
+              "implicit_physical": ("cornell_vpt", 0.0, GIMPLICIT, 7),
+              "hg": ("cornell_vpt", 0.5, (), 7),
+              "medium_shell": ("medium_shell", 0.0, (), 7),
+              "ea_k0": ("cornell_vpt", 0.0, GEA, 0)}
+GEOM_COUNT_FRAME = (128, 128, 8, 32, "random", 0)
+# the other extended K (3, 4, 6, 10) through make_geom_renderer at
+# GEOM_COUNT_FRAME, equi-angular NEE at g = 0.5, beside their counters
+GEOM_K_TIMED = ("cornell_vpt", 0.5, GEA)
+GEOM_EA_CHECK = ("k4x", "cornell_vpt", 0.0, GEA, 7,
+                 (1024, 1024, GEOM_CHECK_SPP, 32, "random", 0))
+# examples/recover_camera.py at its own setting (:36-105): 64x48, the
+# target at 128 spp and 16 bounces, FD renders at 64 spp; the camera starts
+# at origin + (4, -3, 6), direction + (0.010, -0.008, 0), fov x 1.06; 3
+# rounds of 30 direction-only and 60 origin + fov steps, Adam rates
+# exponential_decay(rate 0.7^r, 15, 0.75); vpt's run (BASELINE.md:600-612,
+# a TPU v5e, the example's expected answer) and the criteria it is held to
+RC_FRAME = (64, 48, 128, 64)
+RC_ROUNDS, RC_STEPS = 3, (30, 60)
+RC_OFF, RC_DIR_OFF, RC_FOV = (4.0, -3.0, 6.0), (0.010, -0.008, 0.0), 1.06
+RC_VPT = {"origin": (7.81, 1.58), "fov": (0.0306, 0.0045),
+          "direction_deg": (0.733, 0.270)}
+RC_CRITERIA = {"origin": 2.6, "fov": 0.01, "direction_deg": 0.4}
+
+
+def geom_ext_inputs(name, g, est, k, frame, camera, dev) -> tuple:
+    """(packed, theta vector, seed) of K4 with K = k on SCENES[name] at g."""
+    w, h, spp, mb, sampler, s = frame
+    sc = with_g(SCENES[name](), g)
+    blocks = {"sphere": 8, **GEOM_BLOCKS[k]}
+    gp = gm.pack_geom(sc, camera, w, h, spp, max_bounces=mb,
+                      sampler=sampler, **blocks, **dict(est))
+    if gp.K != k:
+        raise AssertionError(f"K4 blocks {blocks}: K = {gp.K}, not {k}")
+    th = gm.flatten_theta(gm.pack_theta(sc, camera, blocks["sphere"])).to(
+        dev)
+    return gp, th, torch.tensor([s], dtype=torch.int32, device=dev)
+
+
+def geom_ext_plain_job(spec: tuple, dev, camera) -> tuple:
+    """A "k4x" job of plain_job: K4's planes and counters (a counter job,
+    at GEOM_COUNT_FRAME, returns no output)."""
+    _, name, g, est, k, frame = spec
+    gp, th, s = geom_ext_inputs(name, g, est, k, frame, camera, dev)
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = gm.geom_fwd_plain(gp, th, s, stats=stats)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return (None if frame == GEOM_COUNT_FRAME else out.cpu().numpy(), stats,
+            ms)
+
+
+def geom_count_spec(name: str, g: float, est: tuple) -> tuple:
+    """The K = 0 plain run whose counters give an estimator's work (the
+    same at any K)."""
+    return ("k4x", name, g, est, 0, GEOM_COUNT_FRAME)
+
+
+def geom_ext_specs() -> list:
+    """Phase 18's plain runs, the longest first."""
+    counters = [geom_count_spec(*GEOM_TIMED[lab][:3]) for lab in GEOM_TIMED
+                if lab != "ea"]
+    return [GEOM_EA_CHECK, *counters, geom_count_spec(*GEOM_K_TIMED),
+            *GEOM_EXT_CHECKS]
+
+
+def geom_ext_ops_lower_bound(stats: dict, gpc: gm.GeomPacked,
+                             K: int) -> float:
+    """K4's operations under its estimator on the frame whose plain run
+    gave `stats` (gpc; its samples, not the timed frame's): the pair's
+    forward counts of ext_pair_bound (equi-angular +60 per thread-iteration
+    for the distance, the foot point and the two atan2_posx and tan_sc, +8
+    per medium event for its weight; without NEE 72 per shading event and
+    14 per medium event; HG +42 per medium event), each dual operation
+    taken 1 + K times but for the PLAIN_OPS that stay plain, as
+    geom_ops_lower_bound takes them."""
+    pk = gpc.pk
+    S, M = pk.S, len(pk.mis_lights)
+    it, sh, md = stats["thread_iters"], stats["shade"], stats["medium"]
+    samples = pk.npix * pk.spp
+    ops = (it * (41 + 23 * S + (60 if gpc.ea else 0)) + samples * 29
+           + sh * ((208 + 109 * M + 23 * S * (2 + M)) if gpc.nee else 72)
+           + md * (((102 + 23 * S) if gpc.nee else 14)
+                   + (8 if gpc.ea else 0) + (42 if gpc.hg else 0)))
+    plain = (it * PLAIN_OPS["thread_iters"] + samples * PLAIN_OPS["samples"]
+             + sh * PLAIN_OPS["shade"] + md * PLAIN_OPS["medium"])
+    return (1 + K) * (ops - plain) + plain
+
+
+def geom_ext_bound(stats: dict, gpc: gm.GeomPacked, gp: gm.GeomPacked,
+                   scale: float) -> tuple[float, str]:
+    """geom_bound's bytes of gp's frame against geom_ext_ops_lower_bound's
+    operations at gpc's (the frame of the plain run that gave `stats`)
+    scaled by `scale` to gp's, counted at gp's K."""
+    t_ops = (geom_ext_ops_lower_bound(stats, gpc, gp.K) * scale / PEAK_F32
+             * 1e3)
+    t_bytes = (48.0 + 4.0 + 4.0 * gp.planes * gp.npix) / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def geom_ext_vs_plain(spec, plains, camera, dev) -> dict:
+    """One K4 launch against its plain version: every plane bit for bit."""
+    _, name, g, est, k, frame = spec
+    gp, th, s = geom_ext_inputs(name, g, est, k, frame, camera, dev)
+    out = gm.geom_fwd(gp, th, s)
+    plain, _, p_ms = plains.get(spec, dev)
+    torch.cuda.synchronize()
+    res = dict(equal=bool(torch.equal(out, plain)),
+               err=float((out - plain).abs().max()),
+               finite=bool(torch.isfinite(out).all()), plain_ms=p_ms,
+               ext=gp.ext, K=gp.K, primal=out[::1 + gp.K].clone())
+    if not (res["equal"] and res["finite"]):
+        raise AssertionError(f"K4 {spec}: {res}")
+    return res
+
+
+def recover_camera(camera, card: str, dev: torch.device) -> dict:
+    """examples/recover_camera.py at its own setting (RC_*) through
+    make_fd_geom_train_step with dist.adam's per-leaf rates: the direction
+    block, then the origin + fov block, each round; the other leaves
+    frozen."""
+    scene = vpt_torch.cornell_vpt()
+    w, h, spp_t, spp = RC_FRAME
+    pk = wf.pack_scene(scene, camera, w, h, spp_t, max_bounces=16)
+    target = wf.render_tile(pk, torch.tensor([99], dtype=torch.int32,
+                                             device=dev)).reshape(-1, 3)
+    cam_w = vpt_torch.Camera(
+        origin=camera.origin + torch.tensor(RC_OFF),
+        direction=camera.direction + torch.tensor(RC_DIR_OFF),
+        fov_scale=camera.fov_scale * RC_FOV)
+    theta = {k: v.to(dev) for k, v in gm.pack_theta(scene, cam_w,
+                                                     None).items()}
+    decay = vpt_torch.dist.exponential_decay
+
+    def residuals(th) -> dict:
+        d = th["cam_dir"].double().cpu()
+        d0 = camera.direction.double()
+        c = float(torch.dot(d / d.norm(), d0 / d0.norm()).clamp(-1.0, 1.0))
+        return {"origin": float((th["cam_origin"].cpu()
+                                 - camera.origin).norm()),
+                "fov": float(th["fov"].cpu() - camera.fov_scale),
+                "direction_deg": float(np.degrees(np.arccos(c)))}
+
+    start = residuals(theta)
+    reset_counts()
+    losses, per_step, blocks_end = [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in range(RC_ROUNDS):
+        dec = 0.7 ** r
+        blocks = (
+            ({"cam_dir": decay(0.002 * dec, 15, 0.75)},
+             dict(cam_grads=False, dir_grads=True), RC_STEPS[0], 1000 * r),
+            ({"cam_origin": decay(0.5 * dec, 15, 0.75),
+              "fov": decay(0.004 * dec, 15, 0.75)},
+             dict(cam_grads=True), RC_STEPS[1], 5000 * r + 17))
+        for rates, kw, n, seed0 in blocks:
+            opt = vpt_torch.dist.adam(theta, rates)
+            step = vpt_torch.dist.make_fd_geom_train_step(
+                scene, cam_w, w, h, spp, opt, sphere=None, max_bounces=16,
+                device="cuda", **kw)
+            for i in range(n):
+                n0 = gm.LAUNCHES
+                losses.append(float(step(theta, target, seed0 + i)))
+                per_step.append(gm.LAUNCHES - n0)
+            blocks_end.append(residuals(theta))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    end = residuals(theta)
+    met = {k: abs(end[k]) < v for k, v in RC_CRITERIA.items()}
+    launches = dict(gm.LAUNCHES_BY)
+    res = dict(start=start, end=end, met=met, all_met=all(met.values()),
+               after_each_block=blocks_end,
+               seconds=secs, loss_first=losses[0], loss_last=losses[-1],
+               steps=len(losses), launches=launches,
+               launches_per_step=sorted(set(per_step)),
+               finite=bool(np.isfinite(losses).all() and all(
+                   bool(torch.isfinite(v).all()) for v in theta.values())))
+    print(f"phase 18 recover_camera ({w}x{h}, target {spp_t} spp, {spp} spp, "
+          f"{RC_ROUNDS} rounds of {RC_STEPS[0]} + {RC_STEPS[1]} FD steps): "
+          f"origin {start['origin']:.3f} -> "
+          f"{end['origin']:.3f} (< {RC_CRITERIA['origin']}: "
+          f"{'met' if met['origin'] else 'not met'}), fov "
+          f"{start['fov']:+.5f} -> {end['fov']:+.5f} (|.| < "
+          f"{RC_CRITERIA['fov']}: {'met' if met['fov'] else 'not met'}), "
+          f"direction {start['direction_deg']:.4f} -> "
+          f"{end['direction_deg']:.4f} deg (< "
+          f"{RC_CRITERIA['direction_deg']}: "
+          f"{'met' if met['direction_deg'] else 'not met'}) in {secs:.3f} s; "
+          f"loss {losses[0]:.6g} -> {losses[-1]:.6g}; launches {launches} "
+          f"({res['launches_per_step']} per step); vpt's round-4 row "
+          f"(BASELINE.md:600-612, a TPU v5e): origin 7.81 -> 1.58, fov "
+          f"+0.0306 -> +0.0045, direction 0.733 -> 0.270 deg; on {card}",
+          flush=True)
+    if not (res["finite"] and res["launches_per_step"] == [12, 16]
+            and len(losses) == RC_ROUNDS * sum(RC_STEPS)):
+        raise AssertionError(f"recover_camera: {res}")
+    return res
+
+
+def geom_ext_phases(card: str, dev: torch.device, camera,
+                    plains: PlainPool) -> list:
+    """Phase 18; returns the extended K4 instantiations' kernel records."""
+    t18 = time.perf_counter()
+    rep = ptxas_report()
+    ext_ptxas = {}
+    for entry, (frag, _) in GEOM_EXT.items():
+        hits = [v for k, v in rep.items() if frag in k]
+        if len(hits) != 1:
+            raise AssertionError(f"ptxas reports {len(hits)} kernels for "
+                                 f"{frag}")
+        ext_ptxas[entry] = hits[0]
+        print(f"phase 18 ptxas {entry}: {hits[0][0]} registers, {hits[0][1]}"
+              f" B spill stores, {hits[0][2]} B stack", flush=True)
+    older = {k: v for k, v in EXISTING_PTXAS.items() if "vpt_geom" in k}
+    changed = {k: (rep.get(k), v) for k, v in older.items()
+               if rep.get(k) != v}
+    print(f"phase 18 ptxas of the six older K4 instantiations: "
+          f"{'unchanged' if not changed else changed} (registers, spill "
+          f"stores, stack: {sorted(older.values())})", flush=True)
+    if changed:
+        raise AssertionError(f"K4 kernels changed: {changed}")
+
+    # -- every extended instantiation against its plain version, bit for
+    # bit, and the K = 7 primal against the K = 0 one
+    t0 = time.perf_counter()
+    errs = dict.fromkeys(GEOM_EXT, 0.0)
+    primals, n_old = {}, 0
+    for spec in GEOM_EXT_CHECKS:
+        r = geom_ext_vs_plain(spec, plains, camera, dev)
+        entry = f"vpt_geom_ext_k{r['K']}" if r["ext"] else None
+        if entry:
+            errs[entry] = max(errs[entry], r["err"])
+        else:
+            n_old += 1
+        _, name, g, est, k, frame = spec
+        primals.setdefault((name, g, est, frame), {})[k] = r["primal"]
+    # the K = 7 primal against the K = 0 launch of the same estimator and
+    # sampler (the checks hold both for every K = 7 configuration)
+    same = {key: bool(torch.equal(p[0], p[7])) for key, p in primals.items()
+            if 7 in p}
+    print(f"phase 18 K4 checks {GEOM_EXT_FRAME[0]}x{GEOM_EXT_FRAME[1]}x"
+          f"{GEOM_EXT_FRAME[2]}: {len(GEOM_EXT_CHECKS)} launches bit-equal to "
+          f"plain ({n_old} of them the default estimator on medium_shell, "
+          f"geom_k<K>); K = 7 primal == K = 0 primal in {sum(same.values())} "
+          f"of {len(same)} (estimator, sampler) pairs; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"K4 primal depends on K: {same}")
+
+    # -- the main frame: the extended K = 7 and K = 0 through
+    # make_geom_renderer, timed; equi-angular K = 7 against its plain
+    # version at GEOM_CHECK_SPP
+    cfg = vpt_torch.RenderConfig(**MAIN_CFG)
+    w, h, spp = cfg.width, cfg.height, cfg.spp
+    n_paths = w * h * spp
+    seed_t = torch.tensor([cfg.seed], dtype=torch.int32, device=dev)
+    timed = {}
+    for label, (name, g, est, k) in GEOM_TIMED.items():
+        sc = with_g(SCENES[name](), g)
+        blocks = {"sphere": 8, **GEOM_BLOCKS[k]}
+        render = gm.make_geom_renderer(sc, camera, w, h, spp,
+                                       max_bounces=cfg.max_bounces,
+                                       device="cuda", **blocks, **dict(est))
+        theta = {kk: v.to(dev) for kk, v in gm.pack_theta(
+            sc, camera, 8).items()}
+        reset_counts()
+        (img, tang), first_ms = cuda_ms(lambda: render(theta, cfg.seed))
+        launched = dict(gm.LAUNCHES_BY)
+        gp = render.packed
+        entry = f"geom_{'ext_' if gp.ext else ''}k{k}"
+        if launched != {entry: 1} or not (bool(torch.isfinite(img).all())
+                                          and bool(torch.isfinite(tang).all())):
+            raise AssertionError(f"geom {label}: launches {launched}")
+        ms, times = median_ms(lambda: render(theta, cfg.seed), warm_up=False)
+        thv = gm.flatten_theta(theta)
+        k_ms, k_times = median_ms(lambda: gm.geom_fwd(gp, thv, seed_t))
+        if label == "ea":
+            _, stats, cp_ms = plains.get(GEOM_EA_CHECK, dev)
+            gpc = geom_ext_inputs(*GEOM_EA_CHECK[1:], camera, dev)[0]
+            scale = spp / GEOM_CHECK_SPP
+            c_ms = None
+        else:
+            _, stats, cp_ms = plains.get(geom_count_spec(name, g, est), dev)
+            cw, ch, cs = GEOM_COUNT_FRAME[:3]
+            scale = n_paths / (cw * ch * cs)
+            gpc, thc, sc0 = geom_ext_inputs(name, g, est, k,
+                                            GEOM_COUNT_FRAME, camera, dev)
+            c_ms, _ = median_ms(lambda: gm.geom_fwd(gpc, thc, sc0))
+        b = geom_ext_bound(stats, gpc, gp, scale)
+        timed[label] = dict(entry=entry, launches=launched, ms=k_ms,
+                            render_ms=ms, first_ms=first_ms,
+                            paths_per_sec=n_paths / (ms / 1e3), bound=b,
+                            plain_ms=cp_ms, ms_at_count_frame=c_ms,
+                            work=stats, image_mean=float(img.mean()),
+                            tangent_means=[round(float(v), 6) for v in
+                                           tang.mean(dim=(1, 2))])
+        print(f"phase 18 geom {label} {w}x{h}x{spp} random K={k} "
+              f"(launches {launched}): render {ms:.3f} ms (median of {times}; "
+              f"first {first_ms:.3f}), {n_paths / (ms / 1e3):.6e} camera "
+              f"paths/s; the kernel alone {k_ms:.3f} ms ({k_times}); bound "
+              f"{b[0]:.3f} ms ({b[1]}); image mean {float(img.mean()):.6f}, "
+              f"tangent means {timed[label]['tangent_means']} on {card}",
+              flush=True)
+        del img, tang
+    gp2, th2, s2 = geom_ext_inputs(*GEOM_EA_CHECK[1:], camera, dev)
+    k2_ms, _ = median_ms(lambda: gm.geom_fwd(gp2, th2, s2))
+    r = geom_ext_vs_plain(GEOM_EA_CHECK, plains, camera, dev)
+    errs["vpt_geom_ext_k7"] = max(errs["vpt_geom_ext_k7"], r["err"])
+    timed["ea"].update(ms_at_check=k2_ms, plain_ms=r["plain_ms"])
+    print(f"phase 18 K4 EA check {w}x{h}x{GEOM_CHECK_SPP} K=7: bit-equal "
+          f"{r['equal']}; kernel {k2_ms:.3f} ms, plain {r['plain_ms']:.3f} ms"
+          f" (pooled)", flush=True)
+
+    # -- the other extended K through make_geom_renderer at
+    # GEOM_COUNT_FRAME, beside their plain versions' counters there
+    name, g, est = GEOM_K_TIMED
+    _, kstats, kp_ms = plains.get(geom_count_spec(name, g, est), dev)
+    cw, ch, cs, cmb, csampler, cseed = GEOM_COUNT_FRAME
+    for k in (3, 4, 6, 10):
+        sc = with_g(SCENES[name](), g)
+        blocks = {"sphere": 8, **GEOM_BLOCKS[k]}
+        render = gm.make_geom_renderer(sc, camera, cw, ch, cs,
+                                       max_bounces=cmb, sampler=csampler,
+                                       device="cuda", **blocks, **dict(est))
+        theta = {kk: v.to(dev) for kk, v in gm.pack_theta(
+            sc, camera, 8).items()}
+        reset_counts()
+        img, tang = render(theta, cseed)
+        torch.cuda.synchronize()
+        launched = dict(gm.LAUNCHES_BY)
+        if launched != {f"geom_ext_k{k}": 1} or not (
+                bool(torch.isfinite(img).all())
+                and bool(torch.isfinite(tang).all())):
+            raise AssertionError(f"geom K={k}: launches {launched}")
+        gp = render.packed
+        thv = gm.flatten_theta(theta)
+        s0 = torch.tensor([cseed], dtype=torch.int32, device=dev)
+        k_ms, k_times = median_ms(lambda: gm.geom_fwd(gp, thv, s0))
+        b = geom_ext_bound(kstats, gp, gp, 1.0)
+        timed[f"ea_g0.5_k{k}"] = dict(
+            entry=f"geom_ext_k{k}", launches=launched, ms=k_ms,
+            render_ms=None, paths_per_sec=cw * ch * cs / (k_ms / 1e3),
+            bound=b, plain_ms=kp_ms, work=kstats)
+        print(f"phase 18 geom ea g=0.5 {cw}x{ch}x{cs} {csampler} K={k}: "
+              f"launches {launched}; kernel {k_ms:.3f} ms ({k_times}), bound "
+              f"{b[0]:.3f} ms ({b[1]}); plain K=0 {kp_ms:.3f} ms (pooled)",
+              flush=True)
+
+    # -- the recovery
+    rc = recover_camera(camera, card, dev)
+    print(f"phase 18 {time.perf_counter() - t18:.1f} s", flush=True)
+
+    # -- the records: K = 7 and K = 0 at the main frame, the others at
+    # GEOM_COUNT_FRAME
+    rows = {"vpt_geom_ext_k7": "ea", "vpt_geom_ext_k0": "ea_k0",
+            **{f"vpt_geom_ext_k{k}": f"ea_g0.5_k{k}" for k in (3, 4, 6, 10)}}
+    records = []
+    for entry, (_, src) in GEOM_EXT.items():
+        regs, spill, stack = ext_ptxas[entry]
+        t = timed[rows[entry]]
+        cells = {lab: {kk: tt[kk] for kk in ("ms", "render_ms", "bound",
+                                             "launches", "paths_per_sec")}
+                 for lab, tt in timed.items() if tt["entry"] == t["entry"]}
+        main = rows[entry] in ("ea", "ea_k0")
+        rec = {"name": entry[4:], "route": "cuda", "library_ms": None,
+               "card": card, "source": f"vpt_torch/csrc/{src}",
+               "replaces": "vpt/kernels/geom.py:609",
+               "launches": sum(c["launches"].get(t["entry"], 0)
+                               for c in cells.values()),
+               "max_abs_err": errs[entry], "ms": t["ms"],
+               "frame": ([w, h, spp] if main else list(GEOM_COUNT_FRAME[:3])),
+               "plain_ms": t["plain_ms"], "plain_alone": False,
+               "plain_frame": (list(GEOM_EA_CHECK[5][:3]) if entry.endswith(
+                   "k7") else list(GEOM_COUNT_FRAME[:3])),
+               "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+               "cells": cells,
+               "ptxas": {"registers": regs, "spill_stores": spill,
+                         "stack": stack}}
+        if entry.endswith("k7"):
+            rec["ms_at_plain_frame"] = t["ms_at_check"]
+            # medium_shell under the default estimator runs geom_k7
+            rec["medium_shell_default_estimator"] = {
+                kk: timed["medium_shell"][kk]
+                for kk in ("entry", "ms", "render_ms", "bound", "launches",
+                           "paths_per_sec")}
+        elif entry.endswith("k0"):
+            rec["ms_at_plain_frame"] = t["ms_at_count_frame"]
+            rec["recover_camera"] = rc
+        else:
+            rec["ms_at_plain_frame"] = t["ms"]
+        records.append(rec)
+    return records
+
+
 def parse_args(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the vpt_torch "
@@ -2769,6 +3253,9 @@ def parse_args(argv=None):
                     help="the card, the build and examples/recover_grid.py "
                          "at the round-4 setting (--spp 16 --reg-l1 2e-2) "
                          "for STEPS steps (250: the round-4 run)")
+    ap.add_argument("--geom-ext", action="store_true",
+                    help="the card, the build and phase 18 alone (the "
+                         "extended K4 instantiations and recover_camera)")
     ap.add_argument("--recover-grid-ea", type=int, default=None,
                     metavar="STEPS",
                     help="the card, the build and tomo_quality_study.py's "
@@ -2783,7 +3270,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; no result")
     plains = None
-    if (args.recover_fog_multiview is None and args.recover_grid is None
+    if args.geom_ext:
+        plains = PlainPool(geom_ext_specs())
+    elif (args.recover_fog_multiview is None and args.recover_grid is None
             and args.recover_grid_ea is None):
         plains = PlainPool(plain_specs())
     try:
@@ -2839,6 +3328,13 @@ def run(args, plains: PlainPool | None) -> int:
         print(f"chip_smoke: partial run, {time.perf_counter() - t_start:.1f}"
               f" s", flush=True)
         return 0
+    if args.geom_ext:
+        plains.wait()
+        records = geom_ext_phases(card, dev, camera, plains)
+        print(json.dumps({"kernels": records}))
+        print(f"chip_smoke: partial run, {time.perf_counter() - t_start:.1f}"
+              f" s", flush=True)
+        return 0
     if args.recover_grid_ea is not None:
         rows = {dist: recover_grid(camera, card, steps=args.recover_grid_ea,
                                    reg_l1=2e-2, reg_tv=1e-2,
@@ -2879,6 +3375,7 @@ def run(args, plains: PlainPool | None) -> int:
                 raise AssertionError(f"K1 disagrees with its plain version: "
                                      f"q99 {q} (tolerance {Q99_TOL})")
     # the main-frame plain versions are done before the first timing
+    print(f"phases 1-3: {time.perf_counter() - t_start:.1f} s", flush=True)
     plains.wait()
 
     # ---- phase 4: the forward main path through the public API
@@ -2915,6 +3412,7 @@ def run(args, plains: PlainPool | None) -> int:
         raise AssertionError(f"main path disagrees with plain version: "
                              f"q99 {q_main} (tolerance {Q99_TOL})")
 
+    print(f"phases 1-4: {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- phase 5: K1 throughput (CUDA events; median of 3 after a warm-up)
     kernel_ms, times = median_ms(lambda: wf.render_tile(pk, seed_t))
     # K1's plain version once more, alone on the card and the host: the
@@ -2943,6 +3441,7 @@ def run(args, plains: PlainPool | None) -> int:
         "card": card,
     }]
 
+    print(f"phases 1-5: {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- phase 6: K2 and K3 against their plain versions, small frame
     for sampler in ("random", "ld"):
         for seed in (3, 11):
@@ -2981,6 +3480,7 @@ def run(args, plains: PlainPool | None) -> int:
                     f"{Q99_TOL}); {over} summed entries over {GVEC_TOL} of "
                     f"their scale")
 
+    print(f"phases 1-6: {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- phase 7: the fwd+bwd pair at the main-path size
     render = df.make_diff_renderer(scene, camera, cfg.width, cfg.height,
                                    cfg.spp, max_bounces=cfg.max_bounces,
@@ -3062,6 +3562,7 @@ def run(args, plains: PlainPool | None) -> int:
     print(f"phase 7 bounds: K2 {k2_bound:.3f} ms ({k2_by}), K3 "
           f"{k3_bound:.3f} ms ({k3_by})", flush=True)
 
+    print(f"phases 1-7: {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- phase 8: the trainer, fit_kernel on a 1024x1024 target
     tcfg = vpt_torch.RenderConfig(width=cfg.width, height=cfg.height, spp=64,
                                   max_bounces=16, seed=99)
@@ -3112,18 +3613,14 @@ def run(args, plains: PlainPool | None) -> int:
           f" -> {float(fitted['sigma_s']):.6g} (truth "
           f"{float(scene.medium.sigma_s):.6g}) on {card}", flush=True)
 
-    # ---- phase 9: K4 against its plain version, small frame
-    for K_kw, sampler, seed in (
-            (dict(), "random", 3), (dict(), "random", 11), (dict(), "ld", 3),
-            (dict(), "ld", 11), (dict(dir_grads=True), "random", 3),
-            (dict(primal_only=True), "random", 3)):
-        gp = gm.pack_geom(scene, camera, 64, 32, 8, sphere=8, max_bounces=8,
-                          sampler=sampler, **K_kw)
-        th = gm.flatten_theta(gm.pack_theta(scene, camera, 8)).to(dev)
-        s = torch.tensor([seed], dtype=torch.int32, device=dev)
+    print(f"phases 1-8: {time.perf_counter() - t_start:.1f} s", flush=True)
+    # ---- phase 9: K4 against its plain version (from the pool), small frame
+    for spec in GEOM9_CHECKS:
+        gp, th, s = geom_ext_inputs(*spec[1:], camera, dev)
         k = gm.geom_fwd(gp, th, s)
-        p = gm.geom_fwd_plain(gp, th, s)
+        p = plains.get(spec, dev)[0]
         torch.cuda.synchronize()
+        sampler, seed = spec[5][4:]
         q, err, shares = plane_check(k, p, gp.K)
         print(f"phase 9 K4 check 64x32x8 K={gp.K} {sampler} seed {seed}: "
               f"worst plane q99 {q:.3e}, max abs {err:.3e}; bit-equal share "
@@ -3132,6 +3629,7 @@ def run(args, plains: PlainPool | None) -> int:
             raise AssertionError(f"K4 (K={gp.K}) disagrees with its plain "
                                  f"version: worst plane q99 {q}")
 
+    print(f"phases 1-9: {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- phase 10: the geom main path (bench.py:191-193), K = 7
     G_CFG = dict(width=cfg.width, height=cfg.height, spp=cfg.spp,
                  max_bounces=cfg.max_bounces)
@@ -3202,6 +3700,7 @@ def run(args, plains: PlainPool | None) -> int:
     print(f"phase 10 bounds: K=7 {k4_bound:.3f} ms ({k4_by}), K=0 "
           f"{k0_bound:.3f} ms ({k0_by})", flush=True)
 
+    print(f"phases 1-10: {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- phase 11: the geometric trainers
     y_off = 8.0
     center = scene.center.clone()
@@ -3264,6 +3763,7 @@ def run(args, plains: PlainPool | None) -> int:
         raise AssertionError(f"fit_geom_fd: residual {resid} (limit 1.0), "
                              f"launches {launched_fd}")
 
+    print(f"phases 1-11: {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- phase 12: K1's variants
     # registers, spill stores and stack of each K1 instantiation (kernel
     # <nee, distance>)
@@ -3388,6 +3888,7 @@ def run(args, plains: PlainPool | None) -> int:
     if not (abs(r_ea) < 0.30 and abs(r_imp) < 0.20):
         raise AssertionError(f"estimator means disagree: {emeans}")
 
+    print(f"phases 1-12: {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- phase 13: scatter tiles, render_adaptive, render_to_noise
     scat_check = {}
     for (nee, dist), entry in wf.KERNEL_ENTRIES.items():
@@ -3562,6 +4063,11 @@ def run(args, plains: PlainPool | None) -> int:
     # ---- phase 17: the rest of the pair: equi-angular, the implicit and
     # physical estimators, shells, HG in a grid
     records += ext_phases(card, dev, camera, plains)
+    print(f"phases 1-17: {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- phase 18: the rest of the dual kernel K4: equi-angular, the
+    # implicit and physical estimators, a baked HG g, shells; recover_camera
+    records += geom_ext_phases(card, dev, camera, plains)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,8 @@ imports jax, which the port's machines need not have):
 
 Whether there is a card is decided inside the tests, never at import.
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -247,6 +249,31 @@ def test_geom_kernel_matches_plain_on_card(cuda, kw, sampler):
                 continue
             q = torch.quantile((k[j] - p[j]).abs().double(), 0.99)
             assert float(q) < 1e-4 * scale, j
+
+
+@pytest.mark.parametrize("name,g,kw", [
+    ("cornell_vpt", 0.5, dict(distance="equiangular")),
+    ("cornell_vpt", 0.0, dict(nee=False, physical=True)),
+    ("cornell_vpt", 0.0, dict(physical=True, primal_only=True)),
+    ("medium_shell", 0.5, dict(distance="equiangular", dir_grads=True))],
+    ids=["ea-g0.5", "implicit-physical", "physical-K0", "shell-ea-K10"])
+def test_geom_ext_kernel_matches_plain_on_card(cuda, name, g, kw):
+    """K4's extended instantiations (csrc/geom_ext_k<K>.cu) bit for bit
+    against the plain version, one launch of the extended entry each."""
+    sc = vpt_torch.SCENES[name]()
+    sc = dataclasses.replace(sc, medium=dataclasses.replace(
+        sc.medium, g=torch.tensor(g)))
+    cam = vpt_torch.default_camera()
+    gp = gm.pack_geom(sc, cam, 64, 32, 8, sphere=8, max_bounces=8, **kw)
+    assert gp.ext
+    theta = gm.flatten_theta(gm.pack_theta(sc, cam, 8)).to(cuda)
+    seed = torch.tensor([3], dtype=torch.int32, device=cuda)
+    gm.LAUNCHES_BY.clear()
+    k = gm.geom_fwd(gp, theta, seed)
+    assert gm.LAUNCHES_BY == {f"geom_ext_k{gp.K}": 1}
+    p = gm.geom_fwd_plain(gp, theta, seed)
+    torch.cuda.synchronize()
+    assert torch.isfinite(k).all() and torch.equal(k, p)
 
 
 def test_geom_renderer_goes_through_the_kernel(cuda):

@@ -165,8 +165,8 @@ def _grid_scene():
 # (tests/test_torch_grid_diff.py); their cases check what stays refused
 # with them: equi-angular, physical, material-3 shells, an HG phase in a
 # grid, the dual kernel in a grid, vpt's engine backend of the grid trainer
-# what stays refused: the shard variant (item 8), K4's branches (item 5),
-# the engine (item 9); vpt's own refusal of the non-physical implicit pair
+# what stays refused: the shard variant (item 8), K4's dual field forms
+# (item 5.3), the engine (item 9); vpt's own refusal of the non-physical implicit pair
 # names the engine too
 REFUSED = {
     "diff_g": lambda: df.make_diff_renderer(
@@ -179,23 +179,12 @@ REFUSED = {
     "diff_grid": lambda: df.make_diff_renderer(
         _grid_scene(), CAM, 8, 4, 1, diff_grid=True, distance="equiangular",
         device="cpu").make_shard(1),
-    "equiangular": lambda: vpt_torch.kernels.geom.make_geom_renderer(
-        SCENE, CAM, 8, 4, 1, sphere=8, distance="equiangular",
-        device="cpu"),
-    "physical": lambda: vpt_torch.kernels.geom.make_geom_renderer(
-        SCENE, CAM, 8, 4, 1, sphere=8, physical=True, device="cpu"),
-    "with_g": lambda: vpt_torch.kernels.geom.make_geom_renderer(
-        vpt_torch.make_scene(list(vpt_torch.scene.scene.CORNELL_VPT_SPHERES),
-                             g=0.3), CAM, 8, 4, 1, sphere=8, device="cpu"),
     "with_grid": lambda: vpt_torch.dist.fit_grid(
         _grid_scene(), [CAM], [torch.zeros(4, 8, 3)], steps=1,
         backend="engine", device="cpu"),
     "hg_scene": lambda: df.make_diff_renderer(
         vpt_torch.make_scene(list(vpt_torch.scene.scene.CORNELL_VPT_SPHERES),
                              g=0.3), CAM, 8, 4, 1, nee=False, physical=False,
-        device="cpu"),
-    "medium_shell": lambda: vpt_torch.kernels.geom.make_geom_renderer(
-        vpt_torch.scene.scene.medium_shell(), CAM, 8, 4, 1, sphere=6,
         device="cpu"),
     "make_shard": lambda: df.make_diff_renderer(
         SCENE, CAM, 8, 4, 1, device="cpu").make_shard(1),
@@ -209,6 +198,8 @@ REFUSED = {
     "diff_blobs_fog_scene": lambda: df.make_diff_renderer(
         vpt_torch.scene.scene.foggy_cornell(), CAM, 8, 4, 1,
         diff_blobs=True, device="cpu"),
+    # K4 runs every estimator, a baked g and shells
+    # (tests/test_torch_geom_ext.py); its dual field forms are item 5.3
     "grid_field": lambda: vpt_torch.kernels.geom.make_geom_renderer(
         _grid_scene(), CAM, 8, 4, 1, sphere=None, primal_only=True,
         device="cpu"),

@@ -62,10 +62,16 @@ MEDIUM_SIGMA = (0.002, 0.015)
 # vpt's geom kernel for a list of tasks. Each task renders (img, tang) at
 # one seed; optionally the grad_render VJP (gbar zeroed on the lanes where
 # the port's image, passed in, differs by more than flip_tol), one A/B dual
-# train step, or one CRN-FD step (train_fast.py:268-300 on run_vec, not
-# jitted, so the renderer compiles once).
+# train step, one CRN-FD step (train_fast.py:268-300 on run_vec, not
+# jitted, so the renderer compiles once), or one step of vpt's own
+# make_fd_geom_train_step with optax.multi_transform per block (its jitted
+# step called through __wrapped__; make_geom_renderer is memoized on its
+# arguments but the camera, which the kernel does not read, and, with
+# primal_only, cam_grads, which then seeds no tangent and changes neither
+# run_vec nor flatten (vpt/kernels/geom.py:165-167, 209-214): so every
+# block's primal_only renderer is the task's and compiles once).
 _JAX_REF = r"""
-import json, sys
+import inspect, json, sys
 import numpy as np
 import jax
 jax.config.update("jax_platforms", "cpu")
@@ -74,9 +80,26 @@ import jax.numpy as jnp
 import optax
 import vpt
 from vpt.dist.train_fast import _fd_dims, _phys_probe
-from vpt.kernels.geom import make_geom_renderer, pack_theta
+import vpt.dist.train_fast as vtf
+import vpt.kernels.geom as vgeom
+from vpt.kernels.geom import pack_theta
 with open(sys.argv[1]) as f:
     job = json.load(f)
+made, make = {}, vgeom.make_geom_renderer
+sig = inspect.signature(make)
+
+def make_geom_renderer(*args, **kw):
+    bound = sig.bind(*args, **kw)
+    bound.apply_defaults()
+    skip = ("camera", "cam_grads") if bound.arguments["primal_only"] \
+        else ("camera",)
+    key = tuple(id(v) if k == "scene" else v
+                for k, v in bound.arguments.items() if k not in skip)
+    if key not in made:
+        made[key] = make(*args, **kw)
+    return made[key]
+
+vtf.make_geom_renderer = make_geom_renderer
 inp = np.load(job["inputs"])
 out = {}
 KEYS = ("center", "cam_origin", "fov", "sigma_a", "sigma_s", "cam_dir")
@@ -85,9 +108,11 @@ flat = lambda d: np.concatenate([np.asarray(d[k], np.float32).reshape(-1)
 for task in job["tasks"]:
     n = task["name"]
     scene = vpt.make_scene([tuple(s) for s in task["spheres"]],
-                           sigma_a=task["sigma"][0], sigma_s=task["sigma"][1])
+                           sigma_a=task["sigma"][0], sigma_s=task["sigma"][1],
+                           g=task.get("g", 0.0))
     cam = vpt.default_camera()
     kw = task["kw"]
+    made.clear()
     render = make_geom_renderer(scene, cam, task["width"], task["height"],
                                 task["spp"], tile_rows=8, interpret=True, **kw)
     theta = pack_theta(scene, cam, kw.get("sphere"))
@@ -160,13 +185,50 @@ for task in job["tasks"]:
         out.update({n + ".fd_probes": np.asarray(probes, np.float32),
                     n + ".fd_loss": np.float32(loss),
                     n + ".fd_grad": np.asarray(g), n + ".fd_new": flat(new)})
+    for tag, fs in task.get("fd_steps", {}).items():
+        v0 = inp[n + ".fd_step_theta"]
+        th0, off = {}, 0
+        for k, size in zip(KEYS, (3, 3, 1, 1, 1, 3)):
+            th0[k] = jnp.asarray(v0[off:off + size].reshape(
+                theta[k].shape))
+            off += size
+        opt = optax.multi_transform(
+            {**{k: optax.adam(optax.exponential_decay(*r))
+                for k, r in fs["rates"].items()},
+             "frozen": optax.set_to_zero()},
+            {k: k if k in fs["rates"] else "frozen" for k in th0})
+        # the step's A/B renders, recorded as its loss_of makes them
+        imgs, run = [], render.run_vec
+        def recording(v, s):
+            img, tang = run(v, s)
+            imgs.append(np.asarray(img))
+            return img, tang
+        render.run_vec = recording
+        step = vtf.make_fd_geom_train_step(
+            scene, cam, task["width"], task["height"], 2 * task["spp"], opt,
+            distance=kw.get("distance", "free"),
+            max_bounces=kw["max_bounces"], sampler=kw["sampler"],
+            interpret=True, **fs["blocks"])
+        render.run_vec = run
+        tgt = jnp.asarray(inp[n + ".fd_step_target"])
+        th1, _, loss = step.__wrapped__(th0, opt.init(th0), tgt,
+                                        jnp.int32(fs["seed"]))
+        assert len(made) == 1, len(made)        # the task's renderer
+        imgs = np.stack(imgs).reshape(-1, 2, *imgs[0].shape)
+        probes = [jnp.mean((jnp.asarray(a) - tgt) * (jnp.asarray(b) - tgt))
+                  for a, b in imgs]
+        out.update({f"{n}.fd_step_{tag}_loss": np.float32(loss),
+                    f"{n}.fd_step_{tag}_new": flat(th1),
+                    f"{n}.fd_step_{tag}_probes": np.asarray(probes,
+                                                            np.float32),
+                    f"{n}.fd_step_{tag}_imgs": imgs})
 np.savez(job["out"], **out)
 """
 
 
-def make(spheres, sigma):
+def make(spheres, sigma, g=0.0):
     return vpt_torch.make_scene(list(spheres), sigma_a=sigma[0],
-                                sigma_s=sigma[1])
+                                sigma_s=sigma[1], g=g)
 
 
 def vpt_reference(tasks, inputs):
@@ -194,7 +256,7 @@ def vpt_reference(tasks, inputs):
 
 def port_render(task, device="cpu"):
     """The port's (img, tang) for a task, through make_geom_renderer."""
-    scene = make(task["spheres"], task["sigma"])
+    scene = make(task["spheres"], task["sigma"], task.get("g", 0.0))
     cam = vpt_torch.default_camera()
     render = gm.make_geom_renderer(scene, cam, task["width"], task["height"],
                                    task["spp"], device=device, **task["kw"])

@@ -45,7 +45,10 @@ torch.set_num_threads(1)  # one intra-op thread: see test_torch_wavefront.py
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "vpt_torch", "csrc")
-FLAGS = ["-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC"]
+# -O1: half -O2's compile time for the same IEEE results (no fast-math, no
+# FMA contraction); the frames here are small, so the code's speed does not
+# matter
+FLAGS = ["-O1", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC"]
 
 
 @pytest.fixture(scope="module")
@@ -102,7 +105,8 @@ def host_lib():
     so.vpt_geom_params_words.argtypes = []
     so.vpt_geom_params_words.restype = ctypes.c_int
     so.vpt_geom_fwd_host.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.c_int, ctypes.c_void_p]
+                                     ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p]
     so.vpt_geom_fwd_host.restype = ctypes.c_int
     return so
 
@@ -503,6 +507,21 @@ def test_host_build_of_ext_pair_matches_plain(host_lib, case):
         assert np.quantile(rel, 0.99) < 1e-4, np.quantile(rel, 0.99)
 
 
+def _geom_planes_match(gp, out, ref):
+    """geom_fwd_plain's criterion per plane (see the module docstring)."""
+    assert np.isfinite(out).all()
+    for j in range(gp.planes):
+        if j % (1 + gp.K) == 0:        # an image plane
+            scale = max(1.0, float(np.abs(ref[j]).max()))
+        else:       # a tangent plane; some are exactly 0 (a red light)
+            scale = float(np.abs(ref[j]).max())
+            if scale == 0.0:
+                assert np.all(out[j] == 0.0), j
+                continue
+        q = float(np.quantile(np.abs(out[j] - ref[j]), 0.99)) / scale
+        assert q < 1e-4, (j, q)
+
+
 # K4 at every tangent count the host build is tested for, both samplers:
 # (K, sphere, cam_grads, dir_grads, primal_only)
 GEOM_CASES = [(0, 8, False, False, True), (3, 8, False, False, False),
@@ -527,17 +546,52 @@ def test_host_build_of_geom_matches_plain(host_lib, case, sampler):
         sphere)).contiguous()
     out = np.full((gp.planes, gp.npix), np.nan, np.float32)
     assert host_lib.vpt_geom_fwd_host(words.ctypes.data, theta.data_ptr(),
-                                      SEED, out.ctypes.data) == 0
+                                      SEED, 0, out.ctypes.data) == 0
     ref = gm.geom_fwd_plain(gp, theta,
                             torch.tensor([SEED], dtype=torch.int32)).numpy()
-    assert np.isfinite(out).all()
-    for j in range(gp.planes):
-        if j % (1 + K) == 0:        # an image plane
-            scale = max(1.0, float(np.abs(ref[j]).max()))
-        else:       # a tangent plane; some are exactly 0 (a red light)
-            scale = float(np.abs(ref[j]).max())
-            if scale == 0.0:
-                assert np.all(out[j] == 0.0), j
-                continue
-        q = float(np.quantile(np.abs(out[j] - ref[j]), 0.99)) / scale
-        assert q < 1e-4, (j, q)
+    _geom_planes_match(gp, out, ref)
+
+
+# K4's extended estimators (geom_pixel<K, true>): (K, sphere, cam_grads,
+# dir_grads, primal_only, scene, HG g, estimator, sampler). A scene with a
+# material-3 shell runs the default estimator in geom_pixel<K> (vpt's K4
+# has no shell cascade) and any other in the extended one.
+EA = dict(distance="equiangular")
+GEOM_EXT_CASES = [
+    (7, 8, True, False, False, "cornell_vpt", 0.0, EA, "random"),
+    (7, 8, True, False, False, "cornell_vpt", 0.0,
+     dict(nee=False, physical=True), "ld"),
+    (0, 8, False, False, True, "cornell_vpt", 0.0, dict(physical=True),
+     "random"),
+    (0, 8, False, False, True, "cornell_vpt", 0.0,
+     dict(nee=False, distance="equiangular"), "ld"),
+    (3, 8, False, False, False, "cornell_vpt", 0.5, {}, "random"),
+    (10, 9, True, True, False, "cornell_vpt", 0.5, EA, "ld"),
+    (4, None, True, False, False, "medium_shell", 0.0, {}, "random"),
+    (6, 8, False, True, False, "medium_shell", 0.5,
+     dict(distance="equiangular", physical=True), "ld"),
+]
+
+
+@pytest.mark.parametrize("case", GEOM_EXT_CASES, ids=[
+    f"K{c[0]}-{c[5]}-g{c[6]}-{'-'.join(f'{k}={v}' for k, v in c[7].items())}"
+    f"-{c[8]}" for c in GEOM_EXT_CASES])
+def test_host_build_of_geom_ext_matches_plain(host_lib, case):
+    K, sphere, cam, dirg, primal, name, g, est, sampler = case
+    scene = _scene(name)
+    scene = dataclasses.replace(scene, medium=dataclasses.replace(
+        scene.medium, g=torch.tensor(g)))
+    cam_ = vpt_torch.default_camera()
+    gp = gm.pack_geom(scene, cam_, 12, 8, 2, sphere=sphere, cam_grads=cam,
+                      dir_grads=dirg, primal_only=primal, max_bounces=5,
+                      sampler=sampler, **est)
+    assert gp.K == K and gp.ext == bool(est or g)
+    words = np.ascontiguousarray(gp.words())
+    assert words.size == host_lib.vpt_geom_params_words()   # struct layout
+    theta = gm.flatten_theta(gm.pack_theta(scene, cam_, sphere)).contiguous()
+    out = np.full((gp.planes, gp.npix), np.nan, np.float32)
+    assert host_lib.vpt_geom_fwd_host(words.ctypes.data, theta.data_ptr(),
+                                      SEED, int(gp.ext), out.ctypes.data) == 0
+    ref = gm.geom_fwd_plain(gp, theta,
+                            torch.tensor([SEED], dtype=torch.int32)).numpy()
+    _geom_planes_match(gp, out, ref)

@@ -209,7 +209,7 @@ UNSUPPORTED = {
     "renderer_persistent": lambda: vpt_torch.RenderConfig(renderer="persistent"),
     "renderer_scan": lambda: vpt_torch.RenderConfig(renderer="scan"),
     # the density fields render in K1 (tests/test_torch_hetero.py,
-    # test_torch_grid.py), the dual kernel's field forms do not (item 5),
+    # test_torch_grid.py), the dual kernel's field forms do not (item 5.3),
     # not even for a grid loaded from vpt's scene file in primal mode
     "foggy_cornell": lambda: gm.pack_geom(
         tscene.foggy_cornell(), vpt_torch.default_camera(), 8, 4, 1,

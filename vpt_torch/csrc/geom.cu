@@ -20,7 +20,10 @@
 // 4, 6, 7 and 10, one per source csrc/geom_k<K>.cu so that they compile in
 // parallel: every mix of the centre (3), camera origin + fov (4) and
 // look-direction (3) blocks. The block offsets and the sphere index are
-// runtime values; this file dispatches on K.
+// runtime values; this file dispatches on K. vpt_geom_fwd runs the default
+// estimator (free flight, NEE, not physical, isotropic; material-3 shells
+// too: vpt's K4 treats them as Lambertian spheres), vpt_geom_fwd_ext every
+// other one (csrc/geom_ext_k<K>.cu, the estimator read from GeomParams).
 //
 // What bounds it on this card: arithmetic, divergence and, from K = 7, the
 // path state (o, d, tp and L are 12 duals of 1 + K floats per thread) and
@@ -55,6 +58,28 @@ extern "C" int vpt_geom_fwd(const void* params, const void* theta, const void* s
     case 6: return launch_k6(G, th, sd, base, n_out, o, st);
     case 7: return launch_k7(G, th, sd, base, n_out, o, st);
     case 10: return launch_k10(G, th, sd, base, n_out, o, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// the extended estimators, with vpt_geom_fwd's arguments
+extern "C" int vpt_geom_fwd_ext(const void* params, const void* theta, const void* seed, int base,
+                                int n_out, void* out, void* stream) {
+  using namespace vpt::geom;
+  GeomParams G;
+  memcpy(&G, params, sizeof G);
+  if (n_out <= 0) return 0;
+  const float* th = (const float*)theta;
+  const int* sd = (const int*)seed;
+  float* o = (float*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (G.n_tan) {
+    case 0: return launch_ext_k0(G, th, sd, base, n_out, o, st);
+    case 3: return launch_ext_k3(G, th, sd, base, n_out, o, st);
+    case 4: return launch_ext_k4(G, th, sd, base, n_out, o, st);
+    case 6: return launch_ext_k6(G, th, sd, base, n_out, o, st);
+    case 7: return launch_ext_k7(G, th, sd, base, n_out, o, st);
+    case 10: return launch_ext_k10(G, th, sd, base, n_out, o, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -3,9 +3,15 @@
 //
 // Thread-scalar transcription of vpt's geom kernel body
 // (vpt/kernels/geom.py:182-599) and of the dual primitives it inlines
-// (vpt/kernels/dual.py), for the homogeneous free-flight NEE estimator
-// (nee, distance "free", not physical), isotropic phase, no material-3
-// shells, samplers "random" and "ld". It reuses csrc/path.cuh's float
+// (vpt/kernels/dual.py) in a homogeneous medium, samplers "random" and
+// "ld". geom_pixel<K> (csrc/geom_k<K>.cu) is the free-flight NEE estimator,
+// not physical, isotropic; geom_pixel<K, kExt = true> (csrc/geom_ext_k<K>.cu)
+// reads the estimator from GeomParams at run time: vpt's equi-angular
+// branch, nee on or off, the physical credit, a baked HG g. vpt's K4 has no
+// material-3 shell cascade (its pLight visibility is the plain
+// nearest_id_t), so a shell is a Lambertian sphere to every trace in both:
+// the default estimator on a shell scene runs in geom_pixel<K>. It reuses
+// csrc/path.cuh's float
 // helpers (Pcg, ld_strat, VptParams with the per-sphere eps and r*r folded
 // in double, the plain samplers) and its parity rules: uint32 PCG, every
 // draw in vpt's order (K2's), no FMA contraction, only the selected branch
@@ -49,6 +55,11 @@ struct GeomParams {
   int k_dir;       // first look-direction tangent
   float aspect;    // f32(width / height)
   float cp;        // continue_prob as f32
+  // the estimator, read by the extended instantiations only
+  int ea;          // 1: vpt's equi-angular branch (any distance but "free")
+  int nee;         // 1: pLight + MISv2 and medium NEE; 0: implicit
+  int physical;    // 1: credited emission times 1/cp
+  int hg;          // 1: the baked HG g (VptParams.hg_*)
 };
 
 namespace vpt {
@@ -192,6 +203,22 @@ VPT_HD Dual<K> dabs(const Dual<K>& a) {
   return r;
 }
 // the tangent of the winner; a tie goes to the first argument
+template <int K>
+VPT_HD Dual<K> dsin(const Dual<K>& a) {
+  Dual<K> r;
+  r.v = sinf(a.v);
+  const float c = cosf(a.v);
+  VPT_FOR_K r.t[k] = a.t[k] * c;
+  return r;
+}
+template <int K>
+VPT_HD Dual<K> dcos(const Dual<K>& a) {
+  Dual<K> r;
+  r.v = cosf(a.v);
+  const float s = -sinf(a.v);
+  VPT_FOR_K r.t[k] = a.t[k] * s;
+  return r;
+}
 template <int K>
 VPT_HD Dual<K> dmax(const Dual<K>& a, float b) {
   if (a.v >= b) return a;
@@ -530,6 +557,55 @@ VPT_HD Dual<K> power_h_invg(const Dual<K>& f, const Dual<K>& g_inv) {
   return f.v > 0.0f ? ddiv(r2, r2 + 1.0f) : cst<K>(0.0f);
 }
 
+// ---- equi-angular trig (dual.py atan_poly, atan2_posx, tan_sc) ---------
+
+template <int K>
+VPT_HD Dual<K> datan_poly(const Dual<K>& z) {
+  Dual<K> z2 = z * z;
+  return z * (0.99997726f +
+              z2 * (-0.33262347f +
+                    z2 * (0.19354346f +
+                          z2 * (-0.11643287f + z2 * (0.05265332f + z2 * -0.01172120f)))));
+}
+
+template <int K>
+VPT_HD Dual<K> datan2_posx(const Dual<K>& y, const Dual<K>& x) {  // x > 0
+  Dual<K> zq = ddiv(y, x);
+  const bool inv = fabsf(zq.v) > 1.0f;
+  Dual<K> zz = inv ? ddiv(1.0f, zq.v != 0.0f ? zq : cst<K>(1.0f)) : zq;
+  Dual<K> p = datan_poly(zz);
+  const float sgn = zq.v >= 0.0f ? 1.0f : -1.0f;
+  return inv ? sgn * (float)(kPi / 2.0) - p : p;
+}
+
+template <int K>
+VPT_HD Dual<K> dtan_sc(const Dual<K>& t) {
+  return ddiv(dsin(t), dcos(t));
+}
+
+// ---- Henyey-Greenstein at the baked g (dual.py hg_phase, hg_dir) --------
+//
+// vpt's g is a python float: 1 + g^2, 2g, (1/4pi)(1 - g^2), 1 - g^2, 1 - g
+// and 1/(2g) fold in float64 and meet the lanes rounded to f32, which are
+// the packed VptParams.hg_*. Out of line: no main-path launch takes them.
+
+template <int K>
+VPT_COLD Dual<K> dhg_phase(const VptParams& P, const Dual<K>& cos_t) {
+  Dual<K> den = dmax(P.hg_1pg2 - P.hg_2g * cos_t, 1e-12f);
+  Dual<K> rs = drsqrt(den);
+  return P.hg_phase * rs * rs * rs;
+}
+
+// the local angles are plain (detached uniforms), the frame rotates with d
+template <int K>
+VPT_COLD DV3<K> dhg_dir(const VptParams& P, const DV3<K>& d, float u1, float u2) {
+  const float s = P.hg_1mg2 / (P.hg_1mg + P.hg_2g * u1);
+  const float cos_t = vclip((P.hg_1pg2 - s * s) * P.hg_inv2g, -1.0f, 1.0f);
+  const float sin_t = sqrtf(vmax(1.0f - cos_t * cos_t, 0.0f));
+  const float phi = TWO_PI * u2;
+  return normalize3(from_local(d, mk(sin_t * cosf(phi), sin_t * sinf(phi), cos_t)));
+}
+
 // ---- the scene, with the theta sphere's dual centre ---------------------
 
 template <int K>
@@ -709,11 +785,12 @@ VPT_HD void mis_v2(const Scene<K>& sc, float sigma_t, Pcg& rng, const Attr& at, 
 }
 
 // freeSingleScattering with the point-source kill: point sources
-// (lr == 0) contribute 0
+// (lr == 0) contribute 0. hg: the phase toward the cone sample at the baked
+// g, dual through d and wl (else the folded isotropic constant)
 template <int K>
-VPT_HD void medium_nee(const Scene<K>& sc, float sigma_t, const DV3<K>& xt, const DV3<K>& lc,
-                       const float lrad[3], float lr, int lid, float u1, float u2,
-                       Dual<K> out[3]) {
+VPT_HD void medium_nee(const Scene<K>& sc, float sigma_t, const DV3<K>& d, bool hg,
+                       const DV3<K>& xt, const DV3<K>& lc, const float lrad[3], float lr, int lid,
+                       float u1, float u2, Dual<K> out[3]) {
   DV3<K> wc = sub3(lc, xt);
   Dual<K> inv_mag = drsqrt(dmax(dot3(wc, wc), 1e-20f));
   DV3<K> wc_n = scale3(wc, inv_mag);
@@ -725,7 +802,12 @@ VPT_HD void medium_nee(const Scene<K>& sc, float sigma_t, const DV3<K>& xt, cons
   const bool visible = sid >= 0 && sid == lid && lr > 0.0f;
   Dual<K> tr_l = dexp(t * (-sigma_t));
   // phase / cone_pdf = phase * 2pi * (1 - cos_max): no dual division
-  Dual<K> w = visible ? tr_l * sc.P.nee_phase * dmax(1.0f - cos_max, 1e-12f) : cst<K>(0.0f);
+  Dual<K> w;
+  if (hg)
+    w = visible ? tr_l * (dhg_phase(sc.P, dot3(d, wl)) * TWO_PI) * dmax(1.0f - cos_max, 1e-12f)
+                : cst<K>(0.0f);
+  else
+    w = visible ? tr_l * sc.P.nee_phase * dmax(1.0f - cos_max, 1e-12f) : cst<K>(0.0f);
   for (int i = 0; i < 3; ++i) out[i] = lrad[i] * w;
 }
 
@@ -754,11 +836,20 @@ VPT_HD DV3<K> carry3(const DV3<K>& a) {
 // PCG streams, pixel the camera ray (they differ only past the frame's
 // last pixel, as in vpt's tiles). A lane leaves its loop at samples == spp:
 // in vpt's tile a finished lane is frozen.
-template <int K>
+//
+// kExt: the estimator comes from G (ea, nee, physical, hg); the draws are
+// camera u, v (random with jitter), u_rr, u_pick, u_dist, u_ev (equi-angular
+// only), MISv2 (with NEE only), BSDF 3, phase 2, medium NEE 2 (with NEE
+// only). Without kExt it is free-flight NEE, not physical, isotropic.
+template <int K, bool kExt = false>
 VPT_HD void geom_pixel(const GeomParams& G, const float* th, uint32_t lane, int pixel, int seed,
                        float* out) {
   const VptParams& P = G.base;
   const bool cam = G.n_cam > 0, dir = G.n_dir > 0;
+  const bool ea = kExt && G.ea != 0;
+  const bool nee = !kExt || G.nee != 0;
+  const bool physical = kExt && G.physical != 0;
+  const bool hg = kExt && G.hg != 0;
   // ---- parameters from theta
   Scene<K> sc{P, G.sphere, mkd(seeded<K>(th[0], G.n_center ? 0 : -1),
                                seeded<K>(th[1], G.n_center ? 1 : -1),
@@ -770,6 +861,7 @@ VPT_HD void geom_pixel(const GeomParams& G, const float* th, uint32_t lane, int 
   const float sigma_t = th[7] + th[8];
   const float inv_st = 1.0f / sigma_t;
   const float ar_cp = th[8] * inv_st * P.inv_cp;
+  const float ss_cp = th[8] / G.cp;  // equi-angular: sigma_s / cp
   const DV3<K> cam_d = mkd(seeded<K>(th[9], dir ? G.k_dir : -1),
                            seeded<K>(th[10], dir ? G.k_dir + 1 : -1),
                            seeded<K>(th[11], dir ? G.k_dir + 2 : -1));
@@ -849,28 +941,68 @@ VPT_HD void geom_pixel(const GeomParams& G, const float* th, uint32_t lane, int 
     }
     const DV3<K> lc = centre(sc, lid);
 
-    const float d_s = -log1pf(-u_dist) * inv_st;
-    const bool surface = t_eff.v < d_s && hit;
-    const DV3<K> xt = ray_at(o, d, d_s);
+    bool surface;
+    DV3<K> xt;
+    Dual<K> t_xt, pdf_success;  // equi-angular only
+    if (ea) {
+      // equiAngularParams2 + Bernoulli(TrActual) (geom.py:478-511): the
+      // distance transform is pure geometry, so xt moves with the light and
+      // the camera (it reparameterizes)
+      const DV3<K> lo_v = sub3(lc, o);
+      const Dual<K> delta = dot3(lo_v, d);
+      const Dual<K> Dq = dsqrt(dmax(dot3(lo_v, lo_v) - delta * delta, 1e-12f));
+      const Dual<K> th_a = datan2_posx(-delta, Dq);
+      const Dual<K> th_b = datan2_posx(t_eff - delta, Dq);
+      const Dual<K> sample_t =
+          dclip(Dq * dtan_sc(th_a * (1.0f - u_dist) + th_b * u_dist), -BIG, BIG);
+      const Dual<K> d_along = sample_t + delta;
+      xt = ray_at(o, d_along, d);
+      const Dual<K> dist_pdf =
+          ddiv(Dq, dmax(dabs(th_b - th_a), 1e-12f) * (sample_t * sample_t + Dq * Dq));
+      const Dual<K> tr_act = hit ? dexp(t * (-sigma_t)) : cst<K>(0.0f);
+      t_xt = dexp(dabs(d_along) * (-sigma_t));
+      const float u_ev = rng.next();
+      surface = tr_act.v >= u_ev && hit;
+      const Dual<K> one_m_tr = dmax(1.0f - tr_act, 1e-20f);
+      // floored like the forward kernel (f32 underflow -> 0 * inf)
+      pdf_success = dmax(dist_pdf * one_m_tr, 1e-30f);
+    } else {
+      const float d_s = -log1pf(-u_dist) * inv_st;
+      surface = t_eff.v < d_s && hit;
+      xt = ray_at(o, d, d_s);
+    }
     const bool medium = live && !surface;
     const bool em_hit = surface && at.is_em;
-    if (live && em_hit && depth == 0)
-      for (int i = 0; i < 3; ++i) L[i] = L[i] + at.rad[i] * tp[i];
+    // with NEE only the camera ray's emitter hit is credited; without, every
+    // hit (the implicit estimator)
+    if (live && em_hit && (!nee || depth == 0))
+      for (int i = 0; i < 3; ++i) {
+        Dual<K> add = at.rad[i] * tp[i];
+        if (physical) add = add * P.inv_cp;  // this iteration's RR survival
+        L[i] = L[i] + add;
+      }
     const bool shade = live && surface && !em_hit;
 
-    if (shade) {  // surface NEE: pLight + MISv2
-      Dual<K> ldp[3], dist_ls;
-      plight_term(sc, at, xs, nrm, d, lc, lrad, ldp, dist_ls);
-      Dual<K> trs = dexp(dist_ls * (-sigma_t));
-      Dual<K> ldm[3];
-      mis_v2(sc, sigma_t, rng, at, xs, nrm, d, ldm);
-      for (int i = 0; i < 3; ++i) L[i] = L[i] + (ldp[i] * trs * inv_ps + ldm[i]) * tp[i] * P.inv_cp;
-    } else {
-      rng.skip(mis_draws);
+    if (nee) {
+      if (shade) {  // surface NEE: pLight + MISv2
+        Dual<K> ldp[3], dist_ls;
+        plight_term(sc, at, xs, nrm, d, lc, lrad, ldp, dist_ls);
+        Dual<K> trs = dexp(dist_ls * (-sigma_t));
+        Dual<K> ldm[3];
+        mis_v2(sc, sigma_t, rng, at, xs, nrm, d, ldm);
+        for (int i = 0; i < 3; ++i)
+          L[i] = L[i] + (ldp[i] * trs * inv_ps + ldm[i]) * tp[i] * P.inv_cp;
+      } else {
+        rng.skip(mis_draws);
+      }
     }
     const float b1 = rng.next(), b2 = rng.next(), b3 = rng.next();  // sample_bsdf
     const float u_p1 = rng.next(), u_p2 = rng.next();               // phase
-    const float m1 = rng.next(), m2 = rng.next();                   // medium NEE cone
+    float m1 = 0.0f, m2 = 0.0f;                                     // medium NEE cone
+    if (nee) {
+      m1 = rng.next();
+      m2 = rng.next();
+    }
 
     if (shade) {
       Dual<K> fs[3], pdf_b;
@@ -882,13 +1014,21 @@ VPT_HD void geom_pixel(const GeomParams& G, const float* th, uint32_t lane, int 
       d = wi_s;
     } else if (medium) {
       Dual<K> ld_med[3];
-      medium_nee(sc, sigma_t, xt, lc, lrad, lr, lid, m1, m2, ld_med);
-      for (int i = 0; i < 3; ++i) {
-        L[i] = L[i] + ld_med[i] * inv_ps * tp[i] * ar_cp;
-        tp[i] = tp[i] * ar_cp;
+      if (nee) medium_nee(sc, sigma_t, d, hg, xt, lc, lrad, lr, lid, m1, m2, ld_med);
+      if (ea) {  // (t_xt / pdf_success) * (sigma_s / cp)
+        const Dual<K> med_scale = ddiv(t_xt, pdf_success) * ss_cp;
+        for (int i = 0; i < 3; ++i) {
+          if (nee) L[i] = L[i] + ld_med[i] * inv_ps * tp[i] * med_scale;
+          tp[i] = tp[i] * med_scale;
+        }
+      } else {
+        for (int i = 0; i < 3; ++i) {
+          if (nee) L[i] = L[i] + ld_med[i] * inv_ps * tp[i] * ar_cp;
+          tp[i] = tp[i] * ar_cp;
+        }
       }
       o = xt;
-      d = cst3<K>(uniform_sphere(u_p1, u_p2));
+      d = hg ? dhg_dir(P, d, u_p1, u_p2) : cst3<K>(uniform_sphere(u_p1, u_p2));
     }
     alive = (shade || medium) && depth + 1 < P.max_bounces;
     if (alive)

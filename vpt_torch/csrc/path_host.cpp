@@ -7,7 +7,7 @@
 // there is no card
 // (tests/test_torch_path_host.py). The renderer never uses it.
 //
-//   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC path_host.cpp
+//   g++ -O1 -std=c++17 -ffp-contract=off -shared -fPIC path_host.cpp
 #include "diff_path.cuh"
 #include "geom_path.cuh"
 
@@ -164,29 +164,36 @@ extern "C" void vpt_diff_ext_host(const void* params, const float* pvec, int see
 
 extern "C" int vpt_geom_params_words(void) { return (int)(sizeof(GeomParams) / 4); }
 
-template <int K>
+template <int K, bool kExt>
 static void geom_host(const GeomParams& G, const float* theta, int seed, float* out) {
   const int npix = G.base.width * G.base.height;
   float L[3 * (1 + K)];
   for (int p = 0; p < npix; ++p) {
-    vpt::geom::geom_pixel<K>(G, theta, (uint32_t)p, p, seed, L);
+    vpt::geom::geom_pixel<K, kExt>(G, theta, (uint32_t)p, p, seed, L);
     for (int j = 0; j < 3 * (1 + K); ++j) out[(size_t)j * npix + p] = L[j];
   }
 }
 
-// K4's path code. params: a GeomParams; theta: float32[12];
-// out: float32[3 (1 + K) * npix], K4's planes. Returns -1 for a K the
-// kernel is not built for.
-extern "C" int vpt_geom_fwd_host(const void* params, const float* theta, int seed, float* out) {
-  GeomParams G;
-  memcpy(&G, params, sizeof G);
+template <bool kExt>
+static int geom_host_k(const GeomParams& G, const float* theta, int seed, float* out) {
   switch (G.n_tan) {
-    case 0: geom_host<0>(G, theta, seed, out); return 0;
-    case 3: geom_host<3>(G, theta, seed, out); return 0;
-    case 4: geom_host<4>(G, theta, seed, out); return 0;
-    case 6: geom_host<6>(G, theta, seed, out); return 0;
-    case 7: geom_host<7>(G, theta, seed, out); return 0;
-    case 10: geom_host<10>(G, theta, seed, out); return 0;
+    case 0: geom_host<0, kExt>(G, theta, seed, out); return 0;
+    case 3: geom_host<3, kExt>(G, theta, seed, out); return 0;
+    case 4: geom_host<4, kExt>(G, theta, seed, out); return 0;
+    case 6: geom_host<6, kExt>(G, theta, seed, out); return 0;
+    case 7: geom_host<7, kExt>(G, theta, seed, out); return 0;
+    case 10: geom_host<10, kExt>(G, theta, seed, out); return 0;
     default: return -1;
   }
+}
+
+// K4's path code. params: a GeomParams; theta: float32[12];
+// out: float32[3 (1 + K) * npix], K4's planes; ext: the extended
+// estimators (geom_pixel<K, true>). Returns -1 for a K the kernel is not
+// built for.
+extern "C" int vpt_geom_fwd_host(const void* params, const float* theta, int seed, int ext,
+                                 float* out) {
+  GeomParams G;
+  memcpy(&G, params, sizeof G);
+  return ext ? geom_host_k<true>(G, theta, seed, out) : geom_host_k<false>(G, theta, seed, out);
 }

@@ -150,9 +150,12 @@ def load() -> ctypes.CDLL:
     lib.vpt_diff_params_words.restype = ctypes.c_int
     lib.vpt_diff_block_threads.argtypes = []
     lib.vpt_diff_block_threads.restype = ctypes.c_int
-    # the dual kernel (csrc/geom.cu)
-    lib.vpt_geom_fwd.argtypes = [vp, vp, vp, ci, ci, vp, vp]
-    lib.vpt_geom_fwd.restype = ctypes.c_int
+    # the dual kernel (csrc/geom.cu): the default estimator and the
+    # extended ones (csrc/geom_k<K>.cu, geom_ext_k<K>.cu)
+    for entry in ("vpt_geom_fwd", "vpt_geom_fwd_ext"):
+        fn = getattr(lib, entry)
+        fn.argtypes = [vp, vp, vp, ci, ci, vp, vp]
+        fn.restype = ci
     lib.vpt_geom_params_words.argtypes = []
     lib.vpt_geom_params_words.restype = ctypes.c_int
     lib.vpt_error_string.argtypes = [ctypes.c_int]

@@ -1,7 +1,8 @@
 """Forward-mode dual numbers for the geometric-gradient kernel's plain version.
 
-Counterpart of ``vpt/kernels/dual.py``, restricted to what the homogeneous,
-free-flight, g = 0 path of kernels/geom.py uses. `D` carries a primal value
+Counterpart of ``vpt/kernels/dual.py``, restricted to what kernels/geom.py
+uses in a homogeneous medium (every estimator, a baked HG g, material-3
+shells). `D` carries a primal value
 (a lane tensor or a 0-dim tensor) and a tuple of K tangent components, one
 per simultaneous directional derivative.
 
@@ -25,9 +26,8 @@ per-sphere epsilon folded in float64, as vpt folds them) and `ctr_tab`, the
 per-sphere centres: python floats for baked spheres, 0-dim tensors or D
 for the sphere whose centre comes from theta.
 
-Not here yet (ROADMAP Queue 1 items 5 and 6): the dual hg_phase / hg_dir,
-the dual equi-angular trig (atan_poly, atan2_posx, tan_sc; their plain forms
-are in prims.py and csrc/path.cuh) and the field_* forms.
+Not here yet (ROADMAP Queue 1 item 5.3): the dual field_* forms of a
+density field.
 """
 from __future__ import annotations
 
@@ -39,7 +39,8 @@ from . import prims as pr
 from .prims import F32EPS, GLASS_ETA_I, GLASS_ETA_T, TWO_PI
 
 __all__ = ["D", "val", "tan", "where", "sqrt", "rsqrt", "exp", "absd",
-           "sin", "cos", "maximum", "minimum", "clip", "log1p"]
+           "sin", "cos", "maximum", "minimum", "clip", "log1p", "atan_poly",
+           "atan2_posx", "tan_sc", "hg_phase", "hg_dir"]
 
 
 def val(x):
@@ -350,6 +351,31 @@ def uniform_sphere(u1, u2):
     return pr.uniform_sphere(u1, u2)
 
 
+def hg_phase(ps, cos_t):
+    """Henyey-Greenstein phase value at the scene's baked g != 0 for a dual
+    cos_t (vpt dual.py:327-334). vpt's g is a python float: 1 + g^2, 2g and
+    (1/4pi)(1 - g^2) fold in float64 and meet the lanes rounded to f32,
+    which are the packed ps.hg_1pg2, ps.hg_2g and ps.hg_phase."""
+    den = maximum(ps.hg_1pg2 - ps.hg_2g * cos_t, 1e-12)
+    rs = rsqrt(den)
+    return ps.hg_phase * rs * rs * rs
+
+
+def hg_dir(ps, d, u1, u2):
+    """A Henyey-Greenstein direction around the dual propagation direction
+    d at the baked g != 0 (vpt dual.py:337-347): the local angles are
+    plain (detached uniforms; prims.hg_dir's f32 arithmetic on the float64
+    folds 1 - g^2, 1 - g, 2g, 1 + g^2 and 1/(2g)), the frame rotates with
+    d."""
+    den = ps.hg_1mg + ps.hg_2g * u1
+    s = torch.full_like(den, ps.hg_1mg2) / den     # true division, as vpt
+    cos_t = torch.clamp((ps.hg_1pg2 - s * s) * ps.hg_inv2g, -1.0, 1.0)
+    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    phi = TWO_PI * u2
+    local = [sin_t * torch.cos(phi), sin_t * torch.sin(phi), cos_t]
+    return normalize3(from_local(d, local))
+
+
 def beckmann_wh(alpha, u1, u2):
     """Local-frame Beckmann wh: alpha plain, uniforms detached -> plain."""
     return pr.beckmann_wh(alpha, u1, u2)
@@ -532,6 +558,33 @@ def power_h_invg(f, g_inv):
     r2 = r * r
     z = _zeros(r)
     return where(val(f) > 0.0, r2 / (r2 + 1.0), z)
+
+
+# ---------------------------------------------------------------------------
+# equi-angular trig (vpt dual.py:546-565; the plain forms are prims.py's)
+# ---------------------------------------------------------------------------
+
+def atan_poly(zz):
+    z2 = zz * zz
+    return zz * (0.99997726 + z2 * (-0.33262347 + z2 * (
+        0.19354346 + z2 * (-0.11643287 + z2 * (
+            0.05265332 + z2 * -0.01172120)))))
+
+
+def atan2_posx(y, x):
+    """atan2(y, x) for x > 0, dual through the polynomial and the
+    reciprocal: y / x and 1 / zq take one reciprocal each (D division)."""
+    zq = y / x
+    inv = absd(zq) > 1.0
+    one = torch.ones_like(val(zq))
+    zz = where(inv, 1.0 / where(zq != 0.0, zq, one), zq)
+    p = atan_poly(zz)
+    sgn = torch.where(val(zq) >= 0.0, 1.0, -1.0)
+    return where(inv, sgn * (math.pi / 2.0) - p, p)
+
+
+def tan_sc(t):
+    return sin(t) / cos(t)
 
 
 # ---------------------------------------------------------------------------

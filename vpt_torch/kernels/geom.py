@@ -25,15 +25,24 @@ shadow edges, an emitter's own disk) are dropped by design (vpt's module
 docstring); CRN finite differences on the primal_only mode recover them.
 
 Draw order: K2's (kernels/diff.py), which vpt's geom body mirrors: camera
-u, v (random sampler with jitter), u_rr, u_pick, u_dist, MISv2, BSDF,
-phase, medium NEE. Arithmetic: vpt's dual.py conventions (kernels/dual.py),
-so the primal plane is not bit-equal to K1's image (q99 < 1e-4, vpt's own
-contract); the camera basis, sigma_t, 1/sigma_t and (sigma_s/sigma_t)/cp
-are f32 operations on theta.
+u, v (random sampler with jitter), u_rr, u_pick, u_dist, u_ev (equi-angular
+only), MISv2 (with NEE only), BSDF, phase, medium NEE (with NEE only).
+Arithmetic: vpt's dual.py conventions (kernels/dual.py), so the primal
+plane is not bit-equal to K1's image (q99 < 1e-4, vpt's own contract); the
+camera basis, sigma_t, 1/sigma_t and (sigma_s/sigma_t)/cp are f32
+operations on theta.
 
-Scope: nee=True, distance="free", physical=False, a homogeneous medium
-with g == 0, no material-3 shell, samplers "random" and "ld". Everything
-else raises NotImplementedError naming its ROADMAP item.
+Scope: every estimator of vpt's body in a homogeneous medium: free flight
+or equi-angular distances (any `distance` other than "free" is vpt's
+equi-angular branch), with or without NEE, physical or not, isotropic or a
+baked HG g, material-3 shells (vpt's K4 has no shell cascade: a shell is a
+Lambertian sphere to every trace), samplers "random" and "ld". A density
+field raises NotImplementedError naming its ROADMAP item.
+
+Routes on the card: the default estimator (free flight, NEE, not physical,
+g == 0), shells included, runs in csrc/geom_k<K>.cu; every other estimator
+in the extended instantiations csrc/geom_ext_k<K>.cu, which read it from
+GeomParams at run time.
 """
 from __future__ import annotations
 
@@ -49,14 +58,17 @@ from ..scene.scene import Scene
 from . import dual as du
 from . import prims as pr
 from .prims import BIG, INV_4PI, TWO_PI, f32
-from .wavefront import _G_EPS, Packed, pack_scene
+from .wavefront import Packed, pack_scene
 
 __all__ = ["pack_theta", "flatten_theta", "GeomPacked", "pack_geom",
            "geom_fwd_plain", "geom_fwd", "make_geom_renderer", "LAUNCHES",
-           "THETA_KEYS"]
+           "LAUNCHES_BY", "THETA_KEYS"]
 
-# kernel launches in this process (geom_fwd adds one per launch)
+# kernel launches in this process: geom_fwd adds one to LAUNCHES and one to
+# LAUNCHES_BY[entry], entry "geom_k<K>" or "geom_ext_k<K>" (the
+# instantiation it launched)
 LAUNCHES = 0
+LAUNCHES_BY: dict = {}
 
 # flattened theta layout: (key, size)
 THETA_KEYS = (("center", 3), ("cam_origin", 3), ("fov", 1), ("sigma_a", 1),
@@ -114,6 +126,20 @@ class GeomPacked:
     n_dir: int          # 3 or 0: look-direction tangents
     aspect: float       # f32(width / height)
     cp: float           # continue_prob as f32
+    ea: bool = False    # vpt's equi-angular branch (any distance but "free")
+    nee: bool = True    # pLight + MISv2 and medium NEE; else implicit
+    physical: bool = False  # credited emission times 1/cp
+
+    @property
+    def hg(self) -> bool:
+        """A baked HG g != 0 (pack_scene snaps |g| <= 1e-3 to 0)."""
+        return self.pk.g != 0.0
+
+    @property
+    def ext(self) -> bool:
+        """Whether the extended instantiations run it: any estimator but
+        free-flight NEE, non-physical, at g == 0."""
+        return self.ea or not self.nee or self.physical or self.hg
 
     @property
     def K(self) -> int:
@@ -139,33 +165,35 @@ class GeomPacked:
         ints = np.asarray([self.sphere, self.K, self.n_center, self.n_cam,
                            self.n_dir, self.k_cam, self.k_dir], np.int32)
         fl = np.asarray([self.aspect, self.cp], np.float32).view(np.int32)
-        return np.concatenate([self.pk.words(), ints, fl])
+        est = np.asarray([self.ea, self.nee, self.physical, self.hg],
+                         np.int32)
+        return np.concatenate([self.pk.words(), ints, fl, est])
 
 
 def pack_geom(scene: Scene, camera: Camera, width: int, height: int,
               spp: int, *, sphere: int | None, cam_grads: bool = True,
               dir_grads: bool = False, primal_only: bool = False,
               continue_prob: float = 0.6, max_bounces: int = 32,
-              sampler: str = "random", jitter: bool = True) -> GeomPacked:
-    """Freeze scene, frame and tangent basis for K4. Radii, materials,
-    albedo, radiance and the emitter structure are baked, as in vpt; the
-    centre of `sphere`, the camera and sigma come from theta at each
-    call."""
+              sampler: str = "random", jitter: bool = True,
+              nee: bool = True, distance: str = "free",
+              physical: bool = False) -> GeomPacked:
+    """Freeze scene, frame, tangent basis and estimator for K4. Radii,
+    materials, albedo, radiance, the HG g and the emitter structure are
+    baked, as in vpt; the centre of `sphere`, the camera and sigma come
+    from theta at each call."""
     if (sphere is None and not cam_grads and not dir_grads
             and not primal_only):
         raise ValueError("no differentiated block enabled")
     if sampler not in ("random", "ld"):
         raise ValueError(f"unknown sampler {sampler!r}")
-    if abs(float(torch.as_tensor(scene.medium.g))) > _G_EPS:
-        raise _todo("a baked HG g != 0 (dual.hg_phase / hg_dir)", "5")
     if scene.medium.density is not None:
-        raise _todo("a density field (dual.field_tau / field_sample_free, "
-                    "geom.py:335-562)", "5")
+        raise _todo("a density field (the dual field forms: vpt "
+                    "geom.py:330-336, 416-420, 463-477, 494-507, 530-536, "
+                    "560-562 and dual.py:689-790; a grid in the primal_only "
+                    "mode, geom.py:141-163)", "5.3, the next slice")
     pk = pack_scene(scene, camera, width, height, spp,
                     continue_prob=continue_prob, max_bounces=max_bounces,
                     sampler=sampler, jitter=jitter)
-    if pk.vol:
-        raise _todo("material-3 volumetric shells", "5")
     if sphere is not None and not 0 <= sphere < pk.S:
         raise ValueError(f"sphere {sphere} of a {pk.S}-sphere scene")
     return GeomPacked(
@@ -173,7 +201,8 @@ def pack_geom(scene: Scene, camera: Camera, width: int, height: int,
         n_center=3 if sphere is not None and not primal_only else 0,
         n_cam=4 if cam_grads and not primal_only else 0,
         n_dir=3 if dir_grads and not primal_only else 0,
-        aspect=f32(width / height), cp=f32(continue_prob))
+        aspect=f32(width / height), cp=f32(continue_prob),
+        ea=distance != "free", nee=bool(nee), physical=bool(physical))
 
 
 # ---------------------------------------------------------------------------
@@ -206,6 +235,8 @@ def _geom_body(gp: GeomPacked, theta: torch.Tensor, seed: torch.Tensor,
     sigma_t = th[7] + th[8]
     inv_st = 1.0 / sigma_t
     ar_cp = th[8] * inv_st * inv_cp
+    ss_cp = th[8] / scalar(cp)      # equi-angular: sigma_s / cp, in f32
+    ea, nee, physical, hg = gp.ea, gp.nee, gp.physical, gp.hg
     if gp.sphere >= 0:
         ctr_dual = (pc if not gp.n_center
                     else [du.D(pc[i], basis(i)) for i in range(3)])
@@ -362,7 +393,7 @@ def _geom_body(gp: GeomPacked, theta: torch.Tensor, seed: torch.Tensor,
         wg = du.where(gate & hit, du.power_h_invg(gpdf, fpdf_h_inv), z)
         return [acc[i] + g[i] * wg for i in range(3)]
 
-    def medium_nee(rng, xt, lc, lrad, lr, lid):
+    def medium_nee(rng, d, xt, lc, lrad, lr, lid):
         wc = [lc[i] - xt[i] for i in range(3)]
         inv_mag = du.rsqrt(du.maximum(du.dot3(wc, wc), 1e-20))
         wc_n = du.scale3(wc, inv_mag)
@@ -373,7 +404,11 @@ def _geom_body(gp: GeomPacked, theta: torch.Tensor, seed: torch.Tensor,
         wl = du.cone_dir(wc_n, cos_max, u1, u2)
         hit, t, sid = du.nearest_id_t(pk, ctr_tab, xt, wl)
         visible = hit & (sid == lid) & (lr > 0.0)
-        phase_2pi = INV_4PI * TWO_PI    # isotropic: a folded constant
+        if hg:
+            # both d and wl move with theta: the phase carries tangents
+            phase_2pi = du.hg_phase(pk, du.dot3(d, wl)) * TWO_PI
+        else:
+            phase_2pi = INV_4PI * TWO_PI    # a float64 fold, as vpt's
         tr_l = du.exp(t * (-sigma_t))
         # phase / cone_pdf = phase * 2pi * (1 - cos_max): no dual division
         w = du.where(visible,
@@ -422,23 +457,53 @@ def _geom_body(gp: GeomPacked, theta: torch.Tensor, seed: torch.Tensor,
                              xs[2] - at["cz"]])
         lc, lrad, lr, lid = light_attrs(u_pick)
 
-        d_s = -torch.log1p(-u_dist) * inv_st    # sigma-only: plain
-        surface = (t_eff < d_s) & hit
-        xt = [o[i] + d[i] * d_s for i in range(3)]
+        if not ea:
+            d_s = -torch.log1p(-u_dist) * inv_st    # sigma-only: plain
+            surface = (t_eff < d_s) & hit
+            xt = [o[i] + d[i] * d_s for i in range(3)]
+        else:
+            # equiAngularParams2 + Bernoulli(TrActual) (geom.py:478-511):
+            # the distance transform is pure geometry, so xt moves with
+            # the light and the camera (it reparameterizes)
+            lo_v = [lc[i] - o[i] for i in range(3)]
+            delta = du.dot3(lo_v, d)
+            Dq = du.sqrt(du.maximum(du.dot3(lo_v, lo_v) - delta * delta,
+                                    1e-12))
+            th_a = du.atan2_posx(-delta, Dq)
+            th_b = du.atan2_posx(t_eff - delta, Dq)
+            sample_t = du.clip(Dq * du.tan_sc(
+                th_a * (1.0 - u_dist) + th_b * u_dist), -BIG, BIG)
+            d_along = sample_t + delta
+            xt = [o[i] + d_along * d[i] for i in range(3)]
+            dist_pdf = Dq / (du.maximum(du.absd(th_b - th_a), 1e-12)
+                             * (sample_t * sample_t + Dq * Dq))
+            tr_act = du.where(hit, du.exp(t * (-sigma_t)), z)
+            t_xt = du.exp(du.absd(d_along) * (-sigma_t))
+            u_ev = rng()
+            surface = (tr_act >= u_ev) & hit
+            one_m_tr = du.maximum(1.0 - tr_act, 1e-20)
+            pdf_success = du.maximum(dist_pdf * one_m_tr, 1e-30)
         medium = alive & ~surface
 
         em_hit = surface & at["is_em"]
-        credit = alive & em_hit & (depth == 0)
+        # with NEE only the camera ray's emitter hit is credited; without,
+        # every hit (the implicit estimator)
+        credit = alive & em_hit & (depth == 0) if nee else alive & em_hit
         radh = [at["rr"], at["rg"], at["rb"]]
-        L = [L[i] + du.where(credit, radh[i] * tp[i], z) for i in range(3)]
+        adds = [radh[i] * tp[i] for i in range(3)]
+        if physical:
+            # compensate the iteration's own RR survival: f32(1/cp)
+            adds = [a * inv_cp for a in adds]
+        L = [L[i] + du.where(credit, adds[i], z) for i in range(3)]
         shade = alive & surface & ~em_hit
 
-        ldp, dist_ls = plight_term(at, xs, nrm, d, lc, lrad)
-        trs = du.exp(dist_ls * (-sigma_t))
-        ldm = mis_v2(rng, at, xs, nrm, d)
-        L = [L[i] + du.where(
-            shade, (ldp[i] * trs * inv_ps + ldm[i]) * tp[i] * inv_cp, z)
-            for i in range(3)]
+        if nee:
+            ldp, dist_ls = plight_term(at, xs, nrm, d, lc, lrad)
+            trs = du.exp(dist_ls * (-sigma_t))
+            ldm = mis_v2(rng, at, xs, nrm, d)
+            L = [L[i] + du.where(
+                shade, (ldp[i] * trs * inv_ps + ldm[i]) * tp[i] * inv_cp, z)
+                for i in range(3)]
 
         fs, wi_s, pdf_b = du.sample_bsdf(rng, at, d, nrm)
         cosine = du.dot3(nrm, wi_s)
@@ -446,11 +511,21 @@ def _geom_body(gp: GeomPacked, theta: torch.Tensor, seed: torch.Tensor,
         tp_surface = [tp[i] * fs[i] * wscale for i in range(3)]
 
         u_p1, u_p2 = rng(), rng()
-        wi_m = du.uniform_sphere(u_p1, u_p2)
-        med_scale = ar_cp
-        ld_med = medium_nee(rng, xt, lc, lrad, lr, lid)
-        L = [L[i] + du.where(medium, ld_med[i] * inv_ps * tp[i] * med_scale,
-                             z) for i in range(3)]
+        if hg:
+            # HG importance sampling (phase/pdf == 1): plain local angles,
+            # the frame rotates with d
+            wi_m = du.hg_dir(pk, d, u_p1, u_p2)
+        else:
+            wi_m = du.uniform_sphere(u_p1, u_p2)
+        if not ea:
+            med_scale = ar_cp
+        else:
+            med_scale = (t_xt / pdf_success) * ss_cp
+        if nee:
+            ld_med = medium_nee(rng, d, xt, lc, lrad, lr, lid)
+            L = [L[i] + du.where(
+                medium, ld_med[i] * inv_ps * tp[i] * med_scale, z)
+                for i in range(3)]
         tp_medium = [tp[i] * med_scale for i in range(3)]
 
         if stats is not None:
@@ -491,8 +566,9 @@ def geom_fwd_plain(gp: GeomPacked, theta: torch.Tensor, seed: torch.Tensor,
 def geom_fwd(gp: GeomPacked, theta: torch.Tensor,
              seed: torch.Tensor) -> torch.Tensor:
     """K4 on theta.device: the planes of geom_fwd_plain. A CUDA tensor
-    launches csrc/geom.cu on the current stream without synchronising; a
-    CPU tensor runs geom_fwd_plain."""
+    launches K4 on the current stream without synchronising (the default
+    estimator csrc/geom_k<K>.cu, any other csrc/geom_ext_k<K>.cu, through
+    csrc/geom.cu's entries); a CPU tensor runs geom_fwd_plain."""
     global LAUNCHES
     if theta.dtype != torch.float32 or tuple(theta.shape) != (12,) \
             or not theta.is_contiguous():
@@ -518,15 +594,18 @@ def geom_fwd(gp: GeomPacked, theta: torch.Tensor,
             f"the kernel expects {lib.vpt_geom_params_words()}")
     out = torch.empty((gp.planes, gp.npix), dtype=torch.float32,
                       device=theta.device)
+    entry = "vpt_geom_fwd_ext" if gp.ext else "vpt_geom_fwd"
     with torch.cuda.device(theta.device):
         stream = torch.cuda.current_stream(theta.device).cuda_stream
-        err = lib.vpt_geom_fwd(words.ctypes.data, theta.data_ptr(),
-                               seed.data_ptr(), 0, gp.npix, out.data_ptr(),
-                               stream)
+        err = getattr(lib, entry)(words.ctypes.data, theta.data_ptr(),
+                                  seed.data_ptr(), 0, gp.npix,
+                                  out.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"vpt_geom_fwd launch failed: "
+        raise RuntimeError(f"{entry} launch failed: "
                            f"{_build.error_string(err)} ({err})")
     LAUNCHES += 1
+    key = f"geom_{'ext_' if gp.ext else ''}k{gp.K}"
+    LAUNCHES_BY[key] = LAUNCHES_BY.get(key, 0) + 1
     return out
 
 
@@ -573,22 +652,18 @@ def make_geom_renderer(scene: Scene, camera: Camera, width: int, height: int,
     render.basis_names. render.grad_render(theta, seed) is the image as a
     function differentiable by torch autograd (tangent contraction);
     render.run_vec(vec (12,), seed) is the vector-level entry, the FD
-    substrate; primal_only=True gives K = 0."""
-    if not nee:
-        raise _todo("nee=False (the implicit estimator)", "5 (follow-up)")
-    if distance != "free":
-        raise _todo(f"distance={distance!r} (the equi-angular trig)",
-                    "5 (follow-up)")
-    if physical:
-        raise _todo("physical=True", "5 (follow-up)")
+    substrate; primal_only=True gives K = 0. The estimator: `distance`
+    "free" or vpt's equi-angular branch (any other value), `nee`,
+    `physical`; the scene's HG g is baked."""
+    gp = pack_geom(scene, camera, width, height, spp, sphere=sphere,
+                   cam_grads=cam_grads, dir_grads=dir_grads,
+                   primal_only=primal_only, continue_prob=continue_prob,
+                   max_bounces=max_bounces, sampler=sampler, jitter=jitter,
+                   nee=nee, distance=distance, physical=physical)
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("make_geom_renderer(device='cuda'): "
                            "torch.cuda.is_available() is False")
-    gp = pack_geom(scene, camera, width, height, spp, sphere=sphere,
-                   cam_grads=cam_grads, dir_grads=dir_grads,
-                   primal_only=primal_only, continue_prob=continue_prob,
-                   max_bounces=max_bounces, sampler=sampler, jitter=jitter)
     K = gp.K
     inv_spp = f32(1.0 / spp)
     # the theta-vector slot of each tangent plane

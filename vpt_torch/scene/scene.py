@@ -233,7 +233,8 @@ def simple_cornell(dtype=torch.float32, device="cpu") -> Scene:
 def medium_shell(dtype=torch.float32, device="cpu") -> Scene:
     """Capability scene with a volumetric boundary sphere (material 3). The
     render kernel and the differentiable pair draw it (pLight's material-3
-    cascade); the dual kernel refuses it (ROADMAP Queue 1 item 5)."""
+    cascade); the dual kernel, as vpt's, draws it as a Lambertian sphere
+    (its visibility is the plain nearest hit)."""
     return make_scene(
         [
             (1e5, (-1e5 - 49, 0, 0), (0.6, 0.3, 0.3), _Z3, LAMBERT, _Z3, _Z3, 0.0),
