@@ -124,20 +124,36 @@ plain torch version on the card:
      equi-angular K = 7 bit-equal to plain at 2 spp; K = 3, 4, 6 and 10
      through make_geom_renderer at 128x128x8; and
      examples/recover_camera.py at its own setting through
-     make_fd_geom_train_step with per-leaf decaying Adam rates.
+     make_fd_geom_train_step with per-leaf decaying Adam rates;
+ 19. the dual kernel K4 in a density field (csrc/geom_field_k<K>.cu):
+     ptxas of the six field kernels and the twelve older K4 ones held to
+     their numbers; each field K against its plain version at 64x32x8, bit
+     for bit (image and every tangent plane, both samplers): foggy_cornell
+     under free flight, equi-angular, nee=False + physical and a baked
+     g = 0.5 at K = 7, blob_cloud at K = 7, foggy_cornell equi-angular at
+     K = 3, 4, 6 and 10, and examples/recover_grid.py's 32^3 xy-nearest grid
+     at K = 0 (primal_only) under free flight and equi-angular; the geom
+     main frame (1024x1024x64, "random") through
+     make_geom_renderer for foggy_cornell free flight at K = 7 and K = 0,
+     equi-angular at K = 7, blob_cloud at K = 7 and the grid at K = 0,
+     timed, the lanes with a non-finite tangent counted, equi-angular
+     K = 7 bit-equal to plain at 2 spp; K = 3, 4, 6 and 10 on foggy_cornell
+     equi-angular through make_geom_renderer at 128x128x8, timed; and
+     fit_geom_fd in the grid (blob_cloud's light 4 units off).
 
 The main-frame plain versions (phases 4, 7, 10, 12, 14 and 15) and the
-plain checks of phases 9 and 14-18 run in worker processes on the same card
+plain checks of phases 9 and 14-19 run in worker processes on the same card
 while the kernels build (PlainPool); they are collected before the first
 timing. `--recover-fog-multiview STEPS` runs the card, the build and that
 example's fit alone; `--geom-ext` the card, the build and phase 18;
+`--geom-field` the card, the build and phase 19;
 `--recover-grid STEPS` the same for
 examples/recover_grid.py at vpt's round-4 setting (RG_ROUND4; 250 steps
 is that run, about 80 s of fitting); `--recover-grid-ea STEPS` runs
 tools/studies/tomo_quality_study.py's rows B (free flight) and F
 (equi-angular) of that example (RG_ROWS).
 
-Each main path (phases 4, 7, 8, 10, 11, 12, 13, 14, 15, 16, 17 and 18) runs with every
+Each main path (phases 4, 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18 and 19) runs with every
 launch count set to 0 just before it and read just after. The line before the last is the
 per-kernel JSON record, the last line the device record. Any failed phase
 raises and the script exits non-zero; without a CUDA device it exits
@@ -412,7 +428,8 @@ def bound(kernel: str, stats: dict, dp: df.DiffPacked) -> tuple[float, str]:
 #   ("pair", scene, g, traced, frame): the pair's image and K3's per-pixel
 #     rows at a pair_inputs frame.
 PLAIN_WORKERS = 8   # the card's host has 8 cores; the main process waits
-PLAIN_TIMEOUT_S = 600   # the pool took 211.6 s in all (NVIDIA H100 80GB HBM3)
+PLAIN_TIMEOUT_S = 720   # the pool took 548.7 s in all (NVIDIA H100 80GB HBM3,
+                        # 700 W, a host that built the kernels in 280 s)
 
 
 def pair_inputs(name: str, g: float, traced: tuple, frame: tuple, camera,
@@ -458,6 +475,8 @@ def plain_job(spec: tuple) -> tuple:
         return ext_plain_job(spec, dev, cam)
     if kind == "k4x":
         return geom_ext_plain_job(spec, dev, cam)
+    if kind == "k4f":
+        return geom_field_plain_job(spec, dev, cam)
     if kind == "fk1":
         pk = field_k1_pack(spec, cam)
         s = torch.tensor([spec[4]], dtype=torch.int32, device=dev)
@@ -578,7 +597,8 @@ def plain_specs() -> list:
     """The plain runs of phases 4-18."""
     k1 = [k1_spec(integ, sname, g) for _, integ, sname, g in VARIANTS]
     k1 += [k1_spec(integ, sname) for integ, sname in FIELD_VARIANTS]
-    return [*geom_ext_specs(), *ext_specs(), k1_spec("explicit_free"),
+    return [*geom_field_specs(), *geom_ext_specs(), *ext_specs(),
+            k1_spec("explicit_free"),
             pair_spec(), GEOM0_SPEC, GEOM7_SPEC, *GEOM9_CHECKS, *k1, pair_spec("foggy_cornell", 0.0, ("diff_field",)),
             pair_spec("foggy_cornell", 0.5, ("diff_g", "diff_field")),
             pair_spec("cornell_vpt", 0.5), *HG_CHECKS, HG_TRAINER_CHECK,
@@ -1156,7 +1176,7 @@ FOG_MV_CAMS = [((0.0, 0.0, 0.0), None),
                ((35.0, 30.0, 180.0), (0.0, -10.0, 0.0)),
                ((-38.0, -20.0, 150.0), (10.0, 0.0, -40.0)),
                ((0.0, 25.0, 60.0), (0.0, -10.0, 200.0))]
-FOG_MV_STEPS = 600
+FOG_MV_STEPS = 300
 # K2/K3 against their plain versions: at 64x32x8 (the baked g under both
 # samplers, the traced g, the fog with the traced g and falloff; seeds 3 and
 # 11), and at recover_fog_multiview's shape (192x192, 16 spp per render, 32
@@ -1698,17 +1718,17 @@ EXISTING_PTXAS = {
         (119, 0, 56),
     "_ZN13vpt_wavefront6kernelILb1ELi1ELb1EEEv9VptParamsPKiS3_iiPf":
         (119, 0, 56),
-    "_ZN3vpt4geom15vpt_geom_kernelILi0EEEv10GeomParamsPKfPKiiiPf":
+    "_ZN3vpt4geom15vpt_geom_kernelILi0ELb0ELb0EEEv10GeomParamsPKfPKiiiPKjPf":
         (128, 0, 32),
-    "_ZN3vpt4geom15vpt_geom_kernelILi10EEEv10GeomParamsPKfPKiiiPf":
+    "_ZN3vpt4geom15vpt_geom_kernelILi10ELb0ELb0EEEv10GeomParamsPKfPKiiiPKjPf":
         (255, 5080, 2296),
-    "_ZN3vpt4geom15vpt_geom_kernelILi3EEEv10GeomParamsPKfPKiiiPf":
+    "_ZN3vpt4geom15vpt_geom_kernelILi3ELb0ELb0EEEv10GeomParamsPKfPKiiiPKjPf":
         (255, 320, 320),
-    "_ZN3vpt4geom15vpt_geom_kernelILi4EEEv10GeomParamsPKfPKiiiPf":
+    "_ZN3vpt4geom15vpt_geom_kernelILi4ELb0ELb0EEEv10GeomParamsPKfPKiiiPKjPf":
         (255, 1104, 592),
-    "_ZN3vpt4geom15vpt_geom_kernelILi6EEEv10GeomParamsPKfPKiiiPf":
+    "_ZN3vpt4geom15vpt_geom_kernelILi6ELb0ELb0EEEv10GeomParamsPKfPKiiiPKjPf":
         (255, 2296, 1144),
-    "_ZN3vpt4geom15vpt_geom_kernelILi7EEEv10GeomParamsPKfPKiiiPf":
+    "_ZN3vpt4geom15vpt_geom_kernelILi7ELb0ELb0EEEv10GeomParamsPKfPKiiiPKjPf":
         (255, 2908, 1440),
     "_ZN8vpt_diff10bwd_kernelILb0ELb0EEEv10DiffParamsPKfPKiS3_PfS6_":
         (128, 56, 1456),
@@ -2811,7 +2831,7 @@ def ext_phases(card: str, dev: torch.device, camera,
 # baked HG g; material-3 shells
 
 # the extended kernels (mangled-name fragments) and their sources
-GEOM_EXT = {f"vpt_geom_ext_k{k}": (f"19vpt_geom_ext_kernelILi{k}EE",
+GEOM_EXT = {f"vpt_geom_ext_k{k}": (f"15vpt_geom_kernelILi{k}ELb1ELb0EE",
                                    f"geom_ext_k{k}.cu")
             for k in (0, 3, 4, 6, 7, 10)}
 # the tangent blocks of each K: (sphere 8's centre, camera origin + fov,
@@ -3237,6 +3257,495 @@ def geom_ext_phases(card: str, dev: torch.device, camera,
     return records
 
 
+# ---- phase 19: the dual kernel K4 in a density field (the field
+# instantiations csrc/geom_field_k<K>.cu): exp_height and blobs in dual
+# form under every estimator, a voxel grid in the primal_only mode
+
+GEOM_FIELD = {f"vpt_geom_field_k{k}": (f"15vpt_geom_kernelILi{k}ELb1ELb1EE",
+                                       f"geom_field_k{k}.cu")
+              for k in (0, 3, 4, 6, 7, 10)}
+# ptxas of the extended K4 instantiations (PERF.md section 6; NVIDIA
+# H100 80GB HBM3, this toolkit): the field ones must leave them as they were
+GEOM_EXT_PTXAS = {
+    f"_ZN3vpt4geom15vpt_geom_kernelILi{k}ELb1ELb0EEEv10GeomParamsPKfPKiiiPKjPf": v
+    for k, v in ((0, (128, 20, 80)), (3, (255, 404, 472)),
+                 (4, (255, 1312, 776)), (6, (255, 2596, 1424)),
+                 (7, (255, 3180, 1744)), (10, (255, 4936, 2672)))}
+# examples/recover_grid.py's 32^3 xy-nearest box (grid_scene), the grid of
+# the primal_only checks, timings and FD steps
+GRID32 = ("truth", 32, "nearest")
+# the sphere whose centre K4 differentiates: cornell_vpt's point light 8 in
+# the fog, blob_cloud's light 2 (also the grid's: blob_cloud's spheres)
+GF_SPHERE = {"foggy_cornell": 8, "blob_cloud": 2, "grid": 2}
+GF_BLOCKS = {0: dict(primal_only=True), 3: dict(cam_grads=False),
+             4: dict(sphere=None), 6: dict(cam_grads=False, dir_grads=True),
+             7: {}, 10: dict(dir_grads=True)}
+# against the plain version at 64x32x8, 8 bounces, seed 3, both samplers:
+# (scene, HG g, estimator, K): foggy_cornell's estimators and blob_cloud at
+# K = 7, every other field K on foggy_cornell equi-angular, the grid (K = 0,
+# its primal_only mode) under both distance families
+GEOM_FIELD_CFGS = [
+    ("foggy_cornell", 0.0, (), 7), ("foggy_cornell", 0.0, GEA, 7),
+    ("foggy_cornell", 0.0, GIMPLICIT, 7), ("foggy_cornell", 0.5, (), 7),
+    ("blob_cloud", 0.0, (), 7),
+    *(("foggy_cornell", 0.0, GEA, k) for k in (3, 4, 6, 10)),
+    ("grid", 0.0, (), 0), ("grid", 0.0, GEA, 0)]
+GEOM_FIELD_CHECKS = [("k4f", name, g, est, k, (*GEOM_EXT_FRAME, sampler, 3))
+                     for name, g, est, k in GEOM_FIELD_CFGS
+                     for sampler in ("random", "ld")]
+# K = 3, 4, 6, 10 on foggy_cornell equi-angular, timed through
+# make_geom_renderer at GEOM_COUNT_FRAME beside a K = 0 plain run's counters
+# and held against their plain versions there
+GEOM_FIELD_K_TIMED = ("foggy_cornell", 0.0, GEA)
+GEOM_FIELD_K_CHECKS = {k: ("k4f", *GEOM_FIELD_K_TIMED, k, GEOM_COUNT_FRAME)
+                       for k in (3, 4, 6, 10)}
+# the timed cells at the geom main frame (1024x1024x64, "random"; label:
+# scene, g, estimator, K); counters from K = 0 plain runs at
+# GEOM_COUNT_FRAME scaled by the paths, equi-angular's from its check
+GEOM_FIELD_TIMED = {"fog": ("foggy_cornell", 0.0, (), 7),
+                    "fog_k0": ("foggy_cornell", 0.0, (), 0),
+                    "fog_ea": ("foggy_cornell", 0.0, GEA, 7),
+                    "blobs": ("blob_cloud", 0.0, (), 7),
+                    "grid_k0": ("grid", 0.0, (), 0)}
+GEOM_FIELD_EA_CHECK = ("k4f", "foggy_cornell", 0.0, GEA, 7,
+                       (1024, 1024, GEOM_CHECK_SPP, 32, "random", 0))
+# fit_geom_fd in the grid: blob_cloud's light 4 units off in y,
+# examples/localize_light.py's chip setting (64x48, the target at 128 spp,
+# 16 bounces; FD at 64 spp, exponential_decay(0.8, 12, 0.75)), GF_FD_STEPS
+# steps
+GF_FD_STEPS, GF_FD_OFF = 30, 4.0
+
+
+def geom_field_scene(name: str, g: float):
+    if name == "grid":
+        return grid_scene(GRID32)[0]
+    return with_g(SCENES[name](), g)
+
+
+def geom_field_inputs(name, g, est, k, frame, camera, dev) -> tuple:
+    """(packed, theta vector, seed) of K4 with K = k in the field scene."""
+    w, h, spp, mb, sampler, s = frame
+    sc = geom_field_scene(name, g)
+    blocks = {"sphere": GF_SPHERE[name], **GF_BLOCKS[k]}
+    gp = gm.pack_geom(sc, camera, w, h, spp, max_bounces=mb,
+                      sampler=sampler, **blocks, **dict(est))
+    if gp.K != k or not gp.field:
+        raise AssertionError(f"K4 field blocks {blocks}: K = {gp.K}")
+    th = gm.flatten_theta(gm.pack_theta(sc, camera, blocks["sphere"])).to(
+        dev)
+    return gp, th, torch.tensor([s], dtype=torch.int32, device=dev)
+
+
+def geom_field_count_spec(name: str, g: float, est: tuple) -> tuple:
+    return ("k4f", name, g, est, 0, GEOM_COUNT_FRAME)
+
+
+def geom_field_plain_job(spec: tuple, dev, camera) -> tuple:
+    """A "k4f" job of plain_job: K4's planes and counters in a field."""
+    _, name, g, est, k, frame = spec
+    gp, th, s = geom_field_inputs(name, g, est, k, frame, camera, dev)
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = gm.geom_fwd_plain(gp, th, s, stats=stats)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out.cpu().numpy(), stats, ms
+
+
+def geom_field_specs() -> list:
+    """Phase 19's plain runs, the longest first."""
+    counters = [geom_field_count_spec(*GEOM_FIELD_TIMED[lab][:3])
+                for lab in ("fog", "blobs", "grid_k0")]
+    return [GEOM_FIELD_EA_CHECK, *counters, *GEOM_FIELD_K_CHECKS.values(),
+            geom_field_count_spec(*GEOM_FIELD_K_TIMED), *GEOM_FIELD_CHECKS]
+
+
+def geom_field_ops(stats: dict, gpc: gm.GeomPacked, K: int) -> float:
+    """geom_ext_ops_lower_bound plus the field's operations, counted as
+    field_ops_lower_bound counts them: in dual form (1 + K times) each
+    optical depth in place of one exp(-sigma t), the equi-angular
+    densities, exp_height's closed-form inversion (9 per thread-iteration,
+    free flight) and pLight's light direction (7 per shading event with
+    NEE); plain, each delta-tracking null step (10 + a density). A grid
+    (K = 0): a march per optical depth and 33 per trilinear density."""
+    pk = gpc.pk
+    ops = geom_ext_ops_lower_bound(stats, gpc, K)
+    if pk.grid is not None:
+        return ops + stats["taus"] * grid_march_ops(pk) \
+            + stats["densities"] * 33
+    tau, dens = field_tau_ops(pk), field_density_ops(pk)
+    dual = stats["taus"] * (tau - 1) + stats["densities"] * dens
+    if pk.field.kind == "exp_height" and not gpc.ea:
+        dual += stats["thread_iters"] * 9
+    if gpc.nee:
+        dual += stats["shade"] * 7
+    return ops + (1 + K) * dual + stats["null_steps"] * (10 + dens)
+
+
+def geom_field_bound(stats: dict, gpc: gm.GeomPacked, gp: gm.GeomPacked,
+                     scale: float) -> tuple[float, str]:
+    """geom_field_ops at gpc's frame scaled to gp's, counted at gp's K;
+    bytes: theta, the seed and a grid's table in, gp's planes out."""
+    t_ops = geom_field_ops(stats, gpc, gp.K) * scale / PEAK_F32 * 1e3
+    tab = 0 if gp.pk.grid is None else 4.0 * int(np.prod(gp.pk.grid.dims))
+    t_bytes = (48.0 + 4.0 + tab + 4.0 * gp.planes * gp.npix) \
+        / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def geom_field_vs_plain(spec, plains, camera, dev) -> dict:
+    """One K4 field launch against its plain version: every plane bit for
+    bit; the lanes with a non-finite tangent on either side counted."""
+    _, name, g, est, k, frame = spec
+    gp, th, s = geom_field_inputs(name, g, est, k, frame, camera, dev)
+    out = gm.geom_fwd(gp, th, s)
+    plain, _, p_ms = plains.get(spec, dev)
+    torch.cuda.synchronize()
+
+    def nonfinite(x):
+        t = x.reshape(3, 1 + gp.K, -1)[:, 1:]
+        return int((~torch.isfinite(t)).any(0).any(0).sum())
+
+    res = dict(equal=bool(torch.equal(out, plain)),
+               err=float((out - plain).abs().max()),
+               finite=bool(torch.isfinite(out).all()),
+               nonfinite_lanes=nonfinite(out),
+               plain_nonfinite_lanes=nonfinite(plain), plain_ms=p_ms,
+               K=gp.K, entry=gp.entry)
+    if not res["equal"]:
+        raise AssertionError(f"K4 field {spec}: {res}")
+    return res
+
+
+def geom_field_fd(camera, card: str, dev: torch.device) -> dict:
+    """fit_geom_fd in the 32^3 grid (GF_FD_*): the primal_only field K4,
+    12 launches a step."""
+    scene = geom_field_scene("grid", 0.0)
+    pk_t = wf.pack_scene(scene, camera, 64, 48, 128, max_bounces=16)
+    target = wf.render_tile(pk_t, torch.tensor(
+        [99], dtype=torch.int32, device=dev)).reshape(48, 64, 3)
+    true_y = float(scene.center[2, 1])
+    c0 = scene.center.clone()
+    c0[2, 1] = true_y + GF_FD_OFF
+    wrong = dataclasses.replace(scene, center=c0)
+    reset_counts()
+    t0 = time.perf_counter()
+    theta, losses = vpt_torch.dist.fit_geom_fd(
+        wrong, camera, target, sphere=2, cam_grads=False, steps=GF_FD_STEPS,
+        spp=64, learning_rate=vpt_torch.dist.exponential_decay(0.8, 12, 0.75),
+        max_bounces=16, seed=3, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = dict(gm.LAUNCHES_BY)
+    got = theta["center"].detach().cpu().numpy()
+    res = dict(true_y=true_y, start_y=true_y + GF_FD_OFF, got=got.tolist(),
+               residual_y=abs(float(got[1]) - true_y),
+               moved_xz=[float(got[0] - c0[2, 0]), float(got[2] - c0[2, 2])],
+               loss_first=losses[0], loss_last=losses[-1], seconds=secs,
+               launches=launched,
+               finite=bool(np.isfinite(losses).all() and np.isfinite(
+                   got).all()))
+    print(f"phase 19 fit_geom_fd in the 32^3 nearest grid (64x48, spp 64, "
+          f"{GF_FD_STEPS} steps): light y start {true_y + GF_FD_OFF:.3f} "
+          f"true {true_y:.3f} recovered {float(got[1]):.6f} (residual "
+          f"{res['residual_y']:.6f}), x and z moved by {res['moved_xz']}; "
+          f"loss {losses[0]:.6g} -> {losses[-1]:.6g}; {secs:.3f} s, "
+          f"launches {launched} on {card}", flush=True)
+    if not res["finite"] or launched != {"geom_field_k0": GF_FD_STEPS * 12}:
+        raise AssertionError(f"fit_geom_fd in the grid: {res}")
+    return res
+
+
+def geom_field_phases(card: str, dev: torch.device, camera,
+                      plains: PlainPool) -> list:
+    """Phase 19; returns the field K4 instantiations' kernel records."""
+    t19 = time.perf_counter()
+    rep = ptxas_report()
+    f_ptxas = {}
+    for entry, (frag, _) in GEOM_FIELD.items():
+        hits = [v for k, v in rep.items() if frag in k]
+        if len(hits) != 1:
+            raise AssertionError(f"ptxas reports {len(hits)} kernels for "
+                                 f"{frag}")
+        f_ptxas[entry] = hits[0]
+        print(f"phase 19 ptxas {entry}: {hits[0][0]} registers, {hits[0][1]}"
+              f" B spill stores, {hits[0][2]} B stack", flush=True)
+    older = {**{k: v for k, v in EXISTING_PTXAS.items() if "vpt_geom" in k},
+             **GEOM_EXT_PTXAS}
+    changed = {k: (rep.get(k), v) for k, v in older.items()
+               if rep.get(k) != v}
+    print(f"phase 19 ptxas of the twelve older K4 instantiations: "
+          f"{'unchanged' if not changed else changed}", flush=True)
+    if changed:
+        raise AssertionError(f"K4 kernels changed: {changed}")
+
+    # -- every field instantiation against its plain version, bit for bit
+    t0 = time.perf_counter()
+    errs = dict.fromkeys(GEOM_FIELD, 0.0)
+    for spec in GEOM_FIELD_CHECKS:
+        r = geom_field_vs_plain(spec, plains, camera, dev)
+        if not r["finite"]:
+            raise AssertionError(f"K4 field {spec}: non-finite planes")
+        errs["vpt_" + r["entry"]] = max(errs["vpt_" + r["entry"]], r["err"])
+    print(f"phase 19 K4 field checks {GEOM_EXT_FRAME[0]}x{GEOM_EXT_FRAME[1]}"
+          f"x{GEOM_EXT_FRAME[2]}: {len(GEOM_FIELD_CHECKS)} launches bit-equal "
+          f"to plain (foggy_cornell free / equi-angular / nee=False + physical"
+          f" / g = 0.5 and blob_cloud at K = 7, foggy_cornell equi-angular at "
+          f"K = 3, 4, 6, 10, the 32^3 grid free and equi-angular at K = 0; "
+          f"both samplers); {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- the main frame: each timed cell through make_geom_renderer
+    cfg = vpt_torch.RenderConfig(**MAIN_CFG)
+    w, h, spp = cfg.width, cfg.height, cfg.spp
+    n_paths = w * h * spp
+    timed, count_checks = {}, []
+    for label, (name, g, est, k) in GEOM_FIELD_TIMED.items():
+        sc = geom_field_scene(name, g)
+        sphere = GF_SPHERE[name]
+        blocks = {"sphere": sphere, **GF_BLOCKS[k]}
+        render = gm.make_geom_renderer(sc, camera, w, h, spp,
+                                       max_bounces=cfg.max_bounces,
+                                       device="cuda", **blocks, **dict(est))
+        theta = {kk: v.to(dev) for kk, v in gm.pack_theta(
+            sc, camera, sphere).items()}
+        reset_counts()
+        (img, tang), first_ms = cuda_ms(lambda: render(theta, cfg.seed))
+        launched = dict(gm.LAUNCHES_BY)
+        gp = render.packed
+        if launched != {gp.entry: 1} or gp.entry != f"geom_field_k{k}" \
+                or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"geom field {label}: launches {launched}")
+        bad = int((~torch.isfinite(tang)).any(0).any(-1).sum())
+        ms, times = median_ms(lambda: render(theta, cfg.seed), warm_up=False)
+        thv = gm.flatten_theta(theta)
+        seed_t = torch.tensor([cfg.seed], dtype=torch.int32, device=dev)
+        k_ms, k_times = median_ms(lambda: gm.geom_fwd(gp, thv, seed_t))
+        c_ms = None
+        if label == "fog_ea":
+            _, stats, cp_ms = plains.get(GEOM_FIELD_EA_CHECK, dev)
+            gpc = geom_field_inputs(*GEOM_FIELD_EA_CHECK[1:], camera, dev)[0]
+            scale = spp / GEOM_CHECK_SPP
+        else:
+            cspec = geom_field_count_spec(name, g, est)
+            _, stats, cp_ms = plains.get(cspec, dev)
+            gpc, thc, sc0 = geom_field_inputs(*cspec[1:], camera, dev)
+            cw, ch, cs = GEOM_COUNT_FRAME[:3]
+            scale = n_paths / (cw * ch * cs)
+            if k == 0:      # the kernel beside its plain version's frame
+                c_ms, _ = median_ms(lambda: gm.geom_fwd(gpc, thc, sc0))
+            # the K = 0 kernel at GEOM_COUNT_FRAME against its plain run
+            if cspec not in count_checks:
+                r0 = geom_field_vs_plain(cspec, plains, camera, dev)
+                errs["vpt_geom_field_k0"] = max(errs["vpt_geom_field_k0"],
+                                                r0["err"])
+                count_checks.append(cspec)
+        b = geom_field_bound(stats, gpc, gp, scale)
+        timed[label] = dict(entry=gp.entry, launches=launched, ms=k_ms,
+                            render_ms=ms, first_ms=first_ms,
+                            paths_per_sec=n_paths / (ms / 1e3), bound=b,
+                            plain_ms=cp_ms, ms_at_count_frame=c_ms,
+                            work=stats, nonfinite_tangent_lanes=bad,
+                            image_mean=float(img.mean()),
+                            tangent_means=[round(float(v), 6) for v in
+                                           tang.mean(dim=(1, 2))]
+                            if k else [])
+        print(f"phase 19 geom {label} {w}x{h}x{spp} random K={k} (launches "
+              f"{launched}): render {ms:.3f} ms (median of {times}; first "
+              f"{first_ms:.3f}), {n_paths / (ms / 1e3):.6e} camera paths/s; "
+              f"the kernel alone {k_ms:.3f} ms ({k_times}); bound "
+              f"{b[0]:.3f} ms ({b[1]}); image mean {float(img.mean()):.6f}, "
+              f"tangent means {timed[label]['tangent_means']}, lanes with a "
+              f"non-finite tangent {bad} on {card}", flush=True)
+        del img, tang
+    # equi-angular K = 7 in the fog at GEOM_CHECK_SPP against its plain
+    # version, the non-finite tangent lanes of both
+    gp2, th2, s2 = geom_field_inputs(*GEOM_FIELD_EA_CHECK[1:], camera, dev)
+    k2_ms, _ = median_ms(lambda: gm.geom_fwd(gp2, th2, s2))
+    r = geom_field_vs_plain(GEOM_FIELD_EA_CHECK, plains, camera, dev)
+    errs["vpt_geom_field_k7"] = max(errs["vpt_geom_field_k7"], r["err"])
+    timed["fog_ea"].update(ms_at_check=k2_ms, plain_ms=r["plain_ms"],
+                           check_nonfinite_lanes=[r["nonfinite_lanes"],
+                                                  r["plain_nonfinite_lanes"]])
+    print(f"phase 19 K4 fog EA check {w}x{h}x{GEOM_CHECK_SPP} K=7: bit-equal "
+          f"{r['equal']}; lanes with a non-finite tangent: kernel "
+          f"{r['nonfinite_lanes']}, plain {r['plain_nonfinite_lanes']}; "
+          f"kernel {k2_ms:.3f} ms, plain {r['plain_ms']:.3f} ms (pooled)",
+          flush=True)
+
+    # -- K = 3, 4, 6, 10 through make_geom_renderer at GEOM_COUNT_FRAME,
+    # beside the K = 0 plain run's counters there (that K = 0 run and each
+    # K's own plain run held against the kernel bit for bit)
+    cw, ch, cs, cmb, csampler, cseed = GEOM_COUNT_FRAME
+    name, g, est = GEOM_FIELD_K_TIMED
+    kspec = geom_field_count_spec(name, g, est)
+    _, kstats, kp_ms = plains.get(kspec, dev)
+    r0 = geom_field_vs_plain(kspec, plains, camera, dev)
+    errs["vpt_geom_field_k0"] = max(errs["vpt_geom_field_k0"], r0["err"])
+    count_checks.append(kspec)
+    for k in (3, 4, 6, 10):
+        sc = geom_field_scene(name, g)
+        blocks = {"sphere": GF_SPHERE[name], **GF_BLOCKS[k]}
+        render = gm.make_geom_renderer(sc, camera, cw, ch, cs,
+                                       max_bounces=cmb, sampler=csampler,
+                                       device="cuda", **blocks, **dict(est))
+        theta = {kk: v.to(dev) for kk, v in gm.pack_theta(
+            sc, camera, blocks["sphere"]).items()}
+        reset_counts()
+        img, tang = render(theta, cseed)
+        torch.cuda.synchronize()
+        launched = dict(gm.LAUNCHES_BY)
+        if launched != {f"geom_field_k{k}": 1}:
+            raise AssertionError(f"geom field K={k}: launches {launched}")
+        gp = render.packed
+        if not (bool(torch.isfinite(img).all())
+                and bool(torch.isfinite(tang).all())):
+            raise AssertionError(f"geom field K={k}: non-finite planes")
+        thv = gm.flatten_theta(theta)
+        s0 = torch.tensor([cseed], dtype=torch.int32, device=dev)
+        k_ms, k_times = median_ms(lambda: gm.geom_fwd(gp, thv, s0))
+        b = geom_field_bound(kstats, gp, gp, 1.0)
+        rk = geom_field_vs_plain(GEOM_FIELD_K_CHECKS[k], plains, camera, dev)
+        if not rk["finite"]:
+            raise AssertionError(f"K4 field K={k} at {GEOM_COUNT_FRAME}: "
+                                 f"non-finite planes")
+        errs[f"vpt_geom_field_k{k}"] = max(errs[f"vpt_geom_field_k{k}"],
+                                           rk["err"])
+        timed[f"fog_ea_k{k}"] = dict(
+            entry=f"geom_field_k{k}", launches=launched, ms=k_ms,
+            render_ms=None, paths_per_sec=cw * ch * cs / (k_ms / 1e3),
+            bound=b, plain_ms=rk["plain_ms"], plain_k0_ms=kp_ms, work=kstats)
+        print(f"phase 19 geom fog ea {cw}x{ch}x{cs} {csampler} K={k}: "
+              f"launches {launched}; kernel {k_ms:.3f} ms ({k_times}), bound "
+              f"{b[0]:.3f} ms ({b[1]}); bit-equal to its plain version "
+              f"{rk['equal']} (plain {rk['plain_ms']:.3f} ms, pooled; plain "
+              f"K=0 {kp_ms:.3f} ms)", flush=True)
+    print(f"phase 19 K4 field checks {cw}x{ch}x{cs}: K = 0 bit-equal to plain"
+          f" in {[(c[1], c[3]) for c in count_checks]} (scene, estimator), "
+          f"K = 3, 4, 6, 10 on foggy_cornell equi-angular (above)", flush=True)
+
+    # -- the trainer in the grid
+    fd = geom_field_fd(camera, card, dev)
+    print(f"phase 19 {time.perf_counter() - t19:.1f} s", flush=True)
+
+    # the records: K = 7 at the main frame equi-angular (its plain version
+    # the 2-spp check), K = 0 free flight there (the count frame's), the
+    # others at GEOM_COUNT_FRAME
+    rows = {"vpt_geom_field_k7": "fog_ea", "vpt_geom_field_k0": "fog_k0",
+            **{f"vpt_geom_field_k{k}": f"fog_ea_k{k}" for k in (3, 4, 6, 10)}}
+    records = []
+    for entry, (_, src) in GEOM_FIELD.items():
+        regs, spill, stack = f_ptxas[entry]
+        t = timed[rows[entry]]
+        cells = {lab: {kk: tt[kk] for kk in ("ms", "render_ms", "bound",
+                                             "launches", "paths_per_sec")}
+                 for lab, tt in timed.items() if tt["entry"] == t["entry"]}
+        main = rows[entry] in ("fog_ea", "fog_k0")
+        launches = sum(c["launches"].get(t["entry"], 0)
+                       for c in cells.values())
+        rec = {"name": entry[4:], "route": "cuda", "library_ms": None,
+               "card": card, "source": f"vpt_torch/csrc/{src}",
+               "replaces": "vpt/kernels/geom.py:609",
+               "launches": launches, "max_abs_err": errs[entry],
+               "ms": t["ms"],
+               "frame": ([w, h, spp] if main else list(GEOM_COUNT_FRAME[:3])),
+               "plain_ms": t["plain_ms"], "plain_alone": False,
+               "plain_frame": (list(GEOM_FIELD_EA_CHECK[5][:3])
+                               if entry.endswith("k7")
+                               else list(GEOM_COUNT_FRAME[:3])),
+               "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+               "cells": cells,
+               "ptxas": {"registers": regs, "spill_stores": spill,
+                         "stack": stack}}
+        rec["ms_at_plain_frame"] = (t["ms_at_check"] if entry.endswith("k7")
+                                    else t.get("ms_at_count_frame", t["ms"]))
+        if entry.endswith("k7"):
+            rec["fog_ea_nonfinite_tangent_lanes"] = {
+                "kernel_main_frame": timed["fog_ea"][
+                    "nonfinite_tangent_lanes"],
+                "kernel_and_plain_at_2spp": timed["fog_ea"][
+                    "check_nonfinite_lanes"]}
+        if entry.endswith("k0"):
+            rec["launches"] += fd["launches"].get("geom_field_k0", 0)
+            rec["fit_geom_fd_grid"] = fd
+        records.append(rec)
+    return records
+
+
+def pair_small_checks(scene, camera, dev: torch.device) -> None:
+    """Phase 6: K2 and K3 against their plain versions at 64x32x8, both
+    samplers, seeds 3 and 11 (untimed, so run beside the plain pool)."""
+    S = scene.count
+    for sampler in ("random", "ld"):
+        for seed in (3, 11):
+            dp = df.pack_diff(scene, camera, 64, 32, 8, max_bounces=8,
+                              sampler=sampler)
+            pvec = df._flatten(df.pack_params(scene), S).to(dev)
+            s = torch.tensor([seed], dtype=torch.int32, device=dev)
+            gbar = torch.from_numpy(np.random.default_rng(seed)
+                                    .standard_normal((dp.npix, 3))
+                                    .astype(np.float32)).to(dev)
+            k = df.diff_fwd(dp, pvec, s)
+            g = df.diff_bwd(dp, pvec, s, gbar)
+            G = df.diff_bwd(dp, pvec, s, gbar, per_lane=True)
+            p = df.diff_fwd_plain(dp, pvec, s)
+            Gp = df.diff_bwd_plain(dp, pvec, s, gbar, per_lane=True)
+            torch.cuda.synchronize()
+            q_img, q_lane = q99_rel(k, p), lane_q99(G, Gp)
+            gp = Gp.sum(0)
+            gerr = (g - gp).abs()
+            over = int((gerr > GVEC_TOL * Gp.abs().sum(0)).sum())
+            print(f"phase 6 K2/K3 check 64x32x8 {sampler} seed {seed}: image "
+                  f"q99 rel {q_img:.3e}, max abs "
+                  f"{float((k - p).abs().max()):.3e}, bit-equal "
+                  f"{float((k == p).float().mean()):.4f}; per-pixel gradient "
+                  f"q99 {q_lane:.3e}, bit-equal rows "
+                  f"{float((G == Gp).all(1).float().mean()):.4f}; summed "
+                  f"gradient max abs {float(gerr.max()):.3e}, entries over "
+                  f"bound {over}", flush=True)
+            if not (bool(torch.isfinite(k).all())
+                    and bool(torch.isfinite(G).all())):
+                raise AssertionError("K2/K3 gave non-finite values")
+            if not (q_img < Q99_TOL and q_lane < Q99_TOL and over == 0):
+                raise AssertionError(
+                    f"K2/K3 disagree with their plain versions: image q99 "
+                    f"{q_img}, per-pixel gradient q99 {q_lane} (tolerance "
+                    f"{Q99_TOL}); {over} summed entries over {GVEC_TOL} of "
+                    f"their scale")
+
+
+def k1_variant_checks(scene, camera, dev: torch.device) -> None:
+    """Phase 12's checks: each K1 variant (one per integrator flags and
+    scene) against its plain version at 64x32x8, both samplers, seeds 3
+    and 11 (untimed, so run beside the plain pool)."""
+    scenes = {"cornell_vpt": scene, "medium_shell": SCENES["medium_shell"]()}
+    checked = set()
+    for label, integrator, sname, g in VARIANTS:
+        nee, dist, phys = wf.KERNEL_INTEGRATORS[integrator]
+        if (nee, dist, phys, sname, g) in checked:
+            print(f"phase 12 check {label}: the launches of an integrator "
+                  f"checked above (same flags and scene)", flush=True)
+            continue
+        checked.add((nee, dist, phys, sname, g))
+        sc_v = with_g(scenes[sname], g)
+        for sampler in ("random", "ld"):
+            for seed in (3, 11):
+                pk = wf.pack_scene(sc_v, camera, 64, 32, 8, max_bounces=8,
+                                   sampler=sampler, nee=nee, distance=dist,
+                                   physical=phys)
+                s = torch.tensor([seed], dtype=torch.int32, device=dev)
+                k = wf.render_tile(pk, s)
+                p = wf.render_tile_plain(pk, s)
+                equal = bool(torch.equal(k, p))
+                print(f"phase 12 check {label} 64x32x8 {sampler} seed {seed}:"
+                      f" bit-equal {equal}, q99 rel {q99_rel(k, p):.3e}",
+                      flush=True)
+                if not (equal and bool(torch.isfinite(k).all())):
+                    raise AssertionError(f"K1 {label} disagrees with its "
+                                         f"plain version ({sampler}, seed "
+                                         f"{seed})")
+
+
 def parse_args(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the vpt_torch "
@@ -3256,6 +3765,9 @@ def parse_args(argv=None):
     ap.add_argument("--geom-ext", action="store_true",
                     help="the card, the build and phase 18 alone (the "
                          "extended K4 instantiations and recover_camera)")
+    ap.add_argument("--geom-field", action="store_true",
+                    help="the card, the build and phase 19 alone (K4 in a "
+                         "density field, fit_geom_fd in a grid)")
     ap.add_argument("--recover-grid-ea", type=int, default=None,
                     metavar="STEPS",
                     help="the card, the build and tomo_quality_study.py's "
@@ -3272,6 +3784,8 @@ def main() -> int:
     plains = None
     if args.geom_ext:
         plains = PlainPool(geom_ext_specs())
+    elif args.geom_field:
+        plains = PlainPool(geom_field_specs())
     elif (args.recover_fog_multiview is None and args.recover_grid is None
             and args.recover_grid_ea is None):
         plains = PlainPool(plain_specs())
@@ -3335,6 +3849,13 @@ def run(args, plains: PlainPool | None) -> int:
         print(f"chip_smoke: partial run, {time.perf_counter() - t_start:.1f}"
               f" s", flush=True)
         return 0
+    if args.geom_field:
+        plains.wait()
+        records = geom_field_phases(card, dev, camera, plains)
+        print(json.dumps({"kernels": records}))
+        print(f"chip_smoke: partial run, {time.perf_counter() - t_start:.1f}"
+              f" s", flush=True)
+        return 0
     if args.recover_grid_ea is not None:
         rows = {dist: recover_grid(camera, card, steps=args.recover_grid_ea,
                                    reg_l1=2e-2, reg_tv=1e-2,
@@ -3374,7 +3895,10 @@ def run(args, plains: PlainPool | None) -> int:
             if not bool(torch.isfinite(k).all()) or not q < Q99_TOL:
                 raise AssertionError(f"K1 disagrees with its plain version: "
                                      f"q99 {q} (tolerance {Q99_TOL})")
-    # the main-frame plain versions are done before the first timing
+    # the untimed small-frame checks of phases 6 and 12 while the pool
+    # runs; the main-frame plain versions are done before the first timing
+    pair_small_checks(scene, camera, dev)
+    k1_variant_checks(scene, camera, dev)
     print(f"phases 1-3: {time.perf_counter() - t_start:.1f} s", flush=True)
     plains.wait()
 
@@ -3443,43 +3967,7 @@ def run(args, plains: PlainPool | None) -> int:
 
     print(f"phases 1-5: {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- phase 6: K2 and K3 against their plain versions, small frame
-    for sampler in ("random", "ld"):
-        for seed in (3, 11):
-            dp = df.pack_diff(scene, camera, 64, 32, 8, max_bounces=8,
-                              sampler=sampler)
-            pvec = df._flatten(df.pack_params(scene), S).to(dev)
-            s = torch.tensor([seed], dtype=torch.int32, device=dev)
-            gbar = torch.from_numpy(np.random.default_rng(seed)
-                                    .standard_normal((dp.npix, 3))
-                                    .astype(np.float32)).to(dev)
-            k = df.diff_fwd(dp, pvec, s)
-            g = df.diff_bwd(dp, pvec, s, gbar)
-            G = df.diff_bwd(dp, pvec, s, gbar, per_lane=True)
-            p = df.diff_fwd_plain(dp, pvec, s)
-            Gp = df.diff_bwd_plain(dp, pvec, s, gbar, per_lane=True)
-            torch.cuda.synchronize()
-            q_img, q_lane = q99_rel(k, p), lane_q99(G, Gp)
-            gp = Gp.sum(0)
-            gerr = (g - gp).abs()
-            over = int((gerr > GVEC_TOL * Gp.abs().sum(0)).sum())
-            print(f"phase 6 K2/K3 check 64x32x8 {sampler} seed {seed}: image "
-                  f"q99 rel {q_img:.3e}, max abs "
-                  f"{float((k - p).abs().max()):.3e}, bit-equal "
-                  f"{float((k == p).float().mean()):.4f}; per-pixel gradient "
-                  f"q99 {q_lane:.3e}, bit-equal rows "
-                  f"{float((G == Gp).all(1).float().mean()):.4f}; summed "
-                  f"gradient max abs {float(gerr.max()):.3e}, entries over "
-                  f"bound {over}", flush=True)
-            if not (bool(torch.isfinite(k).all())
-                    and bool(torch.isfinite(G).all())):
-                raise AssertionError("K2/K3 gave non-finite values")
-            if not (q_img < Q99_TOL and q_lane < Q99_TOL and over == 0):
-                raise AssertionError(
-                    f"K2/K3 disagree with their plain versions: image q99 "
-                    f"{q_img}, per-pixel gradient q99 {q_lane} (tolerance "
-                    f"{Q99_TOL}); {over} summed entries over {GVEC_TOL} of "
-                    f"their scale")
-
+    # (pair_small_checks, run in phase 3's slot beside the pool)
     print(f"phases 1-6: {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- phase 7: the fwd+bwd pair at the main-path size
     render = df.make_diff_renderer(scene, camera, cfg.width, cfg.height,
@@ -3780,33 +4268,8 @@ def run(args, plains: PlainPool | None) -> int:
             k1_ptxas.setdefault(entry_fn, []).append(" ".join(ln.split()))
     for fn, lines in sorted(k1_ptxas.items()):
         print(f"phase 12 ptxas {fn}: {' | '.join(lines)}", flush=True)
-    shell = SCENES["medium_shell"]()
-    scenes = {"cornell_vpt": scene, "medium_shell": shell}
-    checked = set()
-    for label, integrator, sname, g in VARIANTS:
-        nee, dist, phys = wf.KERNEL_INTEGRATORS[integrator]
-        if (nee, dist, phys, sname, g) in checked:
-            print(f"phase 12 check {label}: the launches of an integrator "
-                  f"checked above (same flags and scene)", flush=True)
-            continue
-        checked.add((nee, dist, phys, sname, g))
-        sc_v = with_g(scenes[sname], g)
-        for sampler in ("random", "ld"):
-            for seed in (3, 11):
-                pk = wf.pack_scene(sc_v, camera, 64, 32, 8, max_bounces=8,
-                                   sampler=sampler, nee=nee, distance=dist,
-                                   physical=phys)
-                s = torch.tensor([seed], dtype=torch.int32, device=dev)
-                k = wf.render_tile(pk, s)
-                p = wf.render_tile_plain(pk, s)
-                equal = bool(torch.equal(k, p))
-                print(f"phase 12 check {label} 64x32x8 {sampler} seed {seed}:"
-                      f" bit-equal {equal}, q99 rel {q99_rel(k, p):.3e}",
-                      flush=True)
-                if not (equal and bool(torch.isfinite(k).all())):
-                    raise AssertionError(f"K1 {label} disagrees with its "
-                                         f"plain version ({sampler}, seed "
-                                         f"{seed})")
+    # (their checks at 64x32x8: k1_variant_checks, in phase 3's slot)
+    scenes = {"cornell_vpt": scene, "medium_shell": SCENES["medium_shell"]()}
     # each variant through the public API at the main frame, held to its
     # plain version there bit for bit (whose counters give the frame's work:
     # phase 4's for explicit_free), then timed
@@ -4068,6 +4531,11 @@ def run(args, plains: PlainPool | None) -> int:
     # ---- phase 18: the rest of the dual kernel K4: equi-angular, the
     # implicit and physical estimators, a baked HG g, shells; recover_camera
     records += geom_ext_phases(card, dev, camera, plains)
+    print(f"phases 1-18: {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- phase 19: the dual kernel K4 in a density field (exp_height and
+    # blobs in dual form, a voxel grid in the primal_only mode)
+    records += geom_field_phases(card, dev, camera, plains)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

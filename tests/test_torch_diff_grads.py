@@ -160,14 +160,19 @@ def _grid_scene():
                                              (1, 1, 1)))
 
 
+# vpt's reason for refusing K4's tangent planes in a voxel grid
+GRID_DUAL = "the geometric DUAL planes would need dual trilinear gathers"
+
+
 # the traced and baked HG g run (tests/test_torch_hg_diff.py,
 # test_torch_multiview.py), and so do voxel grids with diff_grid
 # (tests/test_torch_grid_diff.py); their cases check what stays refused
 # with them: equi-angular, physical, material-3 shells, an HG phase in a
 # grid, the dual kernel in a grid, vpt's engine backend of the grid trainer
-# what stays refused: the shard variant (item 8), K4's dual field forms
-# (item 5.3), the engine (item 9); vpt's own refusal of the non-physical implicit pair
-# names the engine too
+# what stays refused: the shard variant (item 8), the engine (item 9), K4
+# with a tangent plane in a voxel grid (vpt's reason, GRID_DUAL: K4 takes
+# the analytic fields in dual form and a grid in the primal_only mode); vpt's
+# own refusal of the non-physical implicit pair names the engine too
 REFUSED = {
     "diff_g": lambda: df.make_diff_renderer(
         SCENE, CAM, 8, 4, 1, diff_g=True, distance="equiangular",
@@ -198,14 +203,17 @@ REFUSED = {
     "diff_blobs_fog_scene": lambda: df.make_diff_renderer(
         vpt_torch.scene.scene.foggy_cornell(), CAM, 8, 4, 1,
         diff_blobs=True, device="cpu"),
-    # K4 runs every estimator, a baked g and shells
-    # (tests/test_torch_geom_ext.py); its dual field forms are item 5.3
-    "grid_field": lambda: vpt_torch.kernels.geom.make_geom_renderer(
-        _grid_scene(), CAM, 8, 4, 1, sphere=None, primal_only=True,
-        device="cpu"),
-    "geom_fog": lambda: vpt_torch.kernels.geom.make_geom_renderer(
-        vpt_torch.scene.scene.foggy_cornell(), CAM, 8, 4, 1, sphere=8,
-        device="cpu"),
+    # K4 runs every estimator, a baked g, shells and the analytic fields
+    # (tests/test_torch_geom_ext.py, test_torch_geom_field.py); in a grid
+    # only its primal_only mode: the light's tangents, and on foggy_cornell's
+    # geometry the camera's, are refused
+    "grid_field": (lambda: vpt_torch.kernels.geom.make_geom_renderer(
+        _grid_scene(), CAM, 8, 4, 1, sphere=8, cam_grads=False,
+        device="cpu"), GRID_DUAL),
+    "geom_fog": (lambda: vpt_torch.kernels.geom.make_geom_renderer(
+        dataclasses.replace(vpt_torch.scene.scene.foggy_cornell(),
+                            medium=_grid_scene().medium), CAM, 8, 4, 1,
+        sphere=None, cam_grads=True, device="cpu"), GRID_DUAL),
 }
 
 
@@ -240,8 +248,10 @@ def test_misuse_raises_value_error(case):
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_unsupported_raises_not_implemented(case):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        REFUSED[case]()
+    make, match = (REFUSED[case] if isinstance(REFUSED[case], tuple)
+                   else (REFUSED[case], "ROADMAP Queue 1 item"))
+    with pytest.raises(NotImplementedError, match=match):
+        make()
 
 
 def test_cuda_renderer_raises_without_a_card():

@@ -105,11 +105,22 @@ out = {}
 KEYS = ("center", "cam_origin", "fov", "sigma_a", "sigma_s", "cam_dir")
 flat = lambda d: np.concatenate([np.asarray(d[k], np.float32).reshape(-1)
                                  for k in KEYS])
+def density(spec):   # a task's density field, as make() builds the port's
+    import vpt.media.density as vdn
+    if spec is None:
+        return None
+    if spec["kind"] == "exp_height":
+        return vdn.exp_height(*spec["args"])
+    if spec["kind"] == "blobs":
+        return vdn.blobs(spec["rows"], spec["majorant"])
+    return vdn.grid(np.asarray(spec["values"], np.float32), **spec["kw"])
+
 for task in job["tasks"]:
     n = task["name"]
     scene = vpt.make_scene([tuple(s) for s in task["spheres"]],
                            sigma_a=task["sigma"][0], sigma_s=task["sigma"][1],
-                           g=task.get("g", 0.0))
+                           g=task.get("g", 0.0),
+                           density=density(task.get("density")))
     cam = vpt.default_camera()
     kw = task["kw"]
     made.clear()
@@ -226,9 +237,23 @@ np.savez(job["out"], **out)
 """
 
 
-def make(spheres, sigma, g=0.0):
+def make(spheres, sigma, g=0.0, density=None):
+    """The port's scene of a task; density: None, {"kind": "exp_height",
+    "args": (k, y0, majorant)}, {"kind": "blobs", "rows": ..., "majorant":
+    m} or {"kind": "grid", "values": nested (nx, ny, nz) list, "kw": vpt's
+    and the port's grid() keywords}, built alike on both sides."""
+    from vpt_torch.media import density as dfn
+    if density is None:
+        fld = None
+    elif density["kind"] == "exp_height":
+        fld = dfn.exp_height(*density["args"])
+    elif density["kind"] == "blobs":
+        fld = dfn.blobs(density["rows"], density["majorant"])
+    else:
+        fld = dfn.grid(np.asarray(density["values"], np.float32),
+                       **density["kw"])
     return vpt_torch.make_scene(list(spheres), sigma_a=sigma[0],
-                                sigma_s=sigma[1], g=g)
+                                sigma_s=sigma[1], g=g, density=fld)
 
 
 def vpt_reference(tasks, inputs):
@@ -256,7 +281,8 @@ def vpt_reference(tasks, inputs):
 
 def port_render(task, device="cpu"):
     """The port's (img, tang) for a task, through make_geom_renderer."""
-    scene = make(task["spheres"], task["sigma"], task.get("g", 0.0))
+    scene = make(task["spheres"], task["sigma"], task.get("g", 0.0),
+                 task.get("density"))
     cam = vpt_torch.default_camera()
     render = gm.make_geom_renderer(scene, cam, task["width"], task["height"],
                                    task["spp"], device=device, **task["kw"])

@@ -36,8 +36,8 @@ Criteria (tests/test_torch_geom.py's):
 Port-only (no vpt compile): the K = 0 primal bit-equal to the K = 7 primal
 under each estimator; grad_render's VJP against the tangent contraction;
 the draws per iteration; the GeomParams layout; the refusal that remains (a
-density field); fixed-seed central FD of an equi-angular light-centre
-tangent on the one-sphere medium scene.
+voxel grid with a tangent plane, with vpt's reason); fixed-seed central FD
+of an equi-angular light-centre tangent on the one-sphere medium scene.
 """
 import dataclasses
 
@@ -45,6 +45,7 @@ import numpy as np
 import pytest
 import torch
 
+import vpt
 import vpt_torch
 from vpt_torch.kernels import geom as gm
 from vpt_torch.kernels import prims as tp
@@ -224,14 +225,36 @@ def test_geom_params_layout():
         assert gp.ext == any(tail[i] != v for i, v in enumerate([0, 1, 0, 0]))
 
 
-@pytest.mark.parametrize("name", ["foggy_cornell", "blob_cloud"])
+@pytest.mark.parametrize("blocks", [dict(sphere=2, cam_grads=False),
+                                    dict(sphere=None, cam_grads=True)])
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
-def test_density_field_is_refused(name, device):
-    """The dual field forms are the next slice (ROADMAP Queue 1 item 5.3),
-    refused before any device check."""
-    with pytest.raises(NotImplementedError, match="item 5.3"):
-        gm.make_geom_renderer(SCENES[name](), vpt_torch.default_camera(), 8,
-                              4, 1, sphere=0, device=device)
+def test_grid_with_tangents_is_refused(blocks, device):
+    """What stays refused: a voxel grid with a tangent plane (the light's
+    centre, or the camera), before any device check, with vpt's reason
+    (vpt/kernels/geom.py:141-149: vpt raises it the same way); the
+    primal_only renderer of the same scene is built."""
+    from vpt.kernels.geom import make_geom_renderer as vpt_make
+    from vpt.media.density import grid as vpt_grid
+    from test_torch_geom import make
+    from test_torch_geom_field import BLOB_SPHERES, grid_spec
+    spec = grid_spec(4)
+    scene = make(BLOB_SPHERES, (0.004, 0.04), 0.0, spec)
+    cam = vpt_torch.default_camera()
+    with pytest.raises(NotImplementedError) as port:
+        gm.make_geom_renderer(scene, cam, 8, 4, 1, device=device, **blocks)
+    vscene = vpt.make_scene(BLOB_SPHERES, 0.004, 0.04,
+                            density=vpt_grid(
+                                np.asarray(spec["values"], np.float32),
+                                **spec["kw"]))
+    with pytest.raises(NotImplementedError) as ref:
+        vpt_make(vscene, vpt.default_camera(), 8, 4, 1, interpret=True,
+                 **blocks)
+    # vpt's reason, word for word up to its list of where grids run
+    head = str(ref.value).split(";")[0]
+    assert str(port.value).startswith(head + ";") and "DUAL planes" in head
+    r = gm.make_geom_renderer(scene, cam, 8, 4, 1, primal_only=True,
+                              device="cpu", **blocks)
+    assert r.K == 0 and r.packed.entry == "geom_field_k0"
 
 
 def test_equiangular_light_tangent_matches_fixed_seed_fd():

@@ -127,20 +127,27 @@ def test_exponential_decay_matches_optax():
         assert np.isclose(ours(count), float(theirs(count)), rtol=1e-6)
 
 
+def _grid_scene():
+    from test_torch_geom import make
+    from test_torch_geom_field import BLOB_SPHERES, grid_spec
+    return make(BLOB_SPHERES, (0.004, 0.04), 0.0, grid_spec(4))
+
+
 REFUSED = {
-    # the analytic fields render and train on K1-K3; K4's dual field forms
-    # are item 5.3 (the estimators, a baked HG g and material-3 shells run:
-    # tests/test_torch_geom_ext.py)
-    "density_field": lambda: gm.make_geom_renderer(
-        vpt_torch.scene.scene.foggy_cornell(), CAM, 8, 4, 1, sphere=8,
-        device="cpu"),
+    # K4 takes the analytic fields in dual form and a voxel grid in the
+    # primal_only mode (tests/test_torch_geom_field.py); a grid with a
+    # tangent plane stays refused, with vpt's reason
+    "density_field": (lambda: gm.make_geom_renderer(
+        _grid_scene(), CAM, 8, 4, 1, sphere=2, device="cpu"),
+        "the geometric DUAL planes would need dual trilinear gathers"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_unsupported_raises_not_implemented(case):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        REFUSED[case]()
+    make, match = REFUSED[case]
+    with pytest.raises(NotImplementedError, match=match):
+        make()
 
 
 @pytest.mark.parametrize("kw,match", [

@@ -12,7 +12,8 @@ transcendentals differ by an ulp on some inputs). K3's per-pixel gradient
 vectors are held against diff_bwd_plain's per-lane rows by the same
 criterion, per entry column: quantile over lanes of the largest
 |a-b| / max(1, |column|max) below 1e-4. K4's planes (geom_pixel<K>) are
-held against geom_fwd_plain's: the image planes by the image criterion,
+held against geom_fwd_plain's (in a density field too, geom_pixel<K,
+true, true>): the image planes by the image criterion,
 each tangent plane by q99 of |a-b| below 1e-4 of the plane's scale. The
 grid pair's voxel gradient (diff_grid) is held to the plain version's by
 q99 over voxels of |a-b| below 1e-4 of max(1, the largest voxel's sum of
@@ -108,6 +109,10 @@ def host_lib():
                                      ctypes.c_int, ctypes.c_int,
                                      ctypes.c_void_p]
     so.vpt_geom_fwd_host.restype = ctypes.c_int
+    so.vpt_geom_field_host.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                       ctypes.c_int, ctypes.c_void_p,
+                                       ctypes.c_void_p]
+    so.vpt_geom_field_host.restype = ctypes.c_int
     return so
 
 
@@ -592,6 +597,51 @@ def test_host_build_of_geom_ext_matches_plain(host_lib, case):
     out = np.full((gp.planes, gp.npix), np.nan, np.float32)
     assert host_lib.vpt_geom_fwd_host(words.ctypes.data, theta.data_ptr(),
                                       SEED, int(gp.ext), out.ctypes.data) == 0
+    ref = gm.geom_fwd_plain(gp, theta,
+                            torch.tensor([SEED], dtype=torch.int32)).numpy()
+    _geom_planes_match(gp, out, ref)
+
+
+# K4 in a density field (geom_pixel<K, true, true>, csrc/geom_field_k<K>.cu):
+# (K, sphere, cam_grads, primal_only, scene, HG g, estimator, sampler); the
+# grid (K = 0 only) is test_torch_geom_field.py's 8^3 xy-nearest one
+GEOM_FIELD_CASES = [
+    (7, 8, True, False, "foggy_cornell", 0.0, {}, "random"),
+    (3, 8, False, False, "foggy_cornell", 0.5, EA, "ld"),
+    (4, None, True, False, "blob_cloud", 0.0, {}, "random"),
+    (0, 2, False, True, "blob_cloud", 0.0, EA, "ld"),
+    (0, 2, False, True, "grid", 0.0, {}, "random"),
+    (0, 2, False, True, "grid", 0.0, EA, "ld"),
+]
+
+
+@pytest.mark.parametrize("case", GEOM_FIELD_CASES, ids=[
+    f"K{c[0]}-{c[4]}-g{c[5]}-{'-'.join(f'{k}={v}' for k, v in c[6].items())}"
+    f"-{c[7]}" for c in GEOM_FIELD_CASES])
+def test_host_build_of_geom_field_matches_plain(host_lib, case):
+    K, sphere, cam, primal, name, g, est, sampler = case
+    if name == "grid":
+        from test_torch_geom import make
+        from test_torch_geom_field import BLOB_SPHERES, grid_spec
+        scene = make(BLOB_SPHERES, (0.004, 0.04), g, grid_spec())
+    else:
+        scene = vpt_torch.SCENES[name]()
+        scene = dataclasses.replace(scene, medium=dataclasses.replace(
+            scene.medium, g=torch.tensor(g)))
+    cam_ = vpt_torch.default_camera()
+    gp = gm.pack_geom(scene, cam_, 12, 8, 2, sphere=sphere, cam_grads=cam,
+                      primal_only=primal, max_bounces=5, sampler=sampler,
+                      **est)
+    assert gp.K == K and gp.field and gp.entry == f"geom_field_k{K}"
+    words = np.ascontiguousarray(gp.words())
+    assert words.size == host_lib.vpt_geom_params_words()
+    theta = gm.flatten_theta(gm.pack_theta(scene, cam_, sphere)).contiguous()
+    tab = (None if gp.pk.grid is None
+           else np.ascontiguousarray(gp.pk.grid.tab.numpy()))
+    out = np.full((gp.planes, gp.npix), np.nan, np.float32)
+    assert host_lib.vpt_geom_field_host(
+        words.ctypes.data, theta.data_ptr(), SEED,
+        None if tab is None else tab.ctypes.data, out.ctypes.data) == 0
     ref = gm.geom_fwd_plain(gp, theta,
                             torch.tensor([SEED], dtype=torch.int32)).numpy()
     _geom_planes_match(gp, out, ref)

@@ -190,6 +190,10 @@ def _render(scene=None, **cfg):
                                                    **cfg), device="cpu")
 
 
+# vpt's reason for refusing K4's tangent planes in a voxel grid
+GRID_DUAL = "the geometric DUAL planes would need dual trilinear gathers"
+
+
 UNSUPPORTED = {
     "engine_integrator": lambda: _render(integrator="vpt3"),
     "engine_equiangular_physical": lambda: _render(
@@ -209,20 +213,30 @@ UNSUPPORTED = {
     "renderer_persistent": lambda: vpt_torch.RenderConfig(renderer="persistent"),
     "renderer_scan": lambda: vpt_torch.RenderConfig(renderer="scan"),
     # the density fields render in K1 (tests/test_torch_hetero.py,
-    # test_torch_grid.py), the dual kernel's field forms do not (item 5.3),
-    # not even for a grid loaded from vpt's scene file in primal mode
-    "foggy_cornell": lambda: gm.pack_geom(
-        tscene.foggy_cornell(), vpt_torch.default_camera(), 8, 4, 1,
-        sphere=8),
-    "blob_cloud": lambda: gm.pack_geom(
-        tscene.blob_cloud(), vpt_torch.default_camera(), 8, 4, 1, sphere=None,
-        primal_only=True),
-    "density_file": lambda: gm.pack_geom(scene_from_dict(vpt_scene_to_dict(
+    # test_torch_grid.py) and in the dual kernel (test_torch_geom_field.py),
+    # a voxel grid there only in the primal_only mode: packing the dual
+    # kernel with a tangent plane in a grid is refused with vpt's reason, on
+    # foggy_cornell's and blob_cloud's spheres and for a grid loaded from
+    # vpt's scene file
+    "foggy_cornell": (lambda: gm.pack_geom(
+        _in_grid(tscene.foggy_cornell()), vpt_torch.default_camera(), 8, 4,
+        1, sphere=8), GRID_DUAL),
+    "blob_cloud": (lambda: gm.pack_geom(
+        _in_grid(tscene.blob_cloud()), vpt_torch.default_camera(), 8, 4, 1,
+        sphere=2, cam_grads=False), GRID_DUAL),
+    "density_file": (lambda: gm.pack_geom(scene_from_dict(vpt_scene_to_dict(
         dataclasses.replace(vpt.cornell_vpt(), medium=dataclasses.replace(
             vpt.cornell_vpt().medium, density=vpt_density.grid(
                 np.ones((2, 2, 2)), (0, 0, 0), (1, 1, 1))))))[0],
-        vpt_torch.default_camera(), 8, 4, 1, sphere=None, primal_only=True),
+        vpt_torch.default_camera(), 8, 4, 1, sphere=None), GRID_DUAL),
 }
+
+
+def _in_grid(scene):
+    """The scene in a 2^3 voxel grid."""
+    return dataclasses.replace(scene, medium=dataclasses.replace(
+        scene.medium, density=vpt_torch.media.density.grid(
+            np.ones((2, 2, 2)), (0, 0, 0), (1, 1, 1))))
 
 
 @pytest.mark.parametrize("integrator", sorted(wf.KERNEL_INTEGRATORS))
@@ -243,8 +257,10 @@ def test_render_dispatches_every_kernel_integrator(integrator):
 
 @pytest.mark.parametrize("case", sorted(UNSUPPORTED))
 def test_unsupported_raises_not_implemented(case):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        UNSUPPORTED[case]()
+    make, match = (UNSUPPORTED[case] if isinstance(UNSUPPORTED[case], tuple)
+                   else (UNSUPPORTED[case], "ROADMAP Queue 1 item"))
+    with pytest.raises(NotImplementedError, match=match):
+        make()
 
 
 def test_port_imports_no_jax():

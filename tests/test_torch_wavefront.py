@@ -23,7 +23,17 @@ The subprocess also runs with XLA's Eigen thread pool off
 (--xla_cpu_multi_thread_eigen=false): the differentiable pair's reference
 of tests/test_torch_hetero_diff.py came out bit for bit the same with it
 and took 26 % less CPU time (241 s against 326 s), CPU that the other
-test files share.
+test files share. It runs with XLA:CPU's fusion emitters off
+(--xla_cpu_use_fusion_emitters=false) too: every reference of the port's
+test files came out with the same kernel outputs bit for bit (images,
+gradient vectors, tangent planes, voxel gradients, updated parameters),
+and only the means XLA reduces outside the kernels (a train step's loss,
+an FD step's probe losses) moved, by an ulp (1.0e-7 relative for
+tests/test_torch_diff.py's loss); its compiles took 35-60 % less CPU time
+(the "random" pair 205 -> 134 CPU-s, tests/test_torch_geom.py's K4 315 ->
+125 CPU-s, a field K4 96 -> 39 CPU-s of XLA compile).
+tests/torch_reference_flags.py re-checks it: it runs each reference
+without and with the flag and compares their outputs.
 """
 import json
 import os
@@ -109,11 +119,13 @@ REFERENCE_TIMEOUT_S = 1470
 
 def reference_env() -> dict:
     """The environment of a vpt reference subprocess (see the module
-    docstring): XLA:CPU, code generation capped at AVX, no Eigen pool."""
+    docstring): XLA:CPU, code generation capped at AVX, no Eigen pool, no
+    fusion emitters."""
     return dict(os.environ, JAX_PLATFORMS="cpu",
                 XLA_FLAGS=(os.environ.get("XLA_FLAGS", "")
                            + " --xla_cpu_max_isa=AVX"
-                           + " --xla_cpu_multi_thread_eigen=false").strip())
+                           + " --xla_cpu_multi_thread_eigen=false"
+                           + " --xla_cpu_use_fusion_emitters=false").strip())
 
 
 def jax_reference(jobs, full=False):

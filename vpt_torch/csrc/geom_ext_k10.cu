@@ -6,7 +6,7 @@
 namespace vpt {
 namespace geom {
 
-VPT_GEOM_EXT_LAUNCHER(10) { return launch_ext<10>(G, theta, seed, base, n_out, out, stream); }
+VPT_GEOM_INSTANCE(10, true, false);
 
 }  // namespace geom
 }  // namespace vpt

@@ -6,7 +6,7 @@
 namespace vpt {
 namespace geom {
 
-VPT_GEOM_EXT_LAUNCHER(3) { return launch_ext<3>(G, theta, seed, base, n_out, out, stream); }
+VPT_GEOM_INSTANCE(3, true, false);
 
 }  // namespace geom
 }  // namespace vpt

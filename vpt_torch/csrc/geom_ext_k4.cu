@@ -6,7 +6,7 @@
 namespace vpt {
 namespace geom {
 
-VPT_GEOM_EXT_LAUNCHER(4) { return launch_ext<4>(G, theta, seed, base, n_out, out, stream); }
+VPT_GEOM_INSTANCE(4, true, false);
 
 }  // namespace geom
 }  // namespace vpt

@@ -6,7 +6,7 @@
 namespace vpt {
 namespace geom {
 
-VPT_GEOM_EXT_LAUNCHER(7) { return launch_ext<7>(G, theta, seed, base, n_out, out, stream); }
+VPT_GEOM_INSTANCE(7, true, false);
 
 }  // namespace geom
 }  // namespace vpt

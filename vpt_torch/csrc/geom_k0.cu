@@ -4,7 +4,7 @@
 namespace vpt {
 namespace geom {
 
-VPT_GEOM_LAUNCHER(0) { return launch<0>(G, theta, seed, base, n_out, out, stream); }
+VPT_GEOM_INSTANCE(0, false, false);
 
 }  // namespace geom
 }  // namespace vpt

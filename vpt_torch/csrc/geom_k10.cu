@@ -4,7 +4,7 @@
 namespace vpt {
 namespace geom {
 
-VPT_GEOM_LAUNCHER(10) { return launch<10>(G, theta, seed, base, n_out, out, stream); }
+VPT_GEOM_INSTANCE(10, false, false);
 
 }  // namespace geom
 }  // namespace vpt

@@ -4,7 +4,7 @@
 namespace vpt {
 namespace geom {
 
-VPT_GEOM_LAUNCHER(3) { return launch<3>(G, theta, seed, base, n_out, out, stream); }
+VPT_GEOM_INSTANCE(3, false, false);
 
 }  // namespace geom
 }  // namespace vpt

@@ -4,7 +4,7 @@
 namespace vpt {
 namespace geom {
 
-VPT_GEOM_LAUNCHER(4) { return launch<4>(G, theta, seed, base, n_out, out, stream); }
+VPT_GEOM_INSTANCE(4, false, false);
 
 }  // namespace geom
 }  // namespace vpt

@@ -4,7 +4,7 @@
 namespace vpt {
 namespace geom {
 
-VPT_GEOM_LAUNCHER(6) { return launch<6>(G, theta, seed, base, n_out, out, stream); }
+VPT_GEOM_INSTANCE(6, false, false);
 
 }  // namespace geom
 }  // namespace vpt

@@ -4,7 +4,7 @@
 namespace vpt {
 namespace geom {
 
-VPT_GEOM_LAUNCHER(7) { return launch<7>(G, theta, seed, base, n_out, out, stream); }
+VPT_GEOM_INSTANCE(7, false, false);
 
 }  // namespace geom
 }  // namespace vpt

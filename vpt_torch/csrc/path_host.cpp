@@ -164,25 +164,27 @@ extern "C" void vpt_diff_ext_host(const void* params, const float* pvec, int see
 
 extern "C" int vpt_geom_params_words(void) { return (int)(sizeof(GeomParams) / 4); }
 
-template <int K, bool kExt>
-static void geom_host(const GeomParams& G, const float* theta, int seed, float* out) {
+template <int K, bool kExt, bool kField>
+static void geom_host(const GeomParams& G, const float* theta, int seed, float* out,
+                      const uint32_t* tab) {
   const int npix = G.base.width * G.base.height;
   float L[3 * (1 + K)];
   for (int p = 0; p < npix; ++p) {
-    vpt::geom::geom_pixel<K, kExt>(G, theta, (uint32_t)p, p, seed, L);
+    vpt::geom::geom_pixel<K, kExt, kField>(G, theta, (uint32_t)p, p, seed, L, tab);
     for (int j = 0; j < 3 * (1 + K); ++j) out[(size_t)j * npix + p] = L[j];
   }
 }
 
-template <bool kExt>
-static int geom_host_k(const GeomParams& G, const float* theta, int seed, float* out) {
+template <bool kExt, bool kField = false>
+static int geom_host_k(const GeomParams& G, const float* theta, int seed, float* out,
+                       const uint32_t* tab = nullptr) {
   switch (G.n_tan) {
-    case 0: geom_host<0, kExt>(G, theta, seed, out); return 0;
-    case 3: geom_host<3, kExt>(G, theta, seed, out); return 0;
-    case 4: geom_host<4, kExt>(G, theta, seed, out); return 0;
-    case 6: geom_host<6, kExt>(G, theta, seed, out); return 0;
-    case 7: geom_host<7, kExt>(G, theta, seed, out); return 0;
-    case 10: geom_host<10, kExt>(G, theta, seed, out); return 0;
+    case 0: geom_host<0, kExt, kField>(G, theta, seed, out, tab); return 0;
+    case 3: geom_host<3, kExt, kField>(G, theta, seed, out, tab); return 0;
+    case 4: geom_host<4, kExt, kField>(G, theta, seed, out, tab); return 0;
+    case 6: geom_host<6, kExt, kField>(G, theta, seed, out, tab); return 0;
+    case 7: geom_host<7, kExt, kField>(G, theta, seed, out, tab); return 0;
+    case 10: geom_host<10, kExt, kField>(G, theta, seed, out, tab); return 0;
     default: return -1;
   }
 }
@@ -196,4 +198,15 @@ extern "C" int vpt_geom_fwd_host(const void* params, const float* theta, int see
   GeomParams G;
   memcpy(&G, params, sizeof G);
   return ext ? geom_host_k<true>(G, theta, seed, out) : geom_host_k<false>(G, theta, seed, out);
+}
+
+// K4's path code in a density field (geom_pixel<K, true, true>,
+// csrc/geom_field_k<K>.cu): tab a voxel grid's packed table (K = 0 only) or
+// NULL for an analytic field; out as vpt_geom_fwd_host's
+extern "C" int vpt_geom_field_host(const void* params, const float* theta, int seed,
+                                   const uint32_t* tab, float* out) {
+  GeomParams G;
+  memcpy(&G, params, sizeof G);
+  if (tab != nullptr && G.n_tan != 0) return -1;
+  return geom_host_k<true, true>(G, theta, seed, out, tab);
 }

@@ -15,7 +15,9 @@ make_geom_train_step / fit_geom take the A/B loss's gradient from the
 tangent planes (grad_render); make_fd_geom_train_step / fit_geom_fd take
 common-random-number central differences of the A/B loss on K4's
 primal_only mode (4 launches per differentiated dimension), which keeps the
-boundary terms the dual estimator drops.
+boundary terms the dual estimator drops. Both take any medium K4 takes: in
+an analytic density field the dual field forms, in a voxel grid only the
+FD path (K4 refuses a grid's tangent planes with vpt's reason).
 
 make_multiview_train_step / fit_multiview run V pairs, one per camera,
 that share one parameter dict and average their A/B losses, optionally

@@ -156,6 +156,10 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, entry)
         fn.argtypes = [vp, vp, vp, ci, ci, vp, vp]
         fn.restype = ci
+    # ... and in a density field (csrc/geom_field_k<K>.cu), with a voxel
+    # grid's table (or NULL) before the output
+    lib.vpt_geom_fwd_field.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp]
+    lib.vpt_geom_fwd_field.restype = ci
     lib.vpt_geom_params_words.argtypes = []
     lib.vpt_geom_params_words.restype = ctypes.c_int
     lib.vpt_error_string.argtypes = [ctypes.c_int]

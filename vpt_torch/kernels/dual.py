@@ -1,8 +1,8 @@
 """Forward-mode dual numbers for the geometric-gradient kernel's plain version.
 
-Counterpart of ``vpt/kernels/dual.py``, restricted to what kernels/geom.py
-uses in a homogeneous medium (every estimator, a baked HG g, material-3
-shells). `D` carries a primal value
+Counterpart of ``vpt/kernels/dual.py``: what kernels/geom.py uses (every
+estimator, a baked HG g, material-3 shells, the analytic density fields in
+dual form and a voxel grid on the primal lanes). `D` carries a primal value
 (a lane tensor or a 0-dim tensor) and a tuple of K tangent components, one
 per simultaneous directional derivative.
 
@@ -25,9 +25,6 @@ bottom take the packed scene `pk` (kernels/wavefront.Packed: r*r and the
 per-sphere epsilon folded in float64, as vpt folds them) and `ctr_tab`, the
 per-sphere centres: python floats for baked spheres, 0-dim tensors or D
 for the sphere whose centre comes from theta.
-
-Not here yet (ROADMAP Queue 1 item 5.3): the dual field_* forms of a
-density field.
 """
 from __future__ import annotations
 
@@ -40,7 +37,8 @@ from .prims import F32EPS, GLASS_ETA_I, GLASS_ETA_T, TWO_PI
 
 __all__ = ["D", "val", "tan", "where", "sqrt", "rsqrt", "exp", "absd",
            "sin", "cos", "maximum", "minimum", "clip", "log1p", "atan_poly",
-           "atan2_posx", "tan_sc", "hg_phase", "hg_dir"]
+           "atan2_posx", "tan_sc", "hg_phase", "hg_dir", "erf_poly",
+           "field_density", "field_tau", "field_sample_free"]
 
 
 def val(x):
@@ -633,8 +631,7 @@ def nearest_id_t(pk, ctr_tab, o, d):
 def centre_of(pk, ctr_tab, sid):
     """The centre of sphere `sid` per lane (zeros where sid == -1), dual
     where the centre comes from theta."""
-    rows = pr.per_sphere(torch.tensor(pk.c, dtype=torch.float32,
-                                      device=sid.device), sid)
+    rows = pr.per_sphere(pk.centre_table(sid.device), sid)
     c = [rows[:, 0], rows[:, 1], rows[:, 2]]
     for s, ctr in enumerate(ctr_tab):
         if not all(isinstance(x, float) for x in ctr):
@@ -662,3 +659,126 @@ def visibility_from(pk, ctr_tab, light, x):
     hit, t, _ = nearest_id_t(pk, ctr_tab, light, d)
     vis = (val(t) > val(dist) * (1.0 - 1024.0 * F32EPS)) | ~hit
     return vis, dist, d
+
+
+# ---------------------------------------------------------------------------
+# density fields (vpt dual.py:683-790): positions, directions and distances
+# dual, the field's parameters baked (prims.FieldConsts), sigma_t plain. A
+# voxel grid (prims.GridConsts) runs prims' plain march and trilinear on the
+# primal lanes: vpt's K4 takes a grid only in its primal_only mode.
+# ---------------------------------------------------------------------------
+
+def erf_poly(x):
+    """A&S 7.1.26 erf (prims.erf_poly) with the sign detached; the rational
+    and exp chains carry tangents."""
+    s = torch.where(val(x) >= 0.0, 1.0, -1.0)
+    a = absd(x)
+    t = 1.0 / (1.0 + 0.3275911 * a)
+    y = 1.0 - t * (0.254829592 + t * (-0.284496736 + t * (
+        1.421413741 + t * (-1.453152027 + t * 1.061405429)))) * exp(-a * a)
+    return s * y
+
+
+def _primal3(x):
+    return [val(c) for c in x]
+
+
+def field_density(fc, x):
+    """Density multiplier d(x); x is a list of 3 dual-or-plain lanes."""
+    if fc.kind == "grid":
+        return pr.grid_density(fc, _primal3(x))
+    if fc.kind == "exp_height":
+        return exp(clip(-fc.k * (x[1] - fc.y0), -80.0, 80.0))
+    dens = None
+    for b in fc.blobs:
+        dx = [x[0] - b.cx, x[1] - b.cy, x[2] - b.cz]
+        g = b.w * exp(-0.5 * dot3(dx, dx) * b.dens_c)
+        dens = g if dens is None else dens + g
+    return dens
+
+
+def field_tau(fc, sigma_t, o, d, t):
+    """Closed-form optical depth sigma_t * int_0^t density along unit d
+    with dual o, d and t (prims.field_tau's rails: exp_height's +-80
+    exponent clip, its constant-density limit, the |t| min(d0, d_end) floor
+    odd in t and the +-TAU_CAP clip). A grid's is prims' signed march."""
+    if fc.kind == "grid":
+        return pr.field_tau(fc, val(sigma_t), _primal3(o), _primal3(d),
+                            val(t))
+    if fc.kind == "exp_height":
+        d0 = exp(clip(-fc.k * (o[1] - fc.y0), -80.0, 80.0))
+        d_end = exp(clip(-fc.k * (o[1] + t * d[1] - fc.y0), -80.0, 80.0))
+        m = fc.k * d[1]
+        const = torch.abs(val(m)) < 1e-6
+        safe_m = where(const, 1.0, m)
+        base = where(const, d0 * t, (d0 - d_end) / safe_m)
+        lb = t * minimum(d0, d_end)
+        tau = where(val(t) >= 0.0, maximum(base, lb), minimum(base, lb))
+        return sigma_t * clip(tau, -pr.TAU_CAP, pr.TAU_CAP)
+    tau = None
+    for b in fc.blobs:
+        oc = [b.cx - o[0], b.cy - o[1], b.cz - o[2]]
+        a = dot3(oc, d)
+        b2 = maximum(dot3(oc, oc) - a * a, 0.0)
+        amp = exp(-0.5 * b2 * b.tau_c) * b.amp_c
+        hi = erf_poly((t - a) * b.kh)
+        lo = erf_poly(a * b.kh)
+        g = amp * (hi + lo)
+        tau = g if tau is None else tau + g
+    return sigma_t * tau
+
+
+def _div_guarded(num, a):
+    """num / a as D's division (one reciprocal inv = 1/a, the quotient q),
+    except where a's tangent term a.t (-q inv) overflows f32: there vpt's
+    tangent is inf or NaN (0 * inf where a.t is 0), and the term is taken
+    as -(q (a.t inv)). No finite value changes."""
+    q = num / a
+    at = tan(a)
+    if at is None:
+        return q
+    inv = 1.0 / val(a)
+    over = ~torch.isfinite(-val(q) * inv)
+    nt = tan(num)
+    t = []
+    for k, x in enumerate(tan(q)):
+        if at[k] is None:
+            t.append(x)
+            continue
+        alt = -(val(q) * (at[k] * inv))
+        if nt is not None and nt[k] is not None:
+            alt = nt[k] * inv + alt
+        t.append(torch.where(over, alt, x))
+    return D(val(q), tuple(t))
+
+
+def field_sample_free(fc, sigma_t, o, d, u, rng, t_cap, active=None,
+                      work=None):
+    """Free-flight distance in a field. exp_height's closed-form inversion
+    reparameterizes: the distance moves with the dual ray. Blobs' delta
+    tracking is detached event logic on the primal lanes (prims' loop, its
+    2 max_null draws, at vpt's f32 1/(sigma_t majorant); `active` and
+    `work` as prims.field_sample_free takes them); a grid's inverts prims'
+    march with u, no draw. Far above the fog plane a = sigma_t d0 is tiny
+    and q / a overflows f32 in the inversion's divisions by a, where vpt's
+    tangents are inf or NaN: _div_guarded (ROADMAP Queue 3)."""
+    if fc.kind == "exp_height":
+        d0 = exp(clip(-fc.k * (o[1] - fc.y0), -80.0, 80.0))
+        m = fc.k * d[1]
+        tau_star = -torch.log1p(-u)
+        a = maximum(sigma_t * d0, 1e-30)
+        const = torch.abs(val(m)) < 1e-6
+        safe_m = where(const, 1.0, m)
+        arg = _div_guarded(-tau_star * safe_m, a)
+        escapes = ~const & (val(arg) <= -1.0)
+        t_gen = -log1p(where(escapes, -0.5, arg)) / safe_m
+        t_const = _div_guarded(tau_star, a)
+        t_fin = where(escapes, pr.BIG, where(const, t_const, t_gen))
+        return minimum(t_fin, pr.BIG)
+    st = val(sigma_t)
+    if fc.kind == "grid":
+        return pr.grid_sample_free_and_tau(fc, st, _primal3(o), _primal3(d),
+                                           u, val(t_cap))[0]
+    return pr.field_sample_free(fc, st, 1.0 / (st * fc.maj), _primal3(o),
+                                _primal3(d), u, rng, val(t_cap),
+                                active=active, work=work)

@@ -32,17 +32,21 @@ plane is not bit-equal to K1's image (q99 < 1e-4, vpt's own contract); the
 camera basis, sigma_t, 1/sigma_t and (sigma_s/sigma_t)/cp are f32
 operations on theta.
 
-Scope: every estimator of vpt's body in a homogeneous medium: free flight
-or equi-angular distances (any `distance` other than "free" is vpt's
+Scope: every medium and estimator of vpt's body: free flight or
+equi-angular distances (any `distance` other than "free" is vpt's
 equi-angular branch), with or without NEE, physical or not, isotropic or a
 baked HG g, material-3 shells (vpt's K4 has no shell cascade: a shell is a
-Lambertian sphere to every trace), samplers "random" and "ld". A density
-field raises NotImplementedError naming its ROADMAP item.
+Lambertian sphere to every trace), samplers "random" and "ld"; a
+homogeneous medium, an analytic density field (exp_height, blobs) in dual
+form, and a voxel grid in the primal_only mode only (vpt's reason: the
+dual planes would need a dual trilinear gather and a dual march).
 
-Routes on the card: the default estimator (free flight, NEE, not physical,
-g == 0), shells included, runs in csrc/geom_k<K>.cu; every other estimator
-in the extended instantiations csrc/geom_ext_k<K>.cu, which read it from
-GeomParams at run time.
+Routes on the card: in a homogeneous medium the default estimator (free
+flight, NEE, not physical, g == 0), shells included, runs in
+csrc/geom_k<K>.cu, every other estimator in the extended instantiations
+csrc/geom_ext_k<K>.cu, which read it from GeomParams at run time; in a
+density field every estimator runs in csrc/geom_field_k<K>.cu (the field
+kind read at run time too; only K = 0 takes a grid's table).
 """
 from __future__ import annotations
 
@@ -65,8 +69,8 @@ __all__ = ["pack_theta", "flatten_theta", "GeomPacked", "pack_geom",
            "LAUNCHES_BY", "THETA_KEYS"]
 
 # kernel launches in this process: geom_fwd adds one to LAUNCHES and one to
-# LAUNCHES_BY[entry], entry "geom_k<K>" or "geom_ext_k<K>" (the
-# instantiation it launched)
+# LAUNCHES_BY[entry], entry "geom_k<K>", "geom_ext_k<K>" or
+# "geom_field_k<K>" (the instantiation it launched)
 LAUNCHES = 0
 LAUNCHES_BY: dict = {}
 
@@ -75,10 +79,15 @@ THETA_KEYS = (("center", 3), ("cam_origin", 3), ("fov", 1), ("sigma_a", 1),
               ("sigma_s", 1), ("cam_dir", 3))
 
 
-def _todo(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} in the geometric-gradient kernel is ROADMAP Queue 1 item "
-        f"{item}")
+# vpt's reason for refusing a voxel grid with tangent planes
+# (vpt/kernels/geom.py:141-149)
+GRID_DUAL_REASON = (
+    "voxel-grid fields: the geometric DUAL planes would need dual "
+    "trilinear gathers + a dual canonical march; grids run in the "
+    "forward kernel (wavefront.py), the diff pair (diff.py), and "
+    "THIS kernel's primal_only mode — so geometry gradients in grid "
+    "media use CRN finite differences (dist.train_fast.fit_geom_fd), "
+    "the boundary-aware estimator recommended for geometry anyway")
 
 
 def pack_theta(scene, camera: Camera | None = None,
@@ -136,10 +145,24 @@ class GeomPacked:
         return self.pk.g != 0.0
 
     @property
+    def field(self) -> bool:
+        """A density field (analytic or a voxel grid): the field
+        instantiations run it, under any estimator."""
+        return self.pk.field is not None
+
+    @property
     def ext(self) -> bool:
-        """Whether the extended instantiations run it: any estimator but
-        free-flight NEE, non-physical, at g == 0."""
-        return self.ea or not self.nee or self.physical or self.hg
+        """Whether the extended instantiations run it (homogeneous): any
+        estimator but free-flight NEE, non-physical, at g == 0."""
+        return not self.field and (self.ea or not self.nee or self.physical
+                                   or self.hg)
+
+    @property
+    def entry(self) -> str:
+        """The instantiation that runs it: geom_field_k<K>, geom_ext_k<K>
+        or geom_k<K> (LAUNCHES_BY's key)."""
+        route = "field_" if self.field else "ext_" if self.ext else ""
+        return f"geom_{route}k{self.K}"
 
     @property
     def K(self) -> int:
@@ -178,19 +201,18 @@ def pack_geom(scene: Scene, camera: Camera, width: int, height: int,
               nee: bool = True, distance: str = "free",
               physical: bool = False) -> GeomPacked:
     """Freeze scene, frame, tangent basis and estimator for K4. Radii,
-    materials, albedo, radiance, the HG g and the emitter structure are
-    baked, as in vpt; the centre of `sphere`, the camera and sigma come
-    from theta at each call."""
+    materials, albedo, radiance, the HG g, the density field and the
+    emitter structure are baked, as in vpt; the centre of `sphere`, the
+    camera and sigma come from theta at each call. A voxel grid takes no
+    tangent plane (primal_only only)."""
     if (sphere is None and not cam_grads and not dir_grads
             and not primal_only):
         raise ValueError("no differentiated block enabled")
     if sampler not in ("random", "ld"):
         raise ValueError(f"unknown sampler {sampler!r}")
-    if scene.medium.density is not None:
-        raise _todo("a density field (the dual field forms: vpt "
-                    "geom.py:330-336, 416-420, 463-477, 494-507, 530-536, "
-                    "560-562 and dual.py:689-790; a grid in the primal_only "
-                    "mode, geom.py:141-163)", "5.3, the next slice")
+    dens = scene.medium.density
+    if dens is not None and dens.kind == "grid" and not primal_only:
+        raise NotImplementedError(GRID_DUAL_REASON)
     pk = pack_scene(scene, camera, width, height, spp,
                     continue_prob=continue_prob, max_bounces=max_bounces,
                     sampler=sampler, jitter=jitter)
@@ -237,6 +259,7 @@ def _geom_body(gp: GeomPacked, theta: torch.Tensor, seed: torch.Tensor,
     ar_cp = th[8] * inv_st * inv_cp
     ss_cp = th[8] / scalar(cp)      # equi-angular: sigma_s / cp, in f32
     ea, nee, physical, hg = gp.ea, gp.nee, gp.physical, gp.hg
+    fc = pk.field_on(dev)           # None: homogeneous
     if gp.sphere >= 0:
         ctr_dual = (pc if not gp.n_center
                     else [du.D(pc[i], basis(i)) for i in range(3)])
@@ -335,7 +358,10 @@ def _geom_body(gp: GeomPacked, theta: torch.Tensor, seed: torch.Tensor,
             visible = hit & (sid == e)
             fr = du.eval_fr_nee(at, n, d, wi)
             fpdf_inv = TWO_PI * du.maximum(1.0 - cos_max, 1e-12)
-            tr = du.exp(normcx * (-sigma_t))
+            if fc is None:
+                tr = du.exp(normcx * (-sigma_t))
+            else:   # the optical depth moves with xs and the light
+                tr = du.exp(-du.field_tau(fc, sigma_t, xs, wc, normcx))
             w_vis = du.where(visible, tr * du.dot3(n, wi) * fpdf_inv, z)
             gpdf = du.bsdf_pdf_for_dir(at, n, wo, wi, rng())
             wf = du.power_h_invf(fpdf_inv, gpdf)
@@ -409,7 +435,10 @@ def _geom_body(gp: GeomPacked, theta: torch.Tensor, seed: torch.Tensor,
             phase_2pi = du.hg_phase(pk, du.dot3(d, wl)) * TWO_PI
         else:
             phase_2pi = INV_4PI * TWO_PI    # a float64 fold, as vpt's
-        tr_l = du.exp(t * (-sigma_t))
+        if fc is None:
+            tr_l = du.exp(t * (-sigma_t))
+        else:
+            tr_l = du.exp(-du.field_tau(fc, sigma_t, xt, wl, t))
         # phase / cone_pdf = phase * 2pi * (1 - cos_max): no dual division
         w = du.where(visible,
                      tr_l * phase_2pi * du.maximum(1.0 - cos_max, 1e-12), z)
@@ -423,14 +452,19 @@ def _geom_body(gp: GeomPacked, theta: torch.Tensor, seed: torch.Tensor,
     alive = torch.zeros(N, dtype=torch.bool, device=dev)
     depth = torch.zeros(N, dtype=torch.int64, device=dev)
     samples = torch.zeros(N, dtype=torch.int64, device=dev)
-    counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    # thread-iterations, shading and medium events; in a field its optical
+    # depths (a grid's marches), densities and delta-tracking null steps
+    counts = torch.zeros(6, dtype=torch.int64, device=dev)
     one = 1.0 + z
     inv_ps = float(n_em)
-    it = 0
-    while it < pk.max_iters and bool((samples < spp).any()):
-        need = ~alive & (samples < spp)
+
+    def iteration(o, d, tp, L, alive, depth, samples, rng_s, counts):
+        """One lockstep iteration; returns the new carry."""
+        rng = pr.Pcg(rng_s)
+        act = samples < spp         # the kernel's threads still in their loop
+        need = ~alive & act
         if stats is not None:
-            counts[0] += (samples < spp).sum()
+            counts[0] += act.sum()
         nd = camera_ray(rng, samples)
         o = du.sel3(need, cam_o, o)
         d = du.sel3(need, nd, d)
@@ -457,9 +491,22 @@ def _geom_body(gp: GeomPacked, theta: torch.Tensor, seed: torch.Tensor,
                              xs[2] - at["cz"]])
         lc, lrad, lr, lid = light_attrs(u_pick)
 
-        if not ea:
+        if not ea and fc is None:
             d_s = -torch.log1p(-u_dist) * inv_st    # sigma-only: plain
             surface = (t_eff < d_s) & hit
+            xt = [o[i] + d[i] * d_s for i in range(3)]
+        elif not ea:
+            # exp_height's inversion reparameterizes (d_s dual); blobs'
+            # delta tracking (2 max_null draws) and a grid's march are
+            # detached, on the primal lanes
+            d_s = du.field_sample_free(
+                fc, sigma_t, o, d, u_dist, rng, t_eff, active=act,
+                work=counts[5:6] if stats is not None else None)
+            if stats is not None and fc.kind == "grid":
+                counts[3] += act.sum()
+            surface = (t_eff < d_s) & hit
+            # an escaped flight kills the lane
+            alive = alive & ((d_s < 0.5 * BIG) | surface)
             xt = [o[i] + d[i] * d_s for i in range(3)]
         else:
             # equiAngularParams2 + Bernoulli(TrActual) (geom.py:478-511):
@@ -477,8 +524,19 @@ def _geom_body(gp: GeomPacked, theta: torch.Tensor, seed: torch.Tensor,
             xt = [o[i] + d_along * d[i] for i in range(3)]
             dist_pdf = Dq / (du.maximum(du.absd(th_b - th_a), 1e-12)
                              * (sample_t * sample_t + Dq * Dq))
-            tr_act = du.where(hit, du.exp(t * (-sigma_t)), z)
-            t_xt = du.exp(du.absd(d_along) * (-sigma_t))
+            if fc is None:
+                tr_act = du.where(hit, du.exp(t * (-sigma_t)), z)
+                t_xt = du.exp(du.absd(d_along) * (-sigma_t))
+            else:
+                # Bernoulli(Tr) and T through dual optical depths; |tau|
+                # where the sample lies behind the origin
+                t_det = du.where(hit, t, z)
+                tr_act = du.where(hit, du.exp(
+                    -du.field_tau(fc, sigma_t, o, d, t_det)), z)
+                t_xt = du.exp(-du.absd(
+                    du.field_tau(fc, sigma_t, o, d, d_along)))
+                if stats is not None:
+                    counts[3] += (act & hit).sum() + act.sum()
             u_ev = rng()
             surface = (tr_act >= u_ev) & hit
             one_m_tr = du.maximum(1.0 - tr_act, 1e-20)
@@ -499,7 +557,12 @@ def _geom_body(gp: GeomPacked, theta: torch.Tensor, seed: torch.Tensor,
 
         if nee:
             ldp, dist_ls = plight_term(at, xs, nrm, d, lc, lrad)
-            trs = du.exp(dist_ls * (-sigma_t))
+            if fc is None:
+                trs = du.exp(dist_ls * (-sigma_t))
+            else:
+                inv_dl = 1.0 / du.maximum(dist_ls, 1e-20)
+                wlight = [(lc[i] - xs[i]) * inv_dl for i in range(3)]
+                trs = du.exp(-du.field_tau(fc, sigma_t, xs, wlight, dist_ls))
             ldm = mis_v2(rng, at, xs, nrm, d)
             L = [L[i] + du.where(
                 shade, (ldp[i] * trs * inv_ps + ldm[i]) * tp[i] * inv_cp, z)
@@ -521,6 +584,9 @@ def _geom_body(gp: GeomPacked, theta: torch.Tensor, seed: torch.Tensor,
             med_scale = ar_cp
         else:
             med_scale = (t_xt / pdf_success) * ss_cp
+            if fc is not None:
+                # sigma_s(xt) = sigma_s dens(xt), dual through xt
+                med_scale = med_scale * du.field_density(fc, xt)
         if nee:
             ld_med = medium_nee(rng, d, xt, lc, lrad, lr, lid)
             L = [L[i] + du.where(
@@ -531,6 +597,12 @@ def _geom_body(gp: GeomPacked, theta: torch.Tensor, seed: torch.Tensor,
         if stats is not None:
             counts[1] += shade.sum()
             counts[2] += medium.sum()
+            if fc is not None:
+                if nee:     # pLight, MISv2's lights, medium NEE
+                    counts[3] += (shade.sum() * (1 + len(pk.mis_lights))
+                                  + medium.sum())
+                if ea:
+                    counts[4] += medium.sum()
         o = du.sel3(shade, xs, du.sel3(medium, xt, o))
         d = du.sel3(shade, wi_s, du.sel3(medium, wi_m, d))
         tp = du.sel3(shade, tp_surface, du.sel3(medium, tp_medium, tp))
@@ -539,14 +611,72 @@ def _geom_body(gp: GeomPacked, theta: torch.Tensor, seed: torch.Tensor,
         finished = was_alive & ~alive2
         samples = samples + finished.to(torch.int64)
         o, d, tp, L = ([mats(x) for x in v] for v in (o, d, tp, L))
-        alive = alive2
-        it += 1
+        return o, d, tp, L, alive2, depth, samples, rng.s
 
+    state = (o, d, tp, L, alive, depth, samples, rng.s)
+    if dev.type == "cuda":
+        state = _run_graphed(iteration, state, counts, K, spp, pk.max_iters)
+    else:
+        it = 0
+        while it < pk.max_iters and bool((state[6] < spp).any()):
+            state = iteration(*state, counts)
+            it += 1
+    L = state[3]
     if stats is not None:
-        for k, v in zip(("thread_iters", "shade", "medium"), counts.tolist()):
+        keys = ("thread_iters", "shade", "medium") + (
+            ("taus", "densities", "null_steps") if fc is not None else ())
+        for k, v in zip(keys, counts.tolist()):
             stats[k] = stats.get(k, 0) + v
     return torch.stack([p for c in range(3)
                         for p in (L[c].v,) + tuple(L[c].t)])
+
+
+def _flat(state, K: int) -> list:
+    """The lockstep carry (o, d, tp, L as lists of 3 duals; alive, depth,
+    samples, the PCG state) as a list of tensors."""
+    ts = []
+    for vec in state[:4]:
+        for x in vec:
+            ts.append(x.v)
+            ts.extend(x.t)
+    return ts + list(state[4:])
+
+
+def _unflat(ts: list, K: int) -> tuple:
+    vecs, i = [], 0
+    for _ in range(4):
+        vec = []
+        for _ in range(3):
+            vec.append(du.D(ts[i], tuple(ts[i + 1:i + 1 + K])))
+            i += 1 + K
+        vecs.append(vec)
+    return (*vecs, *ts[i:])
+
+
+def _run_graphed(iteration, state, counts, K: int, spp: int,
+                 max_iters: int) -> tuple:
+    """The lockstep loop on a CUDA device: one iteration captured as a CUDA
+    graph that updates the carry in place, replayed until every lane has
+    its samples. The same kernels on the same values as the eager loop, so
+    the same bits, without its per-operation launch cost."""
+    static = [t.clone() for t in _flat(state, K)]
+    side = torch.cuda.Stream(static[0].device)
+    side.wait_stream(torch.cuda.current_stream(static[0].device))
+    with torch.cuda.stream(side):       # warm-up on copies
+        iteration(*_unflat([t.clone() for t in static], K),
+                  torch.zeros_like(counts))
+    torch.cuda.current_stream(static[0].device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _flat(iteration(*_unflat(static, K), counts), K)
+        for dst, src in zip(static, out):
+            dst.copy_(src)
+    samples = static[-2]
+    it = 0
+    while it < max_iters and bool((samples < spp).any()):
+        graph.replay()
+        it += 1
+    return _unflat(static, K)
 
 
 def geom_fwd_plain(gp: GeomPacked, theta: torch.Tensor, seed: torch.Tensor,
@@ -566,9 +696,11 @@ def geom_fwd_plain(gp: GeomPacked, theta: torch.Tensor, seed: torch.Tensor,
 def geom_fwd(gp: GeomPacked, theta: torch.Tensor,
              seed: torch.Tensor) -> torch.Tensor:
     """K4 on theta.device: the planes of geom_fwd_plain. A CUDA tensor
-    launches K4 on the current stream without synchronising (the default
-    estimator csrc/geom_k<K>.cu, any other csrc/geom_ext_k<K>.cu, through
-    csrc/geom.cu's entries); a CPU tensor runs geom_fwd_plain."""
+    launches K4 on the current stream without synchronising (in a
+    homogeneous medium the default estimator csrc/geom_k<K>.cu, any other
+    csrc/geom_ext_k<K>.cu; in a density field csrc/geom_field_k<K>.cu, a
+    grid's table copied to the card once; through csrc/geom.cu's entries);
+    a CPU tensor runs geom_fwd_plain."""
     global LAUNCHES
     if theta.dtype != torch.float32 or tuple(theta.shape) != (12,) \
             or not theta.is_contiguous():
@@ -594,18 +726,22 @@ def geom_fwd(gp: GeomPacked, theta: torch.Tensor,
             f"the kernel expects {lib.vpt_geom_params_words()}")
     out = torch.empty((gp.planes, gp.npix), dtype=torch.float32,
                       device=theta.device)
-    entry = "vpt_geom_fwd_ext" if gp.ext else "vpt_geom_fwd"
+    entry = ("vpt_geom_fwd_field" if gp.field else
+             "vpt_geom_fwd_ext" if gp.ext else "vpt_geom_fwd")
+    # the field entry takes a grid's table (NULL for an analytic field)
+    tab = (() if not gp.field else
+           (gp.pk.table(theta.device).data_ptr() if gp.pk.grid is not None
+            else None,))
     with torch.cuda.device(theta.device):
         stream = torch.cuda.current_stream(theta.device).cuda_stream
         err = getattr(lib, entry)(words.ctypes.data, theta.data_ptr(),
-                                  seed.data_ptr(), 0, gp.npix,
+                                  seed.data_ptr(), 0, gp.npix, *tab,
                                   out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: "
                            f"{_build.error_string(err)} ({err})")
     LAUNCHES += 1
-    key = f"geom_{'ext_' if gp.ext else ''}k{gp.K}"
-    LAUNCHES_BY[key] = LAUNCHES_BY.get(key, 0) + 1
+    LAUNCHES_BY[gp.entry] = LAUNCHES_BY.get(gp.entry, 0) + 1
     return out
 
 
@@ -654,7 +790,8 @@ def make_geom_renderer(scene: Scene, camera: Camera, width: int, height: int,
     render.run_vec(vec (12,), seed) is the vector-level entry, the FD
     substrate; primal_only=True gives K = 0. The estimator: `distance`
     "free" or vpt's equi-angular branch (any other value), `nee`,
-    `physical`; the scene's HG g is baked."""
+    `physical`; the scene's HG g and density field are baked (a voxel grid
+    only with primal_only, else NotImplementedError with vpt's reason)."""
     gp = pack_geom(scene, camera, width, height, spp, sphere=sphere,
                    cam_grads=cam_grads, dir_grads=dir_grads,
                    primal_only=primal_only, continue_prob=continue_prob,

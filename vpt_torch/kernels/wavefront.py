@@ -231,15 +231,28 @@ class Packed:
 
     def attr_table(self, device) -> torch.Tensor:
         """(S+1, len(ATTR_KEYS)) per-sphere attributes; row S (a miss) is
-        all zeros."""
-        rows = [list(self.c[s]) + list(self.alb[s]) + list(self.rad[s])
-                + list(self.eta[s]) + list(self.kap[s]) + [self.alpha[s]]
-                + [1.0 if any(v > 0 for v in self.rad[s]) else 0.0,
-                   1.0 if self.mat[s] == MICROFACET else 0.0,
-                   1.0 if self.mat[s] == DIELECTRIC else 0.0]
-                for s in range(self.S)]
-        rows.append([0.0] * len(self.ATTR_KEYS))
-        return torch.tensor(rows, dtype=torch.float32, device=device)
+        all zeros. Made on `device` once."""
+        key = ("attr", str(torch.device(device)))
+        if key not in self._tabs:
+            rows = [list(self.c[s]) + list(self.alb[s]) + list(self.rad[s])
+                    + list(self.eta[s]) + list(self.kap[s])
+                    + [self.alpha[s]]
+                    + [1.0 if any(v > 0 for v in self.rad[s]) else 0.0,
+                       1.0 if self.mat[s] == MICROFACET else 0.0,
+                       1.0 if self.mat[s] == DIELECTRIC else 0.0]
+                    for s in range(self.S)]
+            rows.append([0.0] * len(self.ATTR_KEYS))
+            self._tabs[key] = torch.tensor(rows, dtype=torch.float32,
+                                           device=device)
+        return self._tabs[key]
+
+    def centre_table(self, device) -> torch.Tensor:
+        """(S, 3) sphere centres on `device`, made once."""
+        key = ("c", str(torch.device(device)))
+        if key not in self._tabs:
+            self._tabs[key] = torch.tensor(self.c, dtype=torch.float32,
+                                           device=device)
+        return self._tabs[key]
 
     def words(self) -> np.ndarray:
         """The VptParams struct of csrc/path.cuh as 32-bit words (ints and
