@@ -139,21 +139,37 @@ plain torch version on the card:
      timed, the lanes with a non-finite tangent counted, equi-angular
      K = 7 bit-equal to plain at 2 spp; K = 3, 4, 6 and 10 on foggy_cornell
      equi-angular through make_geom_renderer at 128x128x8, timed; and
-     fit_geom_fd in the grid (blob_cloud's light 4 units off).
+     fit_geom_fd in the grid (blob_cloud's light 4 units off);
+ 20. the sharded entries: each K2/K3 source's launches over a lane range
+     (base 0 and the mid-frame tile of a 64x32x8 frame) concatenated equal
+     to its whole-frame launch bit for bit (K3's per-lane rows; its sums
+     within GVEC_TOL of sum |G|, a voxel gradient within SHARD_VOXEL_TOL),
+     a launch across the frame's end equal to the frame inside it (K3's
+     rows past it zero); the same for K4's make_raw at K = 0 and 7 and K1's
+     contiguous make_raw; one launch of each kind bit-equal to its plain
+     shard twin; then on a world of one rank (NCCL): render_sharded at
+     1024x1024x64 "ld" bit-equal to vpt_torch.render, both timed; three
+     make_sharded_kernel_train_step steps at 1024x1024 against
+     make_kernel_train_step, one make_sharded_fd_geom_train_step step
+     against make_fd_geom_train_step, each timed; the half-frame launches
+     of each kind timed at the main frame; and two gloo ranks on the one
+     card, the (2, 1) mesh: frames bit-equal, D = 2 against D = 1, the
+     replicas bitwise equal.
 
 The main-frame plain versions (phases 4, 7, 10, 12, 14 and 15) and the
 plain checks of phases 9 and 14-19 run in worker processes on the same card
 while the kernels build (PlainPool); they are collected before the first
 timing. `--recover-fog-multiview STEPS` runs the card, the build and that
 example's fit alone; `--geom-ext` the card, the build and phase 18;
-`--geom-field` the card, the build and phase 19;
+`--geom-field` the card, the build and phase 19; `--sharded` the card,
+the build and phase 20;
 `--recover-grid STEPS` the same for
 examples/recover_grid.py at vpt's round-4 setting (RG_ROUND4; 250 steps
 is that run, about 80 s of fitting); `--recover-grid-ea STEPS` runs
 tools/studies/tomo_quality_study.py's rows B (free flight) and F
 (equi-angular) of that example (RG_ROWS).
 
-Each main path (phases 4, 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18 and 19) runs with every
+Each main path (phases 4, 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19 and 20) runs with every
 launch count set to 0 just before it and read just after. The line before the last is the
 per-kernel JSON record, the last line the device record. Any failed phase
 raises and the script exits non-zero; without a CUDA device it exits
@@ -1700,7 +1716,9 @@ GRID_PAIR = {"vpt_diff_fwd_grid": ("vpt_diff15grid_fwd_kernelILi2EE",
                                    "vpt/kernels/diff.py:1303")}
 # ptxas of the 22 kernels of the 21 sources before the grid (registers,
 # spill stores, stack; the parent's sources built beside these on NVIDIA
-# H100 80GB HBM3, this toolkit): the grid must leave them as they were
+# H100 80GB HBM3, this toolkit): the grid must leave them as they were.
+# The pair's kernels are named with their lane range (int base, int
+# n_lanes after the seed: "PKiii")
 EXISTING_PTXAS = {
     "_ZN13vpt_wavefront6kernelILb0ELi0ELb0EEEv9VptParamsPKiS3_iiPf":
         (61, 0, 56),
@@ -1730,21 +1748,21 @@ EXISTING_PTXAS = {
         (255, 2296, 1144),
     "_ZN3vpt4geom15vpt_geom_kernelILi7ELb0ELb0EEEv10GeomParamsPKfPKiiiPKjPf":
         (255, 2908, 1440),
-    "_ZN8vpt_diff10bwd_kernelILb0ELb0EEEv10DiffParamsPKfPKiS3_PfS6_":
+    "_ZN8vpt_diff10bwd_kernelILb0ELb0EEEv10DiffParamsPKfPKiiiS3_PfS6_":
         (128, 56, 1456),
-    "_ZN8vpt_diff10bwd_kernelILb0ELb1EEEv10DiffParamsPKfPKiS3_PfS6_":
+    "_ZN8vpt_diff10bwd_kernelILb0ELb1EEEv10DiffParamsPKfPKiiiS3_PfS6_":
         (149, 0, 1440),
-    "_ZN8vpt_diff10bwd_kernelILb1ELb0EEEv10DiffParamsPKfPKiS3_PfS6_":
+    "_ZN8vpt_diff10bwd_kernelILb1ELb0EEEv10DiffParamsPKfPKiiiS3_PfS6_":
         (160, 0, 5248),
-    "_ZN8vpt_diff10bwd_kernelILb1ELb1EEEv10DiffParamsPKfPKiS3_PfS6_":
+    "_ZN8vpt_diff10bwd_kernelILb1ELb1EEEv10DiffParamsPKfPKiiiS3_PfS6_":
         (165, 0, 5280),
-    "_ZN8vpt_diff10fwd_kernelILb0ELb0EEEv10DiffParamsPKfPKiPf":
+    "_ZN8vpt_diff10fwd_kernelILb0ELb0EEEv10DiffParamsPKfPKiiiPf":
         (118, 0, 32),
-    "_ZN8vpt_diff10fwd_kernelILb0ELb1EEEv10DiffParamsPKfPKiPf":
+    "_ZN8vpt_diff10fwd_kernelILb0ELb1EEEv10DiffParamsPKfPKiiiPf":
         (96, 140, 152),
-    "_ZN8vpt_diff10fwd_kernelILb1ELb0EEEv10DiffParamsPKfPKiPf":
+    "_ZN8vpt_diff10fwd_kernelILb1ELb0EEEv10DiffParamsPKfPKiiiPf":
         (121, 0, 32),
-    "_ZN8vpt_diff10fwd_kernelILb1ELb1EEEv10DiffParamsPKfPKiPf":
+    "_ZN8vpt_diff10fwd_kernelILb1ELb1EEEv10DiffParamsPKfPKiiiPf":
         (96, 196, 160),
 }
 # the checks: grid_cloud (tests/test_diff_kernel.py: blob_cloud on an 8^3
@@ -2346,9 +2364,9 @@ GRID_PTXAS = {
         (120, 0, 56),
     "_ZN13vpt_wavefront11grid_kernelILb1ELi1EEEv9VptParamsPKiS3_iiPfPKj":
         (121, 0, 56),
-    "_ZN8vpt_diff15grid_bwd_kernelILi2EEEv10DiffParamsPKfPKiS3_PfS6_PKjS6_i":
+    "_ZN8vpt_diff15grid_bwd_kernelILi2EEEv10DiffParamsPKfPKiiiS3_PfS6_PKjS6_i":
         (168, 0, 1408),
-    "_ZN8vpt_diff15grid_fwd_kernelILi2EEEv10DiffParamsPKfPKiPfPKj":
+    "_ZN8vpt_diff15grid_fwd_kernelILi2EEEv10DiffParamsPKfPKiiiPfPKj":
         (119, 0, 32),
 }
 EA = (("distance", "equiangular"),)
@@ -3672,6 +3690,556 @@ def geom_field_phases(card: str, dev: torch.device, camera,
     return records
 
 
+# ---- phase 20: the sharded entries -----------------------------------------
+#
+# K2/K3's lane range (vpt's fwd_shard / bwd_shard), K4's make_raw, K1's
+# contiguous make_raw, the (data, sample) mesh on torch.distributed,
+# render_sharded and the two sharded train steps.
+
+# the small frame of phases 6, 14, 16 and 17: 2048 lanes, two tiles of
+# SHARD_LANES (the pair's and K4's tile at tile_rows 8)
+SHARD_FRAME = (64, 32, 8, 8, "ld", 3)
+SHARD_LANES = 8 * 128
+# one configuration per K2/K3 source (ext_inputs: scene key, g, traced
+# flags, estimator): diff.cu, diff_hg.cu, diff_field_*.cu,
+# diff_field_hg_*.cu, diff_grid_*.cu (diff_grid), diff_ext_*.cu,
+# diff_field_ext_*.cu, diff_grid_ext_*.cu
+SHARD_PAIRS = [("cornell_vpt", 0.0, (), ()), ("cornell_vpt", 0.5, (), ()),
+               ("foggy_cornell", 0.0, ("diff_field",), ()),
+               ("foggy_cornell", 0.5, ("diff_g", "diff_field"), ()),
+               (("cloud", "tri"), 0.0, ("diff_grid",), ()),
+               ("cornell_vpt", 0.0, (), EA),
+               ("foggy_cornell", 0.0, ("diff_field",), EA),
+               (("cloud", "tri"), 0.0, ("diff_grid",), EA)]
+# the sharded kernel steps: phase 8's trainer (sigma_s x 2.78, 16 spp per
+# step, 16 bounces, lr 1.5e-3) at the main frame's size, seeds 0-2
+SHARD_STEPS = 3
+# the sharded FD step: one step over sphere 8's centre (4 units off in y)
+# at 256x256x16, 32 bounces, "random", train seed 5
+SHARD_FD = (256, 256, 16, 32)
+# ptxas of the extended pair (PERF.md section 6; NVIDIA H100 80GB HBM3,
+# this toolkit): with the pair's kernels in EXISTING_PTXAS and GRID_PTXAS,
+# the sixteen K2/K3 kernels the lane range must leave as they were
+EXT_PAIR_PTXAS = {"vpt_diff14ext_fwd_kernelILi0EE": (64, 492, 296),
+                  "vpt_diff14ext_fwd_kernelILi1EE": (72, 452, 288),
+                  "vpt_diff14ext_fwd_kernelILi2EE": (72, 416, 272),
+                  "vpt_diff14ext_bwd_kernelILi0EE": (163, 0, 1440),
+                  "vpt_diff14ext_bwd_kernelILi1EE": (168, 12, 6256),
+                  "vpt_diff14ext_bwd_kernelILi2EE": (168, 96, 1520)}
+# the two gloo ranks' limit, from their start to their results
+SHARD_RANK_TIMEOUT_S = 400
+# K3 shard sums against the whole frame's: the voxel gradient (atomics in
+# another order) per voxel within this share of its largest entry
+SHARD_VOXEL_TOL = 1e-5
+
+
+def _rows_gg(out) -> tuple:
+    """diff_bwd's (rows or vector, voxel gradient or None)."""
+    return out if isinstance(out, tuple) else (out, None)
+
+
+def shard_pair_check(cfg: tuple, camera, dev, plain: bool) -> dict:
+    """One K2/K3 source at SHARD_FRAME: launches at base 0 and at the
+    mid-frame tile concatenate to the whole-frame launch bit for bit (K3's
+    per-lane rows; its shard sums within GVEC_TOL of sum |G|, the voxel
+    gradient within SHARD_VOXEL_TOL of its largest entry); a launch across
+    the frame's end (half its lanes past it) equals the frame on its lanes
+    inside, K3's rows past the end zero. plain: that launch against the
+    plain shard twins too, each timed."""
+    dp, pvec, tab, seed, gbar = ext_inputs(*cfg, SHARD_FRAME, camera, dev)
+    npix, n = dp.npix, SHARD_LANES
+    if npix != 2 * n:
+        raise AssertionError(f"shard frame {npix} lanes, not 2 x {n}")
+    bases, seam = (0, n), npix - n // 2
+    gseam = torch.cat([gbar[seam:], gbar[:n // 2]])
+    full = df.diff_fwd(dp, pvec, seed, tab)
+    fwd = [df.diff_fwd(dp, pvec, seed, tab, b, n) for b in bases]
+    fwd_seam = df.diff_fwd(dp, pvec, seed, tab, seam, n)
+    G, gg = _rows_gg(df.diff_bwd(dp, pvec, seed, gbar, True, tab))
+    rows = [_rows_gg(df.diff_bwd(dp, pvec, seed, gbar[b:b + n], True, tab,
+                                 b, n)) for b in bases]
+    g_full = _rows_gg(df.diff_bwd(dp, pvec, seed, gbar, False, tab))[0]
+    sums = [_rows_gg(df.diff_bwd(dp, pvec, seed, gbar[b:b + n], False, tab,
+                                 b, n)) for b in bases]
+    G_seam = _rows_gg(df.diff_bwd(dp, pvec, seed, gseam, True, tab, seam,
+                                  n))[0]
+    torch.cuda.synchronize()
+    r = {"entries": dp.entries,
+         "fwd_concat": bool(torch.equal(torch.cat(fwd), full)),
+         "fwd_seam": bool(torch.equal(fwd_seam[:n // 2], full[seam:])),
+         "rows_concat": bool(torch.equal(torch.cat([x[0] for x in rows]),
+                                         G)),
+         "rows_seam": bool(torch.equal(G_seam[:n // 2], G[seam:])
+                           and not bool(G_seam[n // 2:].any())),
+         "finite": bool(torch.isfinite(full).all()
+                        and torch.isfinite(G).all())}
+    gsum = sums[0][0] + sums[1][0]
+    r["sum_over"] = int(((gsum - g_full).abs()
+                         > GVEC_TOL * G.abs().sum(0)).sum())
+    r["sum_err"] = float((gsum - g_full).abs().max())
+    if gg is not None:
+        vsum = sums[0][1] + sums[1][1]
+        r["voxel_rel"] = float((vsum - gg).abs().max()
+                               / gg.abs().max().clamp_min(1e-30))
+    if plain:
+        p_fwd, r["k2_plain_ms"] = cuda_ms(lambda: df.diff_fwd_plain(
+            dp, pvec, seed, tab=tab, base=seam, n=n))
+        p_rows, r["k3_plain_ms"] = cuda_ms(lambda: df.diff_bwd_plain(
+            dp, pvec, seed, gseam, per_lane=True, tab=tab, base=seam, n=n))
+        p_rows = _rows_gg(p_rows)[0]
+        r["k2_plain_equal"] = bool(torch.equal(fwd_seam, p_fwd))
+        r["k3_plain_equal"] = bool(torch.equal(G_seam, p_rows))
+        r["k2_err"] = float((fwd_seam - p_fwd).abs().max())
+        r["k3_err"] = float((G_seam - p_rows).abs().max())
+    return r
+
+
+def shard_raw_checks(scene, camera, dev) -> dict:
+    """K4's make_raw at K = 0 and 7 and K1's contiguous make_raw, as
+    shard_pair_check: the shards concatenate to the whole frame's launch
+    bit for bit, and a launch across the frame's end (K4 at SHARD_FRAME,
+    K1 at 96x64, 1.5 of its 4096-lane tiles) equals the frame inside it
+    and its plain twin (K4 at K = 0, K1) everywhere."""
+    out, n = {}, SHARD_LANES
+    for k in (0, 7):
+        gp, th, s = geom_ext_inputs("cornell_vpt", 0.0, (), k, SHARD_FRAME,
+                                    camera, dev)
+        npix = gp.npix
+        seam = npix - n // 2
+        full = gm.geom_fwd(gp, th, s)
+        parts = torch.cat([gm.geom_fwd(gp, th, s, b, n) for b in (0, n)], 1)
+        at_seam = gm.geom_fwd(gp, th, s, seam, n)
+        out[f"k4_{k}"] = bool(torch.equal(parts, full)
+                              and torch.equal(at_seam[:, :n // 2],
+                                              full[:, seam:]))
+        if k == 0:
+            p, out["k4_plain_ms"] = cuda_ms(lambda: gm.geom_fwd_plain(
+                gp, th, s, base=seam, n=n))
+            out["k4_plain_equal"] = bool(torch.equal(at_seam, p))
+            out["k4_err"] = float((at_seam - p).abs().max())
+    w, h, spp, mb, sampler, seed = SHARD_FRAME
+    s = torch.tensor([seed], dtype=torch.int32, device=dev)
+    pk = wf.pack_scene(scene, camera, 128, 64, spp, max_bounces=mb,
+                       sampler=sampler)
+    raw = wf.make_raw(pk, 1)
+    parts = torch.cat([raw(s, b) for b in (0, wf.LANES_PER_TILE)])
+    means = parts[:pk.npix] / torch.tensor(float(spp), device=dev)
+    out["k1"] = bool(torch.equal(parts, wf.render_raw(pk, s))
+                     and torch.equal(means, wf.render_tile(pk, s)))
+    pk96 = wf.pack_scene(scene, camera, 96, 64, spp, max_bounces=mb,
+                         sampler=sampler)
+    at_seam = wf.make_raw(pk96, 1)(s, wf.LANES_PER_TILE)
+    bases = torch.tensor([wf.LANES_PER_TILE], dtype=torch.int32, device=dev)
+    p, out["k1_plain_ms"] = cuda_ms(lambda: wf.render_raw_plain(pk96, s,
+                                                                bases))
+    out["k1_plain_equal"] = bool(
+        torch.equal(at_seam, p) and torch.equal(
+            at_seam[:pk96.npix - wf.LANES_PER_TILE],
+            wf.render_raw(pk96, s)[wf.LANES_PER_TILE:pk96.npix]))
+    out["k1_err"] = float((at_seam - p).abs().max())
+    torch.cuda.synchronize()
+    return out
+
+
+def wrong_medium(scene):
+    """Phase 8's trainer start: sigma_s x 2.78."""
+    return dataclasses.replace(scene, medium=dataclasses.replace(
+        scene.medium, sigma_s=scene.medium.sigma_s * 2.78))
+
+
+def shard_targets(scene, camera, dev) -> tuple:
+    """The kernel steps' target (phase 8's: 64 spp, 16 bounces, seed 99,
+    at the main frame's size) and the FD step's (SHARD_FD, seed 98), each
+    (npix, 3)."""
+    tcfg = vpt_torch.RenderConfig(width=MAIN_CFG["width"],
+                                  height=MAIN_CFG["height"], spp=64,
+                                  max_bounces=16, seed=99)
+    w, h, spp, mb = SHARD_FD
+    fcfg = vpt_torch.RenderConfig(width=w, height=h, spp=spp, max_bounces=mb,
+                                  seed=98)
+    return tuple(vpt_torch.render(scene, camera, c, device=dev).reshape(-1, 3)
+                 for c in (tcfg, fcfg))
+
+
+def fd_start(scene, camera, dev) -> dict:
+    theta = {k: v.to(dev) for k, v in gm.pack_theta(scene, camera,
+                                                     8).items()}
+    theta["center"] = theta["center"] + torch.tensor([0.0, 4.0, 0.0],
+                                                     device=dev)
+    return theta
+
+
+def run_kernel_steps(make_step, wrong, target, dev) -> tuple:
+    """SHARD_STEPS steps of make_step(optimizer) from pack_params(wrong):
+    (losses, the leaves flattened after each step, each step's seconds)."""
+    from vpt_torch.dist.train_fast import adam
+    params = {k: v.to(dev).requires_grad_()
+              for k, v in df.pack_params(wrong).items()}
+    step = make_step(adam(params, 1.5e-3))
+    losses, flats, secs = [], [], []
+    for i in range(SHARD_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(params, target, i)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        flats.append(torch.cat([v.detach().reshape(-1)
+                                for v in params.values()]).cpu())
+    return losses, torch.stack(flats), secs
+
+
+def run_fd_step(make_step, scene, camera, fd_target, dev) -> tuple:
+    """One FD step of make_step(optimizer) from fd_start: (loss, theta)."""
+    from vpt_torch.dist.train_fast import adam
+    theta = fd_start(scene, camera, dev)
+    step = make_step(adam(theta, 0.3))
+    loss = float(step(theta, fd_target, 5))
+    return loss, gm.flatten_theta(theta).cpu()
+
+
+def sharded_steps(scene, camera, mesh, wrong, target, fd_target) -> dict:
+    """The sharded kernel steps and FD step on `mesh`, each path's launch
+    counts set to 0 just before it and read just after."""
+    from vpt_torch.dist import (make_sharded_fd_geom_train_step,
+                                make_sharded_kernel_train_step)
+    w, h, spp, mb = SHARD_FD
+    out = {}
+    reset_counts()
+    out["losses"], out["params"], out["secs"] = run_kernel_steps(
+        lambda opt: make_sharded_kernel_train_step(
+            wrong, camera, MAIN_CFG["width"], MAIN_CFG["height"], 16, opt,
+            mesh, max_bounces=16), wrong, target, mesh.device)
+    out["step_launches"] = dict(df.LAUNCHES_BY)
+    reset_counts()
+    out["fd_loss"], out["fd_theta"] = run_fd_step(
+        lambda opt: make_sharded_fd_geom_train_step(
+            scene, camera, w, h, spp, opt, mesh, sphere=8, cam_grads=False,
+            max_bounces=mb), scene, camera, fd_target, mesh.device)
+    out["fd_launches"] = dict(gm.LAUNCHES_BY)
+    return out
+
+
+def sharded_rank(rank: int, port: int, tmp: str) -> None:
+    """One of two gloo ranks on the one card (NCCL refuses two ranks on one
+    GPU; the mesh stages the CUDA tensors through the host): once
+    tmp/inputs.npz appears (the main process writes it after its timings),
+    the (2, 1) mesh's render_sharded at MAIN_CFG and the sharded steps,
+    written to tmp/rank<rank>.npz."""
+    from pathlib import Path
+    from vpt_torch.dist import make_mesh, render_sharded
+    from vpt_torch.dist.multihost import initialize
+    import torch.distributed as dist
+    initialize(f"tcp://127.0.0.1:{port}", 2, rank, backend="gloo")
+    mesh = make_mesh(sample_shards=1, device="cuda")
+    dev = mesh.device
+    _build.load()
+    scene, camera = vpt_torch.cornell_vpt(), vpt_torch.default_camera()
+    inputs = Path(tmp) / "inputs.npz"
+    deadline = time.perf_counter() + SHARD_RANK_TIMEOUT_S
+    while not inputs.exists():
+        if time.perf_counter() > deadline:
+            raise TimeoutError(f"{inputs} did not appear")
+        time.sleep(0.2)
+    inp = np.load(inputs)
+    img = render_sharded(scene, camera, vpt_torch.RenderConfig(**MAIN_CFG),
+                         mesh)
+    res = sharded_steps(scene, camera, mesh, wrong_medium(scene),
+                        torch.from_numpy(inp["target"]).to(dev),
+                        torch.from_numpy(inp["fd_target"]).to(dev))
+    np.savez(Path(tmp) / f"rank{rank}.npz", img=img.cpu().numpy(),
+             losses=np.asarray(res["losses"]), params=res["params"].numpy(),
+             secs=np.asarray(res["secs"]), fd_loss=res["fd_loss"],
+             fd_theta=res["fd_theta"].numpy(), di=mesh.di)
+    dist.destroy_process_group()
+
+
+def shard_bounds_alone(scene, camera, dev) -> dict:
+    """The whole main frame's bounds when phase 20 runs alone (no pool):
+    the pair's counters from K2's plain version at 128x128x8 ("ld", 32
+    bounces), scaled by the paths; K1 and K4 at K = 0 read the same
+    counters (their per-event counts are K2's, ops_lower_bound and
+    geom_ops_lower_bound)."""
+    cfg = vpt_torch.RenderConfig(**MAIN_CFG)
+    dpc = df.pack_diff(scene, camera, 128, 128, 8,
+                       max_bounces=cfg.max_bounces, sampler=cfg.sampler)
+    pvec = df._flatten(df.pack_params(scene), scene.count).to(dev)
+    st = {}
+    df.diff_fwd_plain(dpc, pvec, torch.tensor([cfg.seed], dtype=torch.int32,
+                                              device=dev), stats=st)
+    scale = (cfg.width * cfg.height * cfg.spp) / (128 * 128 * 8)
+    st = {k: v * scale for k, v in st.items()}
+    dp = df.pack_diff(scene, camera, cfg.width, cfg.height, cfg.spp,
+                      max_bounces=cfg.max_bounces, sampler=cfg.sampler)
+    gp0 = gm.pack_geom(scene, camera, cfg.width, cfg.height, cfg.spp,
+                       sphere=8, primal_only=True,
+                       max_bounces=cfg.max_bounces)
+    return {"k1": bound("wavefront_fwd", st, dp),
+            "k2": bound("diff_fwd", st, dp), "k3": bound("diff_bwd", st, dp),
+            "k4_0": geom_bound(st, gp0)}
+
+
+def sharded_phase(card: str, dev: torch.device, camera,
+                  bounds: dict | None) -> list:
+    """Phase 20; returns the records of the shard and raw launches. bounds:
+    the whole main frame's (ms, by) of K1, K2, K3 and K4 at K = 0 from
+    phases 5, 7 and 10 (None: shard_bounds_alone); a half-frame launch's
+    bound is half of it."""
+    import socket
+    import tempfile
+    import torch.distributed as dist
+    t20 = time.perf_counter()
+    scene = vpt_torch.cornell_vpt()
+    tmp = tempfile.TemporaryDirectory()
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    # the two gloo ranks start now and wait for their inputs, which come
+    # after this process' timings
+    ranks = [subprocess.Popen(
+        [sys.executable, __file__, "--sharded-rank", str(r), str(port),
+         tmp.name], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    try:
+        records = _sharded_phase(card, dev, camera, bounds, scene, tmp.name,
+                                 ranks, t20)
+    finally:
+        for p in ranks:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        tmp.cleanup()
+    return records
+
+
+def _sharded_phase(card, dev, camera, bounds, scene, tmp, ranks,
+                   t20) -> list:
+    """sharded_phase's checks and runs; ranks: the two gloo ranks, started
+    and waiting for tmp/inputs.npz."""
+    import os
+    import socket
+    import torch.distributed as dist
+    from vpt_torch.dist import (make_fd_geom_train_step,
+                                make_kernel_train_step, make_mesh,
+                                render_sharded)
+    # -- the pair's sixteen kernels with the lane range: ptxas held
+    rep = ptxas_report()
+    held = {k: v for k, v in {**EXISTING_PTXAS, **GRID_PTXAS}.items()
+            if "vpt_diff" in k}
+    for frag, v in EXT_PAIR_PTXAS.items():
+        hits = [k for k in rep if frag in k]
+        if len(hits) != 1:
+            raise AssertionError(f"ptxas reports {len(hits)} kernels for "
+                                 f"{frag}")
+        held[hits[0]] = v
+    for k, v in held.items():
+        print(f"phase 20 ptxas {k}: {rep.get(k)} (registers, spill stores, "
+              f"stack; held {v})", flush=True)
+    changed = {k: (rep.get(k), v) for k, v in held.items() if rep.get(k) != v}
+    if changed:
+        raise AssertionError(f"the lane range changed the pair's ptxas: "
+                             f"{changed}")
+
+    # -- every K2/K3 source's shard launches; K4's and K1's raw launches
+    checks = {}
+    for i, pcfg in enumerate(SHARD_PAIRS):
+        r = shard_pair_check(pcfg, camera, dev, plain=i == 0)
+        checks[r["entries"]] = r
+        if i == 0:
+            r0 = r
+        ok = (r["fwd_concat"] and r["fwd_seam"] and r["rows_concat"]
+              and r["rows_seam"] and r["sum_over"] == 0 and r["finite"]
+              and r.get("voxel_rel", 0.0) <= SHARD_VOXEL_TOL
+              and r.get("k2_plain_equal", True)
+              and r.get("k3_plain_equal", True))
+        print(f"phase 20 shards {r['entries']} 64x32x8 (base 0, 1024; the "
+              f"launch across the end at 1536): "
+              f"{ {k: v for k, v in r.items() if k != 'entries'} }",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"shard launches of {r['entries']} disagree "
+                                 f"with the whole frame or the plain twin")
+    if len({e for es in checks for e in es}) != 2 * len(SHARD_PAIRS):
+        raise AssertionError(f"the shard checks ran {sorted(checks)}")
+    raw = shard_raw_checks(scene, camera, dev)
+    print(f"phase 20 raw launches (K4 at K = 0 and 7 at 64x32x8, K1 at "
+          f"128x64x8 and across the end of 96x64x8): {raw}", flush=True)
+    if not all(raw[k] for k in ("k4_0", "k4_7", "k4_plain_equal", "k1",
+                                "k1_plain_equal")):
+        raise AssertionError(f"raw launches disagree: {raw}")
+    print(f"phase 20 checks: {time.perf_counter() - t20:.1f} s", flush=True)
+
+    # -- the main frame on a world of one rank: NCCL
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port1 = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port1}",
+                            world_size=1, rank=0)
+    mesh = make_mesh(device=dev)
+    cfg = vpt_torch.RenderConfig(**MAIN_CFG)
+    reset_counts()
+    img_s = render_sharded(scene, camera, cfg, mesh)
+    torch.cuda.synchronize()
+    k1_launches = dict(wf.LAUNCHES_BY)
+    img = vpt_torch.render(scene, camera, cfg, device=dev)
+    k1_equal = bool(torch.equal(img_s, img))
+    sh_ms, sh_times = median_ms(lambda: render_sharded(scene, camera, cfg,
+                                                       mesh))
+    r_ms, r_times = median_ms(lambda: vpt_torch.render(scene, camera, cfg,
+                                                       device=dev))
+    print(f"phase 20 render_sharded {cfg.width}x{cfg.height}x{cfg.spp} "
+          f"{cfg.sampler} on a (1, 1) NCCL mesh: launches {k1_launches}, "
+          f"bit-equal to vpt_torch.render {k1_equal}; {sh_ms:.3f} ms (median "
+          f"of {sh_times}) against render's {r_ms:.3f} ms ({r_times}) on "
+          f"{card}", flush=True)
+    if not k1_equal or k1_launches.get("vpt_wavefront_free_nee_raw", 0) < 1:
+        raise AssertionError("render_sharded on the NCCL mesh is not the "
+                             "render kernel's frame")
+    wrong = wrong_medium(scene)
+    target, fd_target = shard_targets(scene, camera, dev)
+    d1 = sharded_steps(scene, camera, mesh, wrong, target, fd_target)
+    ref_losses, ref_params, ref_secs = run_kernel_steps(
+        lambda opt: make_kernel_train_step(
+            wrong, camera, cfg.width, cfg.height, 16, opt, max_bounces=16,
+            device=dev), wrong, target, dev)
+    w, h, spp, mb = SHARD_FD
+    ref_fd_loss, ref_fd_theta = run_fd_step(
+        lambda opt: make_fd_geom_train_step(
+            scene, camera, w, h, spp, opt, sphere=8, cam_grads=False,
+            max_bounces=mb, device=dev), scene, camera, fd_target, dev)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(d1["losses"],
+                                                         ref_losses))
+    par_rel = float(((d1["params"] - ref_params).abs()
+                     / ref_params.abs().clamp_min(1e-30)).max())
+    fd_rel = abs(d1["fd_loss"] - ref_fd_loss) / abs(ref_fd_loss)
+    th_err = float((d1["fd_theta"] - ref_fd_theta).abs().max())
+    sl = d1["step_launches"]
+    print(f"phase 20 {SHARD_STEPS} make_sharded_kernel_train_step steps "
+          f"{cfg.width}x{cfg.height}, 16 spp on the NCCL mesh: losses "
+          f"{d1['losses']}, {[round(t, 4) for t in d1['secs']]} s; "
+          f"make_kernel_train_step {ref_losses}, "
+          f"{[round(t, 4) for t in ref_secs]} s; losses within {loss_rel:.3e}"
+          f" relative, params within {par_rel:.3e}; launches {sl}; the FD "
+          f"step {SHARD_FD}: loss {d1['fd_loss']:.6g} against "
+          f"{ref_fd_loss:.6g} ({fd_rel:.3e}), theta within {th_err:.3e}, "
+          f"launches {d1['fd_launches']}", flush=True)
+    if not (loss_rel < 1e-5 and par_rel < 1e-5 and fd_rel < 1e-5
+            and th_err < 1e-4 and sl.get("vpt_diff_fwd_shard") == 2 *
+            SHARD_STEPS and sl.get("vpt_diff_bwd_shard") == 2 * SHARD_STEPS
+            and d1["fd_launches"].get("geom_k0_raw") == 12):
+        raise AssertionError("the sharded steps on the NCCL mesh disagree "
+                             "with the single-device steps")
+
+    # -- the half-frame launches at the main frame (one rank of two)
+    npix = cfg.width * cfg.height
+    half = npix // 2
+    seed_t = torch.tensor([cfg.seed], dtype=torch.int32, device=dev)
+    dp = df.pack_diff(scene, camera, cfg.width, cfg.height, cfg.spp,
+                      max_bounces=cfg.max_bounces, sampler=cfg.sampler)
+    pvec = df._flatten(df.pack_params(scene), scene.count).to(dev)
+    gmean = torch.full((half, 3), 1.0 / (3 * npix), device=dev)
+    k2_ms, k2_t = median_ms(lambda: df.diff_fwd(dp, pvec, seed_t, None,
+                                                half, half))
+    k3_ms, k3_t = median_ms(lambda: df.diff_bwd(dp, pvec, seed_t, gmean,
+                                                False, None, half, half))
+    gp0 = gm.pack_geom(scene, camera, cfg.width, cfg.height, cfg.spp,
+                       sphere=8, primal_only=True,
+                       max_bounces=cfg.max_bounces)
+    th = gm.flatten_theta(gm.pack_theta(scene, camera, 8)).to(dev)
+    k4_ms, k4_t = median_ms(lambda: gm.geom_fwd(gp0, th, seed_t, half, half))
+    pk = wf.pack_scene(scene, camera, cfg.width, cfg.height, cfg.spp,
+                       max_bounces=cfg.max_bounces, sampler=cfg.sampler)
+    k1_raw = wf.make_raw(pk, pk.num_tiles // 2)
+    k1_ms, k1_t = median_ms(lambda: k1_raw(seed_t, half))
+    if bounds is None:
+        bounds = shard_bounds_alone(scene, camera, dev)
+    print(f"phase 20 half-frame launches at {cfg.width}x{cfg.height}x"
+          f"{cfg.spp} (lanes {half}..{npix - 1}): K2 shard {k2_ms:.3f} ms "
+          f"({k2_t}), K3 shard {k3_ms:.3f} ms ({k3_t}), K4 raw K=0 "
+          f"{k4_ms:.3f} ms ({k4_t}; \"random\"), K1 raw {k1_ms:.3f} ms "
+          f"({k1_t}); whole-frame bounds {bounds}", flush=True)
+
+    # -- two gloo ranks on the one card, (2, 1): their inputs now
+    tmp_in = os.path.join(tmp, "inputs.tmp.npz")
+    np.savez(tmp_in, target=target.cpu().numpy(),
+             fd_target=fd_target.cpu().numpy())
+    os.replace(tmp_in, os.path.join(tmp, "inputs.npz"))
+    t_ranks = time.perf_counter()
+    outs = []
+    for r, p in enumerate(ranks):
+        try:
+            log, _ = p.communicate(timeout=SHARD_RANK_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"gloo rank {r} did not finish")
+        if p.returncode != 0:
+            raise AssertionError(f"gloo rank {r} failed:\n{log[-4000:]}")
+        with np.load(os.path.join(tmp, f"rank{r}.npz")) as z:
+            outs.append({k: z[k] for k in z.files})
+    a, b = outs
+    img_np = img.reshape(-1, 3).cpu().numpy()
+    replicas = bool(np.array_equal(a["params"], b["params"])
+                    and np.array_equal(a["losses"], b["losses"])
+                    and np.array_equal(a["fd_theta"], b["fd_theta"])
+                    and a["fd_loss"] == b["fd_loss"])
+    frames = all(np.array_equal(o["img"].reshape(-1, 3), img_np)
+                 for o in outs)
+    d2_loss = float(np.max(np.abs(a["losses"] - np.asarray(d1["losses"]))
+                           / np.abs(np.asarray(d1["losses"]))))
+    p1 = d1["params"].numpy()
+    d2_par = float(np.max(np.abs(a["params"] - p1)
+                          / np.maximum(np.abs(p1), 1e-30)))
+    d2_fd = abs(float(a["fd_loss"]) - d1["fd_loss"]) / abs(d1["fd_loss"])
+    d2_th = float(np.abs(a["fd_theta"] - d1["fd_theta"].numpy()).max())
+    print(f"phase 20 two gloo ranks on the one card, (2, 1) mesh: frames "
+          f"bit-equal to render {frames}, replicas bitwise equal {replicas}; "
+          f"D = 2 against D = 1: step losses {a['losses'].tolist()} within "
+          f"{d2_loss:.3e} relative, params within {d2_par:.3e}, step "
+          f"seconds {a['secs'].tolist()}; FD loss within {d2_fd:.3e}, theta "
+          f"within {d2_th:.3e}; {time.perf_counter() - t_ranks:.1f} s after "
+          f"their inputs", flush=True)
+    if not (frames and replicas and d2_loss < 1e-5 and d2_par < 1e-5
+            and d2_fd < 1e-5 and d2_th < 1e-4):
+        raise AssertionError("the two-rank run disagrees with one rank")
+
+    common = {"route": "cuda", "library_ms": None, "card": card,
+              "ms_frame": f"lanes {half}..{npix - 1} of the main frame",
+              "plain_frame": "64x32x8, lanes 1536..2559 (512 past the end)"}
+    print(f"phase 20: {time.perf_counter() - t20:.1f} s", flush=True)
+    return [
+        {"name": "diff_fwd_shard", **common,
+         "source": "vpt_torch/csrc/diff.cu",
+         "replaces": "vpt/kernels/diff.py:1406",
+         "launches": sl["vpt_diff_fwd_shard"], "max_abs_err": r0["k2_err"],
+         "ms": k2_ms, "plain_ms": r0["k2_plain_ms"],
+         "bound_ms": bounds["k2"][0] / 2, "bound_by": bounds["k2"][1],
+         "sharded_render_ms": sh_ms, "render_ms": r_ms,
+         "sharded_step_s": d1["secs"], "step_s": ref_secs,
+         "gloo_d2_step_s": a["secs"].tolist()},
+        {"name": "diff_bwd_shard", **common,
+         "source": "vpt_torch/csrc/diff.cu",
+         "replaces": "vpt/kernels/diff.py:1430",
+         "launches": sl["vpt_diff_bwd_shard"], "max_abs_err": r0["k3_err"],
+         "ms": k3_ms, "plain_ms": r0["k3_plain_ms"],
+         "bound_ms": bounds["k3"][0] / 2, "bound_by": bounds["k3"][1]},
+        {"name": "geom_raw_k0", **common,
+         "source": "vpt_torch/csrc/geom_k0.cu",
+         "replaces": "vpt/kernels/geom.py:690",
+         "launches": d1["fd_launches"]["geom_k0_raw"],
+         "max_abs_err": raw["k4_err"], "ms": k4_ms,
+         "plain_ms": raw["k4_plain_ms"],
+         "bound_ms": bounds["k4_0"][0] / 2, "bound_by": bounds["k4_0"][1]},
+        {"name": "wavefront_free_nee_raw", **common,
+         "source": "vpt_torch/csrc/wavefront.cu",
+         "replaces": "vpt/kernels/wavefront.py:782",
+         "launches": k1_launches["vpt_wavefront_free_nee_raw"],
+         "max_abs_err": raw["k1_err"], "ms": k1_ms,
+         "plain_ms": raw["k1_plain_ms"],
+         "plain_frame": "96x64x8, lanes 4096..8191 (2048 past the end)",
+         "bound_ms": bounds["k1"][0] / 2, "bound_by": bounds["k1"][1]}]
+
+
 def pair_small_checks(scene, camera, dev: torch.device) -> None:
     """Phase 6: K2 and K3 against their plain versions at 64x32x8, both
     samplers, seeds 3 and 11 (untimed, so run beside the plain pool)."""
@@ -3768,6 +4336,13 @@ def parse_args(argv=None):
     ap.add_argument("--geom-field", action="store_true",
                     help="the card, the build and phase 19 alone (K4 in a "
                          "density field, fit_geom_fd in a grid)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="the card, the build and phase 20 alone (the "
+                         "sharded entries; bounds from counters at "
+                         "128x128x8)")
+    ap.add_argument("--sharded-rank", nargs=3, default=None,
+                    metavar=("RANK", "PORT", "DIR"),
+                    help=argparse.SUPPRESS)
     ap.add_argument("--recover-grid-ea", type=int, default=None,
                     metavar="STEPS",
                     help="the card, the build and tomo_quality_study.py's "
@@ -3781,13 +4356,17 @@ def main() -> int:
     args = parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; no result")
+    if args.sharded_rank is not None:     # one of phase 20's gloo ranks
+        rank, port, tmp = args.sharded_rank
+        sharded_rank(int(rank), int(port), tmp)
+        return 0
     plains = None
     if args.geom_ext:
         plains = PlainPool(geom_ext_specs())
     elif args.geom_field:
         plains = PlainPool(geom_field_specs())
     elif (args.recover_fog_multiview is None and args.recover_grid is None
-            and args.recover_grid_ea is None):
+            and args.recover_grid_ea is None and not args.sharded):
         plains = PlainPool(plain_specs())
     try:
         return run(args, plains)
@@ -3852,6 +4431,12 @@ def run(args, plains: PlainPool | None) -> int:
     if args.geom_field:
         plains.wait()
         records = geom_field_phases(card, dev, camera, plains)
+        print(json.dumps({"kernels": records}))
+        print(f"chip_smoke: partial run, {time.perf_counter() - t_start:.1f}"
+              f" s", flush=True)
+        return 0
+    if args.sharded:
+        records = sharded_phase(card, dev, camera, None)
         print(json.dumps({"kernels": records}))
         print(f"chip_smoke: partial run, {time.perf_counter() - t_start:.1f}"
               f" s", flush=True)
@@ -4536,6 +5121,14 @@ def run(args, plains: PlainPool | None) -> int:
     # ---- phase 19: the dual kernel K4 in a density field (exp_height and
     # blobs in dual form, a voxel grid in the primal_only mode)
     records += geom_field_phases(card, dev, camera, plains)
+    print(f"phases 1-19: {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- phase 20: the sharded entries: K2/K3's lane range, K4's and K1's
+    # raw launches, render_sharded and the sharded train steps on a (1, 1)
+    # NCCL mesh and on two gloo ranks of the one card
+    records += sharded_phase(card, dev, camera, {
+        "k1": (k1_bound, k1_by), "k2": (k2_bound, k2_by),
+        "k3": (k3_bound, k3_by), "k4_0": (k0_bound, k0_by)})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

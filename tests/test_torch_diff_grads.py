@@ -169,21 +169,24 @@ GRID_DUAL = "the geometric DUAL planes would need dual trilinear gathers"
 # (tests/test_torch_grid_diff.py); their cases check what stays refused
 # with them: equi-angular, physical, material-3 shells, an HG phase in a
 # grid, the dual kernel in a grid, vpt's engine backend of the grid trainer
-# what stays refused: the shard variant (item 8), the engine (item 9), K4
-# with a tangent plane in a voxel grid (vpt's reason, GRID_DUAL: K4 takes
-# the analytic fields in dual form and a grid in the primal_only mode); vpt's
-# own refusal of the non-physical implicit pair names the engine too
+# what stays refused: the engine (item 9), K4 with a tangent plane in a
+# voxel grid (vpt's reason, GRID_DUAL: K4 takes the analytic fields in dual
+# form and a grid in the primal_only mode); vpt's own refusal of the
+# non-physical implicit pair names the engine too. The shard variant runs
+# (tests/test_torch_dist.py); its cases check what stays refused with it:
+# the non-physical implicit pair with diff_g or diff_grid, and vpt's engine
+# backend of the sharded render
 REFUSED = {
     "diff_g": lambda: df.make_diff_renderer(
-        SCENE, CAM, 8, 4, 1, diff_g=True, distance="equiangular",
-        device="cpu").make_shard(1),
+        SCENE, CAM, 8, 4, 1, diff_g=True, distance="equiangular", nee=False,
+        physical=False, device="cpu"),
     "diff_field": lambda: df.make_diff_renderer(SCENE, CAM, 8, 4, 1,
                                                 diff_field=True, device="cpu"),
     "diff_blobs": lambda: df.make_diff_renderer(SCENE, CAM, 8, 4, 1,
                                                 diff_blobs=True, device="cpu"),
     "diff_grid": lambda: df.make_diff_renderer(
         _grid_scene(), CAM, 8, 4, 1, diff_grid=True, distance="equiangular",
-        device="cpu").make_shard(1),
+        nee=False, physical=False, device="cpu"),
     "with_grid": lambda: vpt_torch.dist.fit_grid(
         _grid_scene(), [CAM], [torch.zeros(4, 8, 3)], steps=1,
         backend="engine", device="cpu"),
@@ -191,8 +194,9 @@ REFUSED = {
         vpt_torch.make_scene(list(vpt_torch.scene.scene.CORNELL_VPT_SPHERES),
                              g=0.3), CAM, 8, 4, 1, nee=False, physical=False,
         device="cpu"),
-    "make_shard": lambda: df.make_diff_renderer(
-        SCENE, CAM, 8, 4, 1, device="cpu").make_shard(1),
+    "make_shard": lambda: vpt_torch.dist.render_sharded(
+        SCENE, CAM, vpt_torch.RenderConfig(width=8, height=4, spp=1),
+        vpt_torch.dist.make_mesh(device="cpu"), backend="engine"),
     "fit_kernel_diff_g": lambda: vpt_torch.dist.fit_grid(
         _grid_scene(), [CAM], [torch.zeros(4, 8, 3)], steps=1,
         backend="engine", distance="equiangular", device="cpu"),

@@ -206,7 +206,10 @@ UNSUPPORTED = {
         vpt_torch.cornell_vpt(), vpt_torch.default_camera(),
         vpt_torch.RenderConfig(width=8, height=4, spp=2,
                                integrator="vpt3"), device="cpu"),
-    "cli_sharded": lambda: cli.main(["--sharded", "--device", "cpu"]),
+    # --sharded renders on the kernel (tests/test_torch_dist.py); vpt's
+    # engine integrators stay refused on it
+    "cli_sharded": lambda: cli.main(["--sharded", "--device", "cpu",
+                                     "--integrator", "vpt3"]),
     "cli_checkpoint": lambda: cli.main(["--checkpoint", "ck.npz",
                                         "--device", "cpu"]),
     "float64": lambda: _render(dtype="float64"),

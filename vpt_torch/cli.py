@@ -9,6 +9,7 @@ Usage:
   python -m vpt_torch.cli --device cpu --spp 4 --width 64 --height 48
   python -m vpt_torch.cli --spp 64 --integrator explicit_equiangular \
       --hg-g 0.5 --adaptive -o out.ppm
+  torchrun --nproc_per_node=1 -m vpt_torch.cli 64 --sharded
 """
 from __future__ import annotations
 
@@ -69,9 +70,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-o", "--output", default="image.ppm")
     p.add_argument("--device", default="cuda",
                    help="cuda: the CUDA kernel; cpu: its plain torch version")
-    # vpt's flags whose paths are not ported yet: accepted, then refused
     p.add_argument("--sharded", action="store_true",
-                   help="not ported yet (ROADMAP Queue 1 item 8)")
+                   help="render over the ranks of the process group (one per "
+                        "device, e.g. under torchrun) via the (data, sample) "
+                        "mesh; one process without one")
+    # vpt's flags whose paths are not ported yet: accepted, then refused
     p.add_argument("--checkpoint", default=None,
                    help="not ported yet (ROADMAP Queue 1 item 9)")
     p.add_argument("--checkpoint-every", type=int, default=0,
@@ -87,9 +90,6 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.spp_pos is not None:
         args.spp = args.spp_pos
-    if args.sharded:
-        raise NotImplementedError(
-            "--sharded: multi-GPU rendering is ROADMAP Queue 1 item 8")
     if args.checkpoint or args.checkpoint_every or args.preview \
             or args.preview_every:
         raise NotImplementedError(
@@ -97,6 +97,7 @@ def main(argv=None) -> int:
             "engine, ROADMAP Queue 1 item 9")
 
     import torch
+    import torch.distributed as dist
 
     import vpt_torch
     from vpt_torch.io.ppm import write_ppm
@@ -129,7 +130,14 @@ def main(argv=None) -> int:
 
     t0 = time.time()
     effective_spp = args.spp          # --target-noise overrides with actual
-    if args.target_noise is not None:
+    if args.sharded:
+        from vpt_torch.dist import render_sharded
+        from vpt_torch.dist.multihost import global_mesh, initialize
+
+        initialize()
+        img = render_sharded(scene, camera, cfg,
+                             global_mesh(device=args.device))
+    elif args.target_noise is not None:
         img, spp_used, achieved = vpt_torch.render_to_noise(
             scene, camera, cfg, target_rel_se=args.target_noise,
             max_spp=args.max_spp, log=print, device=args.device)
@@ -145,6 +153,8 @@ def main(argv=None) -> int:
     img = img.cpu()
     elapsed = time.time() - t0
 
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return 0                    # every rank holds the frame; one writes
     write_ppm(args.output, img)
     n_paths = args.width * args.height * effective_spp
     # reference prints "elapsed time: <s>s" (src/rt.cpp:824-827)

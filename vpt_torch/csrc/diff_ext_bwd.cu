@@ -3,7 +3,8 @@
 #include "diff_kernel.cuh"
 
 extern "C" int vpt_diff_bwd_ext(const void* params, const void* pvec, const void* seed,
-                                const void* gbar, void* partials, void* per_lane, void* stream) {
-  return vpt_diff::launch_ext_bwd<vpt::kHomogeneous>(params, pvec, seed, gbar, partials, per_lane,
-                                                     nullptr, nullptr, stream);
+                                int base, int n_lanes, const void* gbar, void* partials,
+                                void* per_lane, void* stream) {
+  return vpt_diff::launch_ext_bwd<vpt::kHomogeneous>(params, pvec, seed, base, n_lanes, gbar,
+                                                     partials, per_lane, nullptr, nullptr, stream);
 }

@@ -3,7 +3,8 @@
 // phase. The kernel is in csrc/diff_kernel.cuh.
 #include "diff_kernel.cuh"
 
-extern "C" int vpt_diff_fwd_ext(const void* params, const void* pvec, const void* seed, void* out,
-                                void* stream) {
-  return vpt_diff::launch_ext_fwd<vpt::kHomogeneous>(params, pvec, seed, out, nullptr, stream);
+extern "C" int vpt_diff_fwd_ext(const void* params, const void* pvec, const void* seed,
+                                int base, int n_lanes, void* out, void* stream) {
+  return vpt_diff::launch_ext_fwd<vpt::kHomogeneous>(params, pvec, seed, base, n_lanes, out,
+                                                     nullptr, stream);
 }

@@ -4,6 +4,7 @@
 #include "diff_kernel.cuh"
 
 extern "C" int vpt_diff_fwd_field_ext(const void* params, const void* pvec, const void* seed,
-                                      void* out, void* stream) {
-  return vpt_diff::launch_ext_fwd<vpt::kAnalytic>(params, pvec, seed, out, nullptr, stream);
+                                      int base, int n_lanes, void* out, void* stream) {
+  return vpt_diff::launch_ext_fwd<vpt::kAnalytic>(params, pvec, seed, base, n_lanes, out, nullptr,
+                                                  stream);
 }

@@ -4,6 +4,6 @@
 #include "diff_kernel.cuh"
 
 extern "C" int vpt_diff_fwd_field_hg(const void* params, const void* pvec, const void* seed,
-                                     void* out, void* stream) {
-  return vpt_diff::launch_fwd<true, true>(params, pvec, seed, out, stream);
+                                     int base, int n_lanes, void* out, void* stream) {
+  return vpt_diff::launch_fwd<true, true>(params, pvec, seed, base, n_lanes, out, stream);
 }

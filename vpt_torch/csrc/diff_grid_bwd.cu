@@ -20,33 +20,34 @@ static int grid_shared_bytes(int T) {
 
 // As launch_bwd, plus tab (the packed table) and ggrid: NULL, or with
 // D.diff_grid device float32[T] the voxel gradient, which this adds to
-static int launch_grid_bwd(const void* params, const void* pvec, const void* seed,
-                           const void* gbar, void* partials, void* per_lane, const void* tab,
-                           void* ggrid, void* stream) {
+static int launch_grid_bwd(const void* params, const void* pvec, const void* seed, int base,
+                           int n_lanes, const void* gbar, void* partials, void* per_lane,
+                           const void* tab, void* ggrid, void* stream) {
   DiffParams D;
-  if (!read_grid_params(params, D) || tab == nullptr || (D.diff_grid != 0) != (ggrid != nullptr))
+  if (!read_grid_params(params, D) || tab == nullptr || (D.diff_grid != 0) != (ggrid != nullptr) ||
+      base < 0)
     return (int)cudaErrorInvalidValue;
-  const int npix = D.base.width * D.base.height;
-  if (npix <= 0) return 0;
-  const int blocks = (npix + kThreads - 1) / kThreads;
+  if (D.base.width * D.base.height <= 0 || n_lanes <= 0) return 0;
+  const int blocks = (n_lanes + kThreads - 1) / kThreads;
   const int T = D.base.grid.n[0] * D.base.grid.n[1] * D.base.grid.n[2];
   const int smem = ggrid != nullptr ? grid_shared_bytes(T) : 0;
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(grid_bwd_kernel<vpt::kGridField>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   grid_bwd_kernel<vpt::kGridField><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      D, (const float*)pvec, (const int*)seed, (const float*)gbar, (float*)partials,
-      (float*)per_lane, (const uint32_t*)tab, (float*)ggrid, smem > 0 ? 1 : 0);
+      D, (const float*)pvec, (const int*)seed, base, valid_lanes(D, base, n_lanes),
+      (const float*)gbar, (float*)partials, (float*)per_lane, (const uint32_t*)tab,
+      (float*)ggrid, smem > 0 ? 1 : 0);
   return (int)cudaGetLastError();
 }
 
 }  // namespace vpt_diff
 
 extern "C" int vpt_diff_bwd_grid(const void* params, const void* pvec, const void* seed,
-                                 const void* gbar, void* partials, void* per_lane,
-                                 const void* tab, void* ggrid, void* stream) {
-  return vpt_diff::launch_grid_bwd(params, pvec, seed, gbar, partials, per_lane, tab, ggrid,
-                                   stream);
+                                 int base, int n_lanes, const void* gbar, void* partials,
+                                 void* per_lane, const void* tab, void* ggrid, void* stream) {
+  return vpt_diff::launch_grid_bwd(params, pvec, seed, base, n_lanes, gbar, partials, per_lane,
+                                   tab, ggrid, stream);
 }
 
 // the dynamic shared memory K3 takes for a grid of T voxels (0: it adds

@@ -6,10 +6,10 @@
 #include "diff_kernel.cuh"
 
 extern "C" int vpt_diff_bwd_grid_ext(const void* params, const void* pvec, const void* seed,
-                                     const void* gbar, void* partials, void* per_lane,
-                                     const void* tab, void* ggrid, void* stream) {
-  return vpt_diff::launch_ext_bwd<vpt::kGridField>(params, pvec, seed, gbar, partials, per_lane,
-                                                   tab, ggrid, stream);
+                                     int base, int n_lanes, const void* gbar, void* partials,
+                                     void* per_lane, const void* tab, void* ggrid, void* stream) {
+  return vpt_diff::launch_ext_bwd<vpt::kGridField>(params, pvec, seed, base, n_lanes, gbar,
+                                                   partials, per_lane, tab, ggrid, stream);
 }
 
 // the dynamic shared memory this K3 takes for a grid of T voxels (0: it

@@ -4,6 +4,8 @@
 #include "diff_kernel.cuh"
 
 extern "C" int vpt_diff_fwd_grid_ext(const void* params, const void* pvec, const void* seed,
-                                     void* out, const void* tab, void* stream) {
-  return vpt_diff::launch_ext_fwd<vpt::kGridField>(params, pvec, seed, out, tab, stream);
+                                     int base, int n_lanes, void* out, const void* tab,
+                                     void* stream) {
+  return vpt_diff::launch_ext_fwd<vpt::kGridField>(params, pvec, seed, base, n_lanes, out, tab,
+                                                   stream);
 }

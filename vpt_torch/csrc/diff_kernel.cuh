@@ -21,6 +21,18 @@
 // phase), whose kernels read the grid's packed table; with diff_grid (a
 // launch parameter) K3 also writes the voxel gradient.
 //
+// Lanes: thread i of a launch runs lane base + i for i < n_lanes, as K4's
+// kernel does (csrc/geom_kernel.cuh): its PCG streams are keyed by that
+// global lane and its camera ray takes pixel min(lane, npix - 1), vpt's
+// clamp; its outputs (K2's image row, K3's cotangent row and per-lane row)
+// are indexed by i. The whole frame is base = 0, n_lanes = npix; a shard of
+// one device's tile range (vpt/kernels/diff.py make_shard, fwd_shard :1406,
+// bwd_shard :1430) is any other range. K3 masks lanes past the frame: they
+// add no gradient and no voxel term (vpt zeroes their cotangent,
+// diff.py:362-365; its VJP is linear in it, so that is the same zero), and
+// its threads take the count of lanes within the frame, so the
+// whole-frame kernel keeps its one bound check.
+//
 // The parameter vector pvec (float32[P], P = 2 + 6S [+ 1 g] + n_fp) lives in device
 // memory, so a training step never copies parameters to the host or
 // synchronises; each block stages it in shared memory once. In a field the
@@ -71,6 +83,19 @@ __host__ __device__ constexpr int max_params() {
   return VPT_MAX_PARAMS + (kHG ? 1 : 0) + (kField ? VPT_MAX_FP : 0);
 }
 
+// the pixel of a lane: vpt's clamp of a lane past the frame to its last pixel
+__device__ __forceinline__ int lane_pixel(int lane, int npix) {
+  return lane < npix - 1 ? lane : npix - 1;
+}
+
+// K3's lanes within the frame of the launch's lanes base .. base + n_lanes
+// - 1: its threads i < valid_lanes run, the others (past the frame) add
+// nothing
+inline int valid_lanes(const DiffParams& D, int base, int n_lanes) {
+  const int left = D.base.width * D.base.height - base;
+  return left < 0 ? 0 : (left < n_lanes ? left : n_lanes);
+}
+
 // Stage the parameter vector in shared memory; returns the field the
 // block's threads read: in a field instantiation a shared copy of the
 // host's with its traced entries recomputed from the staged vector
@@ -93,37 +118,39 @@ __device__ __forceinline__ const FieldParams& stage(const DiffParams& D,
 template <bool kField, bool kHG>
 __global__ void __launch_bounds__(kThreads)
     fwd_kernel(const __grid_constant__ DiffParams D, const float* __restrict__ pvec,
-               const int* __restrict__ seed, float* __restrict__ out) {
+               const int* __restrict__ seed, int base, int n_lanes, float* __restrict__ out) {
   __shared__ float pv[max_params<kField, kHG>()];
   const FieldParams& F = stage<kField>(D, pvec, pv);
   const int npix = D.base.width * D.base.height;
-  const int pixel = blockIdx.x * kThreads + threadIdx.x;
-  if (pixel >= npix) return;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n_lanes) return;
+  const int lane = base + i;
   float L[3];
-  vpt::diff_pixel<false, kField, kHG>(D, pv, F, pixel, seed[0], nullptr, L, nullptr);
-  out[3 * pixel + 0] = L[0];
-  out[3 * pixel + 1] = L[1];
-  out[3 * pixel + 2] = L[2];
+  vpt::diff_pixel<false, kField, kHG>(D, pv, F, (uint32_t)lane, lane_pixel(lane, npix), seed[0],
+                                      nullptr, L, nullptr);
+  out[3 * i + 0] = L[0];
+  out[3 * i + 1] = L[1];
+  out[3 * i + 2] = L[2];
 }
 
 template <bool kField, bool kHG>
 __global__ void __launch_bounds__(kThreads)
     bwd_kernel(const __grid_constant__ DiffParams D, const float* __restrict__ pvec,
-               const int* __restrict__ seed, const float* __restrict__ gbar,
+               const int* __restrict__ seed, int base, int n_valid, const float* __restrict__ gbar,
                float* __restrict__ partials, float* __restrict__ per_lane) {
   constexpr int kMaxP = max_params<kField, kHG>();
   __shared__ float pv[kMaxP];
   __shared__ float warp_sum[kWarps][kMaxP];
   const FieldParams& F = stage<kField>(D, pvec, pv);
   const int P = D.n_params;
-  const int npix = D.base.width * D.base.height;
-  const int pixel = blockIdx.x * kThreads + threadIdx.x;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
   float g[kMaxP];
-  if (pixel < npix) {
-    vpt::diff_pixel<true, kField, kHG>(D, pv, F, pixel, seed[0], gbar + 3 * pixel, nullptr, g);
+  if (i < n_valid) {  // lane base + i, within the frame
+    vpt::diff_pixel<true, kField, kHG>(D, pv, F, (uint32_t)(base + i), base + i, seed[0],
+                                       gbar + 3 * i, nullptr, g);
     if (per_lane != nullptr)
-      for (int k = 0; k < P; ++k) per_lane[(size_t)pixel * P + k] = g[k];
-  } else {
+      for (int k = 0; k < P; ++k) per_lane[(size_t)i * P + k] = g[k];
+  } else {  // past the frame (masked), or past the launch
     for (int k = 0; k < P; ++k) g[k] = 0.0f;
   }
   // every thread of the block reaches the reduction
@@ -156,36 +183,37 @@ bool read_params(const void* params, DiffParams& D) {
 }
 
 // params: host pointer to a DiffParams (copied into the launch);
-// pvec: device float32[P]; seed: device int32[1]; out: device float32[npix * 3]
-// (radiance sums over the samples; the wrapper divides by spp).
+// pvec: device float32[P]; seed: device int32[1]; base, n_lanes: the lanes
+// base .. base + n_lanes - 1 (the whole frame: 0, npix); out: device
+// float32[n_lanes * 3] (radiance / spp per lane).
 // Returns cudaGetLastError() right after the launch; does not synchronise.
 template <bool kField, bool kHG = false>
-int launch_fwd(const void* params, const void* pvec, const void* seed, void* out, void* stream) {
+int launch_fwd(const void* params, const void* pvec, const void* seed, int base, int n_lanes,
+               void* out, void* stream) {
   DiffParams D;
-  if (!read_params<kField, kHG>(params, D)) return (int)cudaErrorInvalidValue;
-  const int npix = D.base.width * D.base.height;
-  if (npix <= 0) return 0;
-  const int blocks = (npix + kThreads - 1) / kThreads;
+  if (!read_params<kField, kHG>(params, D) || base < 0) return (int)cudaErrorInvalidValue;
+  if (D.base.width * D.base.height <= 0 || n_lanes <= 0) return 0;
+  const int blocks = (n_lanes + kThreads - 1) / kThreads;
   fwd_kernel<kField, kHG><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      D, (const float*)pvec, (const int*)seed, (float*)out);
+      D, (const float*)pvec, (const int*)seed, base, n_lanes, (float*)out);
   return (int)cudaGetLastError();
 }
 
-// As launch_fwd, plus gbar: device float32[npix * 3], the cotangent of the
-// image; partials: device float32[n_blocks * P], one row per block of
-// kThreads pixels; per_lane: NULL, or device float32[npix * P] to receive
-// each pixel's own gradient vector as well.
+// As launch_fwd, plus gbar: device float32[n_lanes * 3], the cotangent of
+// the lanes' image; partials: device float32[n_blocks * P], one row per
+// block of kThreads lanes; per_lane: NULL, or device float32[n_lanes * P]
+// to receive each lane's own gradient vector as well (its rows past the
+// frame are not written: the caller zeroes them).
 template <bool kField, bool kHG = false>
-int launch_bwd(const void* params, const void* pvec, const void* seed, const void* gbar,
-               void* partials, void* per_lane, void* stream) {
+int launch_bwd(const void* params, const void* pvec, const void* seed, int base, int n_lanes,
+               const void* gbar, void* partials, void* per_lane, void* stream) {
   DiffParams D;
-  if (!read_params<kField, kHG>(params, D)) return (int)cudaErrorInvalidValue;
-  const int npix = D.base.width * D.base.height;
-  if (npix <= 0) return 0;
-  const int blocks = (npix + kThreads - 1) / kThreads;
+  if (!read_params<kField, kHG>(params, D) || base < 0) return (int)cudaErrorInvalidValue;
+  if (D.base.width * D.base.height <= 0 || n_lanes <= 0) return 0;
+  const int blocks = (n_lanes + kThreads - 1) / kThreads;
   bwd_kernel<kField, kHG><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      D, (const float*)pvec, (const int*)seed, (const float*)gbar, (float*)partials,
-      (float*)per_lane);
+      D, (const float*)pvec, (const int*)seed, base, valid_lanes(D, base, n_lanes),
+      (const float*)gbar, (float*)partials, (float*)per_lane);
   return (int)cudaGetLastError();
 }
 
@@ -200,18 +228,20 @@ namespace vpt_diff {
 template <int kField>
 __global__ void __launch_bounds__(kThreads)
     grid_fwd_kernel(const __grid_constant__ DiffParams D, const float* __restrict__ pvec,
-                    const int* __restrict__ seed, float* __restrict__ out,
+                    const int* __restrict__ seed, int base, int n_lanes, float* __restrict__ out,
                     const uint32_t* __restrict__ tab) {
   __shared__ float pv[VPT_MAX_PARAMS];
   const FieldParams& F = stage<false>(D, pvec, pv);
   const int npix = D.base.width * D.base.height;
-  const int pixel = blockIdx.x * kThreads + threadIdx.x;
-  if (pixel >= npix) return;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n_lanes) return;
+  const int lane = base + i;
   float L[3];
-  vpt::diff_pixel<false, kField, false>(D, pv, F, pixel, seed[0], nullptr, L, nullptr, tab);
-  out[3 * pixel + 0] = L[0];
-  out[3 * pixel + 1] = L[1];
-  out[3 * pixel + 2] = L[2];
+  vpt::diff_pixel<false, kField, false>(D, pv, F, (uint32_t)lane, lane_pixel(lane, npix), seed[0],
+                                        nullptr, L, nullptr, tab);
+  out[3 * i + 0] = L[0];
+  out[3 * i + 1] = L[1];
+  out[3 * i + 2] = L[2];
 }
 
 // ggrid: NULL (no diff_grid) or device float32[T], T = nx ny nz, zeroed by
@@ -220,7 +250,8 @@ __global__ void __launch_bounds__(kThreads)
 template <int kField>
 __global__ void __launch_bounds__(kThreads)
     grid_bwd_kernel(const __grid_constant__ DiffParams D, const float* __restrict__ pvec,
-                    const int* __restrict__ seed, const float* __restrict__ gbar,
+                    const int* __restrict__ seed, int base, int n_valid,
+                    const float* __restrict__ gbar,
                     float* __restrict__ partials, float* __restrict__ per_lane,
                     const uint32_t* __restrict__ tab, float* __restrict__ ggrid, int shared) {
   constexpr int kMaxP = VPT_MAX_PARAMS;
@@ -236,15 +267,14 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     acc = sgrid;
   }
-  const int npix = D.base.width * D.base.height;
-  const int pixel = blockIdx.x * kThreads + threadIdx.x;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
   float g[kMaxP];
-  if (pixel < npix) {
-    vpt::diff_pixel<true, kField, false>(D, pv, F, pixel, seed[0], gbar + 3 * pixel, nullptr, g,
-                                         tab, acc);
+  if (i < n_valid) {  // lane base + i, within the frame
+    vpt::diff_pixel<true, kField, false>(D, pv, F, (uint32_t)(base + i), base + i, seed[0],
+                                         gbar + 3 * i, nullptr, g, tab, acc);
     if (per_lane != nullptr)
-      for (int k = 0; k < P; ++k) per_lane[(size_t)pixel * P + k] = g[k];
-  } else {
+      for (int k = 0; k < P; ++k) per_lane[(size_t)i * P + k] = g[k];
+  } else {  // past the frame (masked), or past the launch
     for (int k = 0; k < P; ++k) g[k] = 0.0f;
   }
   const int lane = threadIdx.x & 31;
@@ -294,25 +324,28 @@ namespace vpt_diff {
 template <int kField>
 __global__ void __launch_bounds__(kThreads)
     ext_fwd_kernel(const __grid_constant__ DiffParams D, const float* __restrict__ pvec,
-                   const int* __restrict__ seed, float* __restrict__ out,
+                   const int* __restrict__ seed, int base, int n_lanes, float* __restrict__ out,
                    const uint32_t* __restrict__ tab) {
   constexpr bool kAn = kField == vpt::kAnalytic;
   __shared__ float pv[max_params<kAn, true>()];
   const FieldParams& F = stage<kAn>(D, pvec, pv);
   const int npix = D.base.width * D.base.height;
-  const int pixel = blockIdx.x * kThreads + threadIdx.x;
-  if (pixel >= npix) return;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n_lanes) return;
+  const int lane = base + i;
   float L[3];
-  vpt::diff_pixel<false, kField, true, true>(D, pv, F, pixel, seed[0], nullptr, L, nullptr, tab);
-  out[3 * pixel + 0] = L[0];
-  out[3 * pixel + 1] = L[1];
-  out[3 * pixel + 2] = L[2];
+  vpt::diff_pixel<false, kField, true, true>(D, pv, F, (uint32_t)lane, lane_pixel(lane, npix),
+                                             seed[0], nullptr, L, nullptr, tab);
+  out[3 * i + 0] = L[0];
+  out[3 * i + 1] = L[1];
+  out[3 * i + 2] = L[2];
 }
 
 template <int kField>
 __global__ void __launch_bounds__(kThreads)
     ext_bwd_kernel(const __grid_constant__ DiffParams D, const float* __restrict__ pvec,
-                   const int* __restrict__ seed, const float* __restrict__ gbar,
+                   const int* __restrict__ seed, int base, int n_valid,
+                   const float* __restrict__ gbar,
                    float* __restrict__ partials, float* __restrict__ per_lane,
                    const uint32_t* __restrict__ tab, float* __restrict__ ggrid, int shared) {
   constexpr bool kAn = kField == vpt::kAnalytic;
@@ -332,15 +365,14 @@ __global__ void __launch_bounds__(kThreads)
       acc = sgrid;
     }
   }
-  const int npix = D.base.width * D.base.height;
-  const int pixel = blockIdx.x * kThreads + threadIdx.x;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
   float g[kMaxP];
-  if (pixel < npix) {
-    vpt::diff_pixel<true, kField, true, true>(D, pv, F, pixel, seed[0], gbar + 3 * pixel, nullptr,
-                                              g, tab, acc);
+  if (i < n_valid) {  // lane base + i, within the frame
+    vpt::diff_pixel<true, kField, true, true>(D, pv, F, (uint32_t)(base + i), base + i, seed[0],
+                                              gbar + 3 * i, nullptr, g, tab, acc);
     if (per_lane != nullptr)
-      for (int k = 0; k < P; ++k) per_lane[(size_t)pixel * P + k] = g[k];
-  } else {
+      for (int k = 0; k < P; ++k) per_lane[(size_t)i * P + k] = g[k];
+  } else {  // past the frame (masked), or past the launch
     for (int k = 0; k < P; ++k) g[k] = 0.0f;
   }
   const int lane = threadIdx.x & 31;
@@ -403,32 +435,32 @@ int ext_shared_bytes(int T) {
 
 // As launch_fwd; tab: a grid's packed table (NULL outside a grid)
 template <int kField>
-int launch_ext_fwd(const void* params, const void* pvec, const void* seed, void* out,
-                   const void* tab, void* stream) {
+int launch_ext_fwd(const void* params, const void* pvec, const void* seed, int base, int n_lanes,
+                   void* out, const void* tab, void* stream) {
   DiffParams D;
-  if (!read_ext_params<kField>(params, D) || (kField == vpt::kGridField) != (tab != nullptr))
+  if (!read_ext_params<kField>(params, D) || (kField == vpt::kGridField) != (tab != nullptr) ||
+      base < 0)
     return (int)cudaErrorInvalidValue;
-  const int npix = D.base.width * D.base.height;
-  if (npix <= 0) return 0;
-  const int blocks = (npix + kThreads - 1) / kThreads;
+  if (D.base.width * D.base.height <= 0 || n_lanes <= 0) return 0;
+  const int blocks = (n_lanes + kThreads - 1) / kThreads;
   ext_fwd_kernel<kField><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      D, (const float*)pvec, (const int*)seed, (float*)out, (const uint32_t*)tab);
+      D, (const float*)pvec, (const int*)seed, base, n_lanes, (float*)out, (const uint32_t*)tab);
   return (int)cudaGetLastError();
 }
 
 // As launch_bwd; tab and ggrid as launch_grid_bwd's in a grid, NULL
 // outside one
 template <int kField>
-int launch_ext_bwd(const void* params, const void* pvec, const void* seed, const void* gbar,
-                   void* partials, void* per_lane, const void* tab, void* ggrid, void* stream) {
+int launch_ext_bwd(const void* params, const void* pvec, const void* seed, int base, int n_lanes,
+                   const void* gbar, void* partials, void* per_lane, const void* tab, void* ggrid,
+                   void* stream) {
   DiffParams D;
   constexpr bool kGrid = kField == vpt::kGridField;
   if (!read_ext_params<kField>(params, D) || kGrid != (tab != nullptr) ||
-      (kGrid && D.diff_grid != 0) != (ggrid != nullptr))
+      (kGrid && D.diff_grid != 0) != (ggrid != nullptr) || base < 0)
     return (int)cudaErrorInvalidValue;
-  const int npix = D.base.width * D.base.height;
-  if (npix <= 0) return 0;
-  const int blocks = (npix + kThreads - 1) / kThreads;
+  if (D.base.width * D.base.height <= 0 || n_lanes <= 0) return 0;
+  const int blocks = (n_lanes + kThreads - 1) / kThreads;
   int smem = 0;
   if (ggrid != nullptr) {
     smem = ext_shared_bytes<kField>(D.base.grid.n[0] * D.base.grid.n[1] * D.base.grid.n[2]);
@@ -437,8 +469,9 @@ int launch_ext_bwd(const void* params, const void* pvec, const void* seed, const
                            smem);
   }
   ext_bwd_kernel<kField><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      D, (const float*)pvec, (const int*)seed, (const float*)gbar, (float*)partials,
-      (float*)per_lane, (const uint32_t*)tab, (float*)ggrid, smem > 0 ? 1 : 0);
+      D, (const float*)pvec, (const int*)seed, base, valid_lanes(D, base, n_lanes),
+      (const float*)gbar, (float*)partials, (float*)per_lane, (const uint32_t*)tab,
+      (float*)ggrid, smem > 0 ? 1 : 0);
   return (int)cudaGetLastError();
 }
 

@@ -327,9 +327,12 @@ VPT_HD void diff_medium_nee(const VptParams& P, const FieldParams& F, float sigm
   for (int i = 0; i < 3; ++i) out[i] = lrad[i] * w;
 }
 
-// One pixel of K2 (kGrads = false: out = radiance / spp) or K3 (kGrads =
-// true: gout[0..P) = this pixel's contribution to the packed gradient of
-// sum(image * gbar); gbar points at the pixel's 3 cotangents). The lane
+// One lane of K2 (kGrads = false: out = radiance / spp) or K3 (kGrads =
+// true: gout[0..P) = this lane's contribution to the packed gradient of
+// sum(image * gbar); gbar points at the lane's 3 cotangents). The lane seeds
+// its PCG streams with its global id `lane` and its camera ray with `pixel`
+// (min(lane, npix - 1), vpt's clamp: a shard's lanes past the frame render a
+// duplicate of the last pixel with their own streams). The lane
 // leaves its loop at samples == spp: in vpt's tile a finished lane is frozen
 // (alive and need stay false, every accumulation is gated on shade, medium,
 // credit or finished), so nothing more reaches L or the gradient.
@@ -373,8 +376,8 @@ VPT_HD void diff_medium_nee(const VptParams& P, const FieldParams& F, float sigm
 // multiplies credited emission by 1/cp. pLight takes K1's material-3
 // cascade, and the phase may be isotropic, baked or traced in any field.
 template <bool kGrads, int kField = kHomogeneous, bool kHG = false, bool kExt = false>
-VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& F, int pixel,
-                       int seed, const float* gbar, float out[3], float* gout,
+VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& F, uint32_t lane,
+                       int pixel, int seed, const float* gbar, float out[3], float* gout,
                        const uint32_t* tab = nullptr, float* gg = nullptr) {
   const VptParams& P = D.base;
   const int S = P.n_spheres;
@@ -409,7 +412,6 @@ VPT_HD void diff_pixel(const DiffParams& D, const float* pv, const FieldParams& 
 
   const float px = (float)(pixel % P.width);
   const float py = (float)(P.height - 1 - pixel / P.width);
-  const uint32_t lane = (uint32_t)pixel;
   float off[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   if (P.ld) {
     Pcg r;

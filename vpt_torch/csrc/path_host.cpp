@@ -70,10 +70,11 @@ static void pair_host(const DiffParams& D, const float* pvec, const FieldParams&
   const int npix = D.base.width * D.base.height;
   for (int p = 0; p < npix; ++p) {
     if constexpr (kGrads)
-      vpt::diff_pixel<true, kField, kHG>(D, pvec, F, p, seed, gbar + 3 * p, nullptr,
+      vpt::diff_pixel<true, kField, kHG>(D, pvec, F, (uint32_t)p, p, seed, gbar + 3 * p, nullptr,
                                          out + (size_t)D.n_params * p);
     else
-      vpt::diff_pixel<false, kField, kHG>(D, pvec, F, p, seed, nullptr, out + 3 * p, nullptr);
+      vpt::diff_pixel<false, kField, kHG>(D, pvec, F, (uint32_t)p, p, seed, nullptr, out + 3 * p,
+                                          nullptr);
   }
 }
 
@@ -121,10 +122,11 @@ extern "C" void vpt_diff_grid_host(const void* params, const float* pvec, int se
   constexpr int g = vpt::kGridField;
   for (int p = 0; p < npix; ++p) {
     if (gbar != nullptr)
-      vpt::diff_pixel<true, g, false>(D, pvec, F, p, seed, gbar + 3 * p, nullptr,
+      vpt::diff_pixel<true, g, false>(D, pvec, F, (uint32_t)p, p, seed, gbar + 3 * p, nullptr,
                                       out + (size_t)D.n_params * p, tab, ggrid);
     else
-      vpt::diff_pixel<false, g, false>(D, pvec, F, p, seed, nullptr, out + 3 * p, nullptr, tab);
+      vpt::diff_pixel<false, g, false>(D, pvec, F, (uint32_t)p, p, seed, nullptr, out + 3 * p,
+                                       nullptr, tab);
   }
 }
 
@@ -139,11 +141,11 @@ static void ext_host(const DiffParams& D, const float* pvec, const FieldParams& 
   const int npix = D.base.width * D.base.height;
   for (int p = 0; p < npix; ++p) {
     if (gbar != nullptr)
-      vpt::diff_pixel<true, kField, true, true>(D, pvec, F, p, seed, gbar + 3 * p, nullptr,
-                                                out + (size_t)D.n_params * p, tab, ggrid);
+      vpt::diff_pixel<true, kField, true, true>(D, pvec, F, (uint32_t)p, p, seed, gbar + 3 * p,
+                                                nullptr, out + (size_t)D.n_params * p, tab, ggrid);
     else
-      vpt::diff_pixel<false, kField, true, true>(D, pvec, F, p, seed, nullptr, out + 3 * p,
-                                                 nullptr, tab);
+      vpt::diff_pixel<false, kField, true, true>(D, pvec, F, (uint32_t)p, p, seed, nullptr,
+                                                 out + 3 * p, nullptr, tab);
   }
 }
 

@@ -29,8 +29,13 @@ place and returns the loss. A learning rate may be a float, a schedule
 count -> lr (exponential_decay), or a dict {leaf: rate} that stands in for
 optax.multi_transform: one param group per leaf with its own rate or
 schedule, and a leaf absent from the dict or mapped to None
-(optax.set_to_zero) is not in the optimizer and never moves. The sharded
-trainers of vpt's module are ROADMAP Queue 1 item 8.
+(optax.set_to_zero) is not in the optimizer and never moves.
+
+The sharded steps (make_sharded_kernel_train_step,
+make_sharded_fd_geom_train_step) run one process per rank of a (data,
+sample) mesh (dist/mesh.py) over torch.distributed: each rank renders its
+contiguous range of tiles, the losses are summed over the data group, and
+the gradients are all-reduced before every rank takes the same update.
 """
 from __future__ import annotations
 
@@ -41,14 +46,17 @@ import torch
 from ..kernels.diff import make_diff_renderer, pack_params
 from ..kernels.geom import (THETA_KEYS, flatten_theta, make_geom_renderer,
                             pack_theta)
+from ..kernels.prims import f32
 from ..scene.camera import Camera
 from ..scene.scene import Scene
+from .mesh import DATA_AXIS, SAMPLE_AXIS
 from .train import project_params
 
 __all__ = ["adam", "exponential_decay", "make_kernel_train_step",
            "fit_kernel", "make_multiview_train_step", "fit_multiview",
            "make_geom_train_step", "fit_geom", "make_fd_geom_train_step",
-           "fit_geom_fd"]
+           "fit_geom_fd", "make_sharded_kernel_train_step",
+           "make_sharded_fd_geom_train_step"]
 
 
 def exponential_decay(init_value: float, transition_steps: int,
@@ -129,6 +137,92 @@ def make_kernel_train_step(scene: Scene, camera: Camera, width: int,
         _optimizer_step(optimizer)
         project_params(params)
         return loss.detach()
+
+    return step
+
+
+def _all_reduce_grads(leaves, mesh, axis: str) -> None:
+    """Sum the .grad of every leaf over the mesh axis in one collective,
+    in place. Every rank holds the same leaves in the same order."""
+    grads = [v.grad for v in leaves if v.grad is not None]
+    if not grads:
+        return
+    flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]), axis)
+    off = 0
+    for g in grads:
+        g.copy_(flat[off:off + g.numel()].reshape(g.shape))
+        off += g.numel()
+
+
+def _shard_rows(mesh, npix: int, shard_pixels: int):
+    """This rank's lane range of the frame: (base, the mask of its lanes
+    within the frame, (shard_pixels, 1))."""
+    base = mesh.di * shard_pixels
+    lane = base + torch.arange(shard_pixels, device=mesh.device)
+    return base, (lane < npix)[:, None]
+
+
+def _shard_target(target_flat: torch.Tensor, npix: int, base: int,
+                  shard_pixels: int) -> torch.Tensor:
+    """The rows base .. base + shard_pixels - 1 of the (npix, 3) target,
+    zero-padded past the frame (vpt's jnp.pad of the target)."""
+    pad = max(0, base + shard_pixels - npix)
+    return torch.nn.functional.pad(target_flat, (0, 0, 0, pad))[
+        base:base + shard_pixels]
+
+
+def make_sharded_kernel_train_step(scene: Scene, camera: Camera, width: int,
+                                   height: int, spp: int,
+                                   optimizer: torch.optim.Optimizer, mesh, *,
+                                   distance: str = "free",
+                                   max_bounces: int = 32, tile_rows: int = 32,
+                                   sampler: str = "random",
+                                   diff_g: bool = False,
+                                   diff_field: bool = False,
+                                   diff_blobs: bool = False,
+                                   diff_grid: bool = False):
+    """Multi-rank kernel training (vpt's make_sharded_kernel_train_step):
+    each rank of `mesh` (dist/mesh.py) runs K2/K3 over its contiguous range
+    of tiles (render.make_shard; K3 masks the lanes past the frame) on
+    mesh.device. step(params, target_flat, seed) -> loss, as
+    make_kernel_train_step's: target_flat is the whole (npix, 3) frame on
+    every rank, the loss the A/B product summed over the data group and
+    divided by npix * 3. diff_grid sets tile_rows to 8, as vpt does.
+
+    The loss's backward runs on each rank's own partial loss, then every
+    gradient leaf (the voxel table included) is all-reduced over the data
+    group before the update, as DDP does. That is vpt's fix of 64acf9b:
+    under shard_map the transpose of the psum'd loss did not re-reduce the
+    cotangents, each device applied its own shard's gradient and the
+    replicas diverged. The sample ranks compute the same step, as in vpt."""
+    if diff_grid:
+        tile_rows = 8       # vpt's unit of the split with diff_grid
+    render = make_diff_renderer(
+        scene, camera, width, height, max(spp // 2, 1), distance=distance,
+        max_bounces=max_bounces, sampler=sampler, diff_g=diff_g,
+        diff_field=diff_field, diff_blobs=diff_blobs, diff_grid=diff_grid,
+        tile_rows=tile_rows, device=mesh.device)
+    npix = render.npix
+    tiles_per_shard = -(-render.num_tiles // mesh.n_data)
+    shard_pixels = tiles_per_shard * render.lanes_per_tile
+    render_shard = render.make_shard(tiles_per_shard)
+    base, valid = _shard_rows(mesh, npix, shard_pixels)
+    # a device scalar: CUDA divides by a host scalar through its reciprocal
+    n_terms = torch.tensor(float(npix * 3), device=mesh.device)
+
+    def step(params: dict, target_flat: torch.Tensor, seed: int):
+        for v in params.values():       # frozen leaves included
+            v.grad = None
+        t = _shard_target(target_flat, npix, base, shard_pixels)
+        a = render_shard(params, 2 * seed, base)
+        b = render_shard(params, 2 * seed + 1, base)
+        err = torch.where(valid, (a - t) * (b - t), 0.0)
+        part = err.sum() / n_terms
+        part.backward()
+        _all_reduce_grads(params.values(), mesh, DATA_AXIS)
+        _optimizer_step(optimizer)
+        project_params(params)
+        return mesh.all_reduce(part.detach(), DATA_AXIS)
 
     return step
 
@@ -427,6 +521,92 @@ def make_fd_geom_train_step(scene: Scene, camera: Camera, width: int,
                 g[k] = (lp - lm) / torch.tensor(2.0 * hs[k], device=dev)
                 if loss is None:
                     loss = 0.5 * (lp + lm)
+        optimizer.zero_grad(set_to_none=True)
+        off = 0
+        for key, n in THETA_KEYS:
+            theta[key].grad = g[off:off + n].reshape(theta[key].shape).clone()
+            off += n
+        _optimizer_step(optimizer)
+        if sigma:
+            with torch.no_grad():
+                for key in ("sigma_a", "sigma_s"):
+                    theta[key].clamp_(min=1e-6)
+        step.probe_losses = probes
+        return loss
+
+    return step
+
+
+def make_sharded_fd_geom_train_step(scene: Scene, camera: Camera,
+                                    width: int, height: int, spp: int,
+                                    optimizer: torch.optim.Optimizer, mesh,
+                                    *, sphere: int | None,
+                                    cam_grads: bool = True,
+                                    sigma: bool = False,
+                                    dir_grads: bool = False, h: float = 0.5,
+                                    h_fov: float = 2e-3,
+                                    h_sigma: float = 5e-4,
+                                    h_dir: float = 1e-3,
+                                    distance: str = "free",
+                                    max_bounces: int = 32,
+                                    tile_rows: int = 8,
+                                    sampler: str = "random"):
+    """Multi-rank CRN finite-difference training (vpt's
+    make_sharded_fd_geom_train_step): each rank of `mesh` runs K4's
+    primal_only mode over its contiguous range of tiles (render.make_raw)
+    on mesh.device; the A/B product losses at theta +- h_k e_k are summed
+    over the data group and divided by npix * 3, then averaged over the
+    sample group, whose ranks draw decorrelated seeds (s + si * 0x9E37:
+    n_sample independent CRN secants, averaged). Every rank forms the same
+    FD gradient and takes the same update. With one sample rank the loss
+    equals make_fd_geom_train_step's up to the order of the sum (the
+    streams are keyed by the global lane). step(theta, target_flat, seed)
+    -> loss, as make_fd_geom_train_step's (step.probe_losses too)."""
+    render = make_geom_renderer(
+        scene, camera, width, height, max(spp // 2, 1), sphere=sphere,
+        cam_grads=cam_grads, distance=distance, max_bounces=max_bounces,
+        sampler=sampler, primal_only=True, tile_rows=tile_rows,
+        device=mesh.device)
+    dev = mesh.device
+    npix = render.npix
+    tiles_per_shard = -(-render.num_tiles // mesh.n_data)
+    shard_pixels = tiles_per_shard * render.lanes_per_tile
+    raw = render.make_raw(tiles_per_shard)
+    base, valid = _shard_rows(mesh, npix, shard_pixels)
+    scale = f32(1.0 / max(spp // 2, 1))
+    dims = _fd_dims(sphere, cam_grads, sigma, dir_grads)
+    hs = [h, h, h, h, h, h, h_fov, h_sigma, h_sigma, h_dir, h_dir, h_dir]
+    n_terms = torch.tensor(float(npix * 3), device=dev)
+
+    def part_of(v, s, t):
+        # the sample ranks draw decorrelated seeds; CRN holds within each
+        # (the same s at v + e and v - e)
+        s = s + mesh.si * 0x9E37
+        a, _ = raw(_phys_probe(v), 2 * s, base)
+        b, _ = raw(_phys_probe(v), 2 * s + 1, base)
+        err = torch.where(valid, (a * scale - t) * (b * scale - t), 0.0)
+        return err.sum()
+
+    def step(theta: dict, target_flat: torch.Tensor, seed: int):
+        with torch.no_grad():
+            t = _shard_target(target_flat, npix, base, shard_pixels)
+            vec = flatten_theta(theta).to(dev)
+            parts = []
+            for k in dims:
+                e = torch.zeros(12, dtype=torch.float32, device=dev)
+                e[k] = hs[k]
+                parts += [part_of(vec + e, seed, t), part_of(vec - e, seed, t)]
+            # every probe's loss: a data sum over npix * 3, a sample mean
+            losses = mesh.all_reduce(torch.stack(parts), DATA_AXIS) / n_terms
+            if mesh.n_sample > 1:
+                losses = mesh.all_reduce(losses, SAMPLE_AXIS) / mesh.n_sample
+            g = torch.zeros(12, dtype=torch.float32, device=dev)
+            probes = []
+            for i, k in enumerate(dims):
+                lp, lm = losses[2 * i], losses[2 * i + 1]
+                probes.append((lp, lm))
+                g[k] = (lp - lm) / torch.tensor(2.0 * hs[k], device=dev)
+            loss = 0.5 * (losses[0] + losses[1])
         optimizer.zero_grad(set_to_none=True)
         off = 0
         for key, n in THETA_KEYS:

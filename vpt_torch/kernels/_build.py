@@ -117,33 +117,24 @@ def load() -> ctypes.CDLL:
     lib.vpt_params_words.restype = ctypes.c_int
     # the differentiable pair (csrc/diff.cu; in a density field
     # csrc/diff_field_fwd.cu and diff_field_bwd.cu; with an HG phase
-    # csrc/diff_hg.cu, diff_field_hg_fwd.cu and diff_field_hg_bwd.cu)
-    for sfx in ("", "_field", "_hg", "_field_hg"):
+    # csrc/diff_hg.cu, diff_field_hg_fwd.cu and diff_field_hg_bwd.cu; in a
+    # voxel grid csrc/diff_grid_fwd.cu and diff_grid_bwd.cu, with the
+    # grid's table and the voxel gradient; with the extended estimators,
+    # csrc/diff_ext*.cu, diff_field_ext*.cu, diff_grid_ext*.cu): params,
+    # pvec, seed, the lane range (base, n_lanes), then K2's out or K3's
+    # gbar, partials and per_lane, a grid's table (and K3's voxel
+    # gradient), the stream
+    for sfx in ("", "_field", "_hg", "_field_hg", "_ext", "_field_ext",
+                "_grid", "_grid_ext"):
+        grid = 1 if sfx.startswith("_grid") else 0
         fwd = getattr(lib, "vpt_diff_fwd" + sfx)
-        fwd.argtypes = [vp] * 5
+        fwd.argtypes = [vp, vp, vp, ci, ci] + [vp] * (2 + grid)
         fwd.restype = ci
         bwd = getattr(lib, "vpt_diff_bwd" + sfx)
-        bwd.argtypes = [vp] * 7
+        bwd.argtypes = [vp, vp, vp, ci, ci] + [vp] * (4 + 2 * grid)
         bwd.restype = ci
-    # ... and in a voxel grid (csrc/diff_grid_fwd.cu, diff_grid_bwd.cu),
-    # with the grid's table and the voxel gradient
-    lib.vpt_diff_fwd_grid.argtypes = [vp] * 6
-    lib.vpt_diff_fwd_grid.restype = ci
-    lib.vpt_diff_bwd_grid.argtypes = [vp] * 9
-    lib.vpt_diff_bwd_grid.restype = ci
     lib.vpt_diff_grid_shared_bytes.argtypes = [ci]
     lib.vpt_diff_grid_shared_bytes.restype = ci
-    # ... and with the extended estimators (equi-angular, the implicit and
-    # physical estimators, shells, HG in a grid: csrc/diff_ext*.cu,
-    # diff_field_ext*.cu, diff_grid_ext*.cu), with the signatures above
-    for sfx, n_fwd, n_bwd in (("_ext", 5, 7), ("_field_ext", 5, 7),
-                              ("_grid_ext", 6, 9)):
-        fwd = getattr(lib, "vpt_diff_fwd" + sfx)
-        fwd.argtypes = [vp] * n_fwd
-        fwd.restype = ci
-        bwd = getattr(lib, "vpt_diff_bwd" + sfx)
-        bwd.argtypes = [vp] * n_bwd
-        bwd.restype = ci
     lib.vpt_diff_grid_ext_shared_bytes.argtypes = [ci]
     lib.vpt_diff_grid_ext_shared_bytes.restype = ci
     lib.vpt_diff_params_words.argtypes = []

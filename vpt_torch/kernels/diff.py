@@ -93,9 +93,14 @@ kernels' extended instantiations (csrc/diff_ext_*.cu, diff_field_ext_*.cu,
 diff_grid_ext_*.cu: diff_pixel<..., kExt>, the estimator read from
 DiffParams at run time).
 
+Shards (vpt's make_shard, fwd_shard / bwd_shard): both kernels take a
+lane range, base .. base + n - 1; a lane keys its streams by its id and
+renders pixel min(lane, npix - 1), so a shard reproduces the frame's draws,
+and K3 masks the lanes past the frame. render.make_shard(n_tiles) binds
+them for one device's tile range (dist/train_fast.py's sharded step).
+
 Scope: every estimator and field vpt's pair takes, samplers "random" and
-"ld". The shard variant (make_shard) raises NotImplementedError naming its
-ROADMAP item.
+"ld".
 """
 from __future__ import annotations
 
@@ -118,8 +123,9 @@ __all__ = ["pack_params", "unpack_params", "DiffPacked", "pack_diff",
 
 # kernel launches in this process: diff_fwd / diff_bwd add one per launch
 # under the C entry they launch (the field instantiations' entries end in
-# "_field"). LAUNCHES_FWD and LAUNCHES_BWD read the totals of the K2 and
-# K3 entries; callers reset all of them by clearing LAUNCHES_BY.
+# "_field"), with "_shard" appended for a launch over a lane range (vpt's
+# fwd_shard / bwd_shard). LAUNCHES_FWD and LAUNCHES_BWD read the totals of
+# the K2 and K3 entries; callers reset all of them by clearing LAUNCHES_BY.
 LAUNCHES_BY: dict = {}
 
 
@@ -138,11 +144,6 @@ HG_NONE, HG_BAKED, HG_TRACED = 0, 1, 2
 # DiffParams.distance: free flight, or vpt's equi-angular branch (any
 # distance other than "free")
 DIST_FREE, DIST_EA = 0, 1
-
-def _todo(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} in the differentiable pair is ROADMAP Queue 1 item {item}")
-
 
 def _check_estimator(nee: bool, physical: bool) -> None:
     """vpt's refusal of the non-physical implicit estimator, with its
@@ -413,18 +414,24 @@ def _wdot(wt, v):
 
 def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
                gbar: torch.Tensor | None = None, stats: dict | None = None,
-               tab: torch.Tensor | None = None):
-    """The pair's lockstep body. gbar None: the image (npix, 3) / spp.
-    gbar (npix, 3): the per-lane gradient contributions (npix, P), whose
-    column sum is the packed gradient of sum(image * gbar); with diff_grid
-    also the voxel gradient and the sum of the absolute values of the
-    terms it adds, each in the grid's shape. tab: a grid's packed table
-    (default: the scene's, baked)."""
+               tab: torch.Tensor | None = None, base: int = 0,
+               n: int | None = None):
+    """The pair's lockstep body over the lanes base .. base + n - 1 (n
+    None: the frame's npix lanes from base 0). A lane seeds its streams
+    with its id and renders pixel min(lane, npix - 1), as vpt's tiles do.
+    gbar None: the lanes' image (n, 3) / spp. gbar (n, 3): the per-lane
+    gradient contributions (n, P), whose column sum is the packed gradient
+    of sum(image * gbar), lanes past the frame masked as vpt masks them
+    (their cotangent zeroed); with diff_grid also the voxel gradient and
+    the sum of the absolute values of the terms it adds, each in the
+    grid's shape. tab: a grid's packed table (default: the scene's,
+    baked)."""
     grads = gbar is not None
     pk = dp.pk
     dev = pvec.device
     S, W, H, spp = pk.S, pk.width, pk.height, pk.spp
-    N = pk.npix
+    npix = pk.npix
+    N = npix if n is None else n
     n_em = len(pk.emitters)
     pv = pvec.detach()
     alb = pv[2:2 + 3 * S].reshape(S, 3)
@@ -490,12 +497,15 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
             inv = 1.0 / torch.clamp_min(dens_, 1e-30)
             return [v * inv for tup in dd for v in tup]
 
-    lane = torch.arange(N, dtype=torch.int64, device=dev)
-    px = (lane % W).to(torch.float32)
-    py = (H - 1 - lane // W).to(torch.float32)
+    lane = base + torch.arange(N, dtype=torch.int64, device=dev)
+    pixel = torch.clamp(lane, max=npix - 1)
+    px = (pixel % W).to(torch.float32)
+    py = (H - 1 - pixel // W).to(torch.float32)
     seed_i = seed.to(torch.int64).reshape(())
     z = torch.zeros(N, dtype=torch.float32, device=dev)
     if grads:
+        if base + N > npix:     # vpt's mask of the lanes past the frame
+            gbar = torch.where((lane < npix)[:, None], gbar, 0.0)
         wt = [gbar[:, i] * dp.inv_spp for i in range(3)]
     if pk.ld:
         A1, A2, A3, A4, A5 = pr.LD_ALPHA
@@ -1239,27 +1249,33 @@ def _diff_body(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
 
 def diff_fwd_plain(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
                    stats: dict | None = None,
-                   tab: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain torch K2 on pvec.device: (npix, 3) float32 radiance / spp.
-    `stats`, if given, gains the lockstep loop's thread-iterations and its
-    shading and medium events. tab: a grid's packed table (default: the
-    scene's)."""
+                   tab: torch.Tensor | None = None, base: int = 0,
+                   n: int | None = None) -> torch.Tensor:
+    """Plain torch K2 on pvec.device: (npix, 3) float32 radiance / spp;
+    with n, the (n, 3) of the lanes base .. base + n - 1 (vpt's
+    fwd_shard). `stats`, if given, gains the lockstep loop's
+    thread-iterations and its shading and medium events. tab: a grid's
+    packed table (default: the scene's)."""
     with torch.no_grad():
-        return _diff_body(dp, pvec, seed, stats=stats, tab=tab)
+        return _diff_body(dp, pvec, seed, stats=stats, tab=tab, base=base,
+                          n=n)
 
 
 def diff_bwd_plain(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
                    gbar: torch.Tensor, per_lane: bool = False,
                    stats: dict | None = None,
-                   tab: torch.Tensor | None = None, voxel_abs: bool = False):
+                   tab: torch.Tensor | None = None, voxel_abs: bool = False,
+                   base: int = 0, n: int | None = None):
     """Plain torch K3: the packed gradient (P,) of sum(image * gbar), or,
     with per_lane=True, each pixel's contribution (npix, P) before the
-    sum. With diff_grid: (that, the voxel gradient in the grid's shape),
-    and with voxel_abs=True the sum of its terms' absolute values per
-    voxel third (the scale its sum-order rounding is held to)."""
+    sum; with n, over the lanes base .. base + n - 1 (gbar (n, 3); vpt's
+    bwd_shard: lanes past the frame add nothing). With diff_grid: (that,
+    the voxel gradient in the grid's shape), and with voxel_abs=True the
+    sum of its terms' absolute values per voxel third (the scale its
+    sum-order rounding is held to)."""
     with torch.no_grad():
         out = _diff_body(dp, pvec, seed, gbar.to(torch.float32), stats=stats,
-                         tab=tab)
+                         tab=tab, base=base, n=n)
     if not dp.diff_grid:
         return out if per_lane else out.sum(0)
     G, gg, gabs = out
@@ -1316,49 +1332,71 @@ def _grid_tab(dp: DiffPacked, dev, tab):
     return (tab.data_ptr(),)
 
 
+def _lanes(dp: DiffPacked, base: int, n: int | None) -> int:
+    """The launch's lane count (n None: the frame's npix from lane 0)."""
+    if n is None:
+        if base != 0:
+            raise ValueError("a lane range from base != 0 needs its count n")
+        return dp.npix
+    if base < 0 or n < 1 or base + n > 2**31 - 1:
+        raise ValueError(f"lanes {base} .. {base} + {n} out of range")
+    return n
+
+
 def diff_fwd(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
-             tab: torch.Tensor | None = None) -> torch.Tensor:
-    """K2 on pvec.device: (npix, 3) float32 radiance / spp. A CUDA tensor
-    launches csrc/diff.cu on the current stream without synchronising; a
-    CPU tensor runs diff_fwd_plain. tab: a grid's packed table
-    (prims.grid_table; default: the scene's)."""
+             tab: torch.Tensor | None = None, base: int = 0,
+             n: int | None = None) -> torch.Tensor:
+    """K2 on pvec.device: (npix, 3) float32 radiance / spp; with n, the
+    (n, 3) of the lanes base .. base + n - 1, each lane's streams keyed by
+    its id and its ray through pixel min(lane, npix - 1) (vpt's
+    fwd_shard). A CUDA tensor launches csrc/diff.cu on the current stream
+    without synchronising; a CPU tensor runs diff_fwd_plain. tab: a grid's
+    packed table (prims.grid_table; default: the scene's)."""
     _check_inputs(dp, pvec, seed)
+    n_lanes = _lanes(dp, base, n)
     if pvec.device.type == "cpu":
-        return diff_fwd_plain(dp, pvec, seed, tab=tab)
-    out = torch.empty((dp.npix, 3), dtype=torch.float32, device=pvec.device)
+        return diff_fwd_plain(dp, pvec, seed, tab=tab, base=base, n=n)
+    out = torch.empty((n_lanes, 3), dtype=torch.float32, device=pvec.device)
     _launch(dp.entries[0], dp, pvec.device, pvec.data_ptr(),
-            seed.data_ptr(), out.data_ptr(),
+            seed.data_ptr(), int(base), n_lanes, out.data_ptr(),
             *_grid_tab(dp, pvec.device, tab))
-    LAUNCHES_BY[dp.entries[0]] = LAUNCHES_BY.get(dp.entries[0], 0) + 1
+    key = dp.entries[0] + ("" if n is None else "_shard")
+    LAUNCHES_BY[key] = LAUNCHES_BY.get(key, 0) + 1
     return out
 
 
 def diff_bwd(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
              gbar: torch.Tensor, per_lane: bool = False,
-             tab: torch.Tensor | None = None):
-    """K3 on pvec.device: the packed gradient (P,) of sum(image * gbar).
-    The kernel writes one deterministic partial P-vector per block; they
-    are summed here. per_lane=True returns each pixel's own vector (npix,
-    P) instead, as diff_bwd_plain does (for checks: the kernel then also
-    writes them out). With diff_grid: (that, the voxel gradient in the
+             tab: torch.Tensor | None = None, base: int = 0,
+             n: int | None = None):
+    """K3 on pvec.device: the packed gradient (P,) of sum(image * gbar);
+    with n, over the lanes base .. base + n - 1 (gbar (n, 3); vpt's
+    bwd_shard), lanes past the frame masked. The kernel writes one
+    deterministic partial P-vector per block; they are summed here.
+    per_lane=True returns each lane's own vector (npix or n, P) instead,
+    as diff_bwd_plain does (for checks: the kernel then also writes them
+    out). With diff_grid: (that, this launch's voxel gradient in the
     grid's shape), added by the kernel with atomics. A CPU tensor runs
     diff_bwd_plain. tab: a grid's packed table (default: the scene's)."""
     _check_inputs(dp, pvec, seed)
+    n_lanes = _lanes(dp, base, n)
     gbar = gbar.contiguous()        # mean()'s cotangent is an expanded view
-    if gbar.dtype != torch.float32 or tuple(gbar.shape) != (dp.npix, 3) \
+    if gbar.dtype != torch.float32 or tuple(gbar.shape) != (n_lanes, 3) \
             or gbar.device != pvec.device:
-        raise ValueError(f"gbar must be float32 ({dp.npix}, 3) on "
+        raise ValueError(f"gbar must be float32 ({n_lanes}, 3) on "
                          f"{pvec.device}")
     if pvec.device.type == "cpu":
         return diff_bwd_plain(dp, pvec, seed, gbar, per_lane=per_lane,
-                              tab=tab)
+                              tab=tab, base=base, n=n)
     from . import _build
 
     threads = _build.load().vpt_diff_block_threads()
-    partials = torch.empty((-(-dp.npix // threads), dp.P),
+    partials = torch.empty((-(-n_lanes // threads), dp.P),
                            dtype=torch.float32, device=pvec.device)
-    lanes = (torch.empty((dp.npix, dp.P), dtype=torch.float32,
-                         device=pvec.device) if per_lane else None)
+    # the kernel leaves the rows of lanes past the frame alone: zero them
+    alloc = torch.zeros if base + n_lanes > dp.npix else torch.empty
+    lanes = (alloc((n_lanes, dp.P), dtype=torch.float32, device=pvec.device)
+             if per_lane else None)
     grid_args = ()
     if dp.pk.grid is not None:
         gg = (torch.zeros(dp.pk.grid.dims, dtype=torch.float32,
@@ -1366,9 +1404,11 @@ def diff_bwd(dp: DiffPacked, pvec: torch.Tensor, seed: torch.Tensor,
         grid_args = (*_grid_tab(dp, pvec.device, tab),
                      None if gg is None else gg.data_ptr())
     _launch(dp.entries[1], dp, pvec.device, pvec.data_ptr(),
-            seed.data_ptr(), gbar.data_ptr(), partials.data_ptr(),
+            seed.data_ptr(), int(base), n_lanes, gbar.data_ptr(),
+            partials.data_ptr(),
             lanes.data_ptr() if per_lane else None, *grid_args)
-    LAUNCHES_BY[dp.entries[1]] = LAUNCHES_BY.get(dp.entries[1], 0) + 1
+    key = dp.entries[1] + ("" if n is None else "_shard")
+    LAUNCHES_BY[key] = LAUNCHES_BY.get(key, 0) + 1
     G = lanes if per_lane else partials.sum(0)
     return (G, gg) if dp.diff_grid else G
 
@@ -1377,23 +1417,27 @@ class _DiffRender(torch.autograd.Function):
     """image = K2(pvec, seed); d(image . gbar)/d(pvec) = K3(pvec, seed,
     gbar), a replay of the same paths (vpt's custom VJP). With diff_grid
     the voxel values are a second input: their table is rebuilt on their
-    device at each call, and K3 returns their gradient."""
+    device at each call, and K3 returns their gradient. lanes (base, n):
+    the lanes of one shard (vpt's fwd_shard / bwd_shard), else the
+    frame."""
 
     @staticmethod
-    def forward(ctx, pvec, seed, dp, values=None):
+    def forward(ctx, pvec, seed, dp, values=None, lanes=(0, None)):
         tab = None if values is None else pr.grid_table(values)
         ctx.save_for_backward(pvec, seed, tab)
-        ctx.dp = dp
-        return diff_fwd(dp, pvec, seed, tab)
+        ctx.dp, ctx.lanes = dp, lanes
+        return diff_fwd(dp, pvec, seed, tab, *lanes)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gbar):
         pvec, seed, tab = ctx.saved_tensors
         if not ctx.dp.diff_grid:
-            return diff_bwd(ctx.dp, pvec, seed, gbar), None, None, None
-        gvec, ggrid = diff_bwd(ctx.dp, pvec, seed, gbar, tab=tab)
-        return gvec, None, None, ggrid
+            return (diff_bwd(ctx.dp, pvec, seed, gbar, False, None,
+                             *ctx.lanes), None, None, None, None)
+        gvec, ggrid = diff_bwd(ctx.dp, pvec, seed, gbar, False, tab,
+                               *ctx.lanes)
+        return gvec, None, None, ggrid, None
 
 
 def make_diff_renderer(scene: Scene, camera: Camera, width: int, height: int,
@@ -1402,7 +1446,8 @@ def make_diff_renderer(scene: Scene, camera: Camera, width: int, height: int,
                        jitter: bool = True, sampler: str = "random",
                        physical: bool = False, diff_g: bool = False,
                        diff_field: bool = False, diff_blobs: bool = False,
-                       diff_grid: bool = False, device="cuda"):
+                       diff_grid: bool = False, tile_rows: int = 32,
+                       device="cuda"):
     """Build render(params, seed) -> (npix, 3) on `device`, differentiable
     with respect to params (pack_params; with_g=True for diff_g,
     with_field=True for diff_field, with_blobs=True for diff_blobs,
@@ -1411,7 +1456,12 @@ def make_diff_renderer(scene: Scene, camera: Camera, width: int, height: int,
     ones in a voxel grid, their HG ones at a g != 0 or with diff_g, the
     extended ones for the other estimators, shells and HG in a grid) or
     raises; "cpu" runs their plain versions. Any distance other than
-    "free" is vpt's equi-angular branch; nee=False needs physical=True."""
+    "free" is vpt's equi-angular branch; nee=False needs physical=True.
+
+    render.make_shard(n_tiles) gives render_shard(params, seed, base) ->
+    (n_tiles * lanes_per_tile, 3), the lanes from `base` through the same
+    pair (vpt's make_shard); a tile is tile_rows * 128 lanes, vpt's unit
+    of the split (render.lanes_per_tile, render.num_tiles, render.npix)."""
     _check_estimator(nee, physical)
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -1427,7 +1477,9 @@ def make_diff_renderer(scene: Scene, camera: Camera, width: int, height: int,
     traced = {"g": diff_g, "fog_k": diff_field, "blobs": diff_blobs,
               "grid": diff_grid}
 
-    def render(params: dict, seed) -> torch.Tensor:
+    lanes_per_tile = tile_rows * 128
+
+    def _render(params: dict, seed, lanes) -> torch.Tensor:
         for leaf, flag in traced.items():
             if (leaf in params) != flag:
                 raise ValueError(
@@ -1444,13 +1496,30 @@ def make_diff_renderer(scene: Scene, camera: Camera, width: int, height: int,
             if tuple(vals.shape) != dp.pk.grid.dims:
                 raise ValueError(f"a 'grid' leaf of shape {tuple(vals.shape)}"
                                  f"; the scene's grid is {dp.pk.grid.dims}")
-            return _DiffRender.apply(pvec, seed_t, dp, vals.to(dev))
-        return _DiffRender.apply(pvec, seed_t, dp)
+            return _DiffRender.apply(pvec, seed_t, dp, vals.to(dev), lanes)
+        return _DiffRender.apply(pvec, seed_t, dp, None, lanes)
+
+    def render(params: dict, seed) -> torch.Tensor:
+        return _render(params, seed, (0, None))
 
     def make_shard(n_tiles: int):
-        raise _todo("the shard-range variant of the pair (make_shard)", "8")
+        """render_shard(params, seed, base) -> (n_tiles * lanes_per_tile,
+        3) per-lane radiance / spp of the lanes from `base` (a python int,
+        a multiple of lanes_per_tile in vpt's use), differentiable with
+        respect to params: K2 over the range, K3 over the same range for
+        the gradient, lanes past the frame masked. With diff_grid the
+        shard's own voxel gradient goes to the "grid" leaf; the caller
+        all-reduces the gradients of every shard."""
+        n = n_tiles * lanes_per_tile
+
+        def render_shard(params: dict, seed, base: int) -> torch.Tensor:
+            return _render(params, seed, (int(base), n))
+
+        return render_shard
 
     render.make_shard = make_shard
+    render.lanes_per_tile = lanes_per_tile
+    render.num_tiles = -(-dp.npix // lanes_per_tile)
     render.npix = dp.npix
     render.packed = dp
     return render

@@ -15,7 +15,9 @@ runs as
   - ``geom_fwd_plain``: a line-by-line torch counterpart of vpt's body
     (geom.py:182-599) on (N,) lanes in lockstep, built on kernels/dual.py;
   - ``make_geom_renderer``: render(theta, seed) -> (img, tang), with
-    vpt's attributes (grad_render, run_vec, flatten, K, basis_names, npix).
+    vpt's attributes (grad_render, run_vec, flatten, make_raw,
+    lanes_per_tile, num_tiles, K, basis_names, npix); make_raw launches
+    one device's range of lanes (vpt's sharded FD step).
 
 theta (pack_theta) flattens to 12 floats: [centre 3, cam_origin 3, fov,
 sigma_a, sigma_s, cam_dir 3]. The estimator is vpt's detached-decision
@@ -70,7 +72,8 @@ __all__ = ["pack_theta", "flatten_theta", "GeomPacked", "pack_geom",
 
 # kernel launches in this process: geom_fwd adds one to LAUNCHES and one to
 # LAUNCHES_BY[entry], entry "geom_k<K>", "geom_ext_k<K>" or
-# "geom_field_k<K>" (the instantiation it launched)
+# "geom_field_k<K>" (the instantiation it launched), with "_raw" appended
+# for a launch over a lane range (vpt's make_raw)
 LAUNCHES = 0
 LAUNCHES_BY: dict = {}
 
@@ -232,12 +235,14 @@ def pack_geom(scene: Scene, camera: Camera, width: int, height: int,
 # ---------------------------------------------------------------------------
 
 def _geom_body(gp: GeomPacked, theta: torch.Tensor, seed: torch.Tensor,
-               stats: dict | None = None) -> torch.Tensor:
+               stats: dict | None = None, base: int = 0,
+               n: int | None = None) -> torch.Tensor:
     pk = gp.pk
     dev = theta.device
     K = gp.K
     S, W, H, spp = pk.S, pk.width, pk.height, pk.spp
-    N = pk.npix
+    npix = pk.npix
+    N = npix if n is None else n
     n_em = len(pk.emitters)
     cp = gp.cp              # f32(continue_prob)
     inv_cp = pk.inv_cp      # f32(1 / continue_prob), folded in float64
@@ -282,9 +287,11 @@ def _geom_body(gp: GeomPacked, theta: torch.Tensor, seed: torch.Tensor,
     cy_u = du.normalize3(du.cross3(cx, cam_d))
     cy = [cy_u[i] * fov for i in range(3)]
 
-    lane = torch.arange(N, dtype=torch.int64, device=dev)
-    px = (lane % W).to(torch.float32)
-    py = (H - 1 - lane // W).to(torch.float32)
+    # lanes base .. base + N - 1, each on pixel min(lane, npix - 1)
+    lane = base + torch.arange(N, dtype=torch.int64, device=dev)
+    pixel = torch.clamp(lane, max=npix - 1)
+    px = (pixel % W).to(torch.float32)
+    py = (H - 1 - pixel // W).to(torch.float32)
     seed_i = seed.to(torch.int64).reshape(())
     z = torch.zeros(N, dtype=torch.float32, device=dev)
     w_f, h_f = scalar(float(W)), scalar(float(H))
@@ -680,22 +687,26 @@ def _run_graphed(iteration, state, counts, K: int, spp: int,
 
 
 def geom_fwd_plain(gp: GeomPacked, theta: torch.Tensor, seed: torch.Tensor,
-                   stats: dict | None = None) -> torch.Tensor:
+                   stats: dict | None = None, base: int = 0,
+                   n: int | None = None) -> torch.Tensor:
     """Plain torch K4 on theta.device: (3(1+K), npix) float32 per-pixel
     radiance SUMS over the samples, plane c*(1+K) + j for channel c, j = 0
-    the image and j = 1..K the tangents. `stats`, if given, gains the
-    lockstep loop's thread-iterations and its shading and medium events."""
+    the image and j = 1..K the tangents; with n, the (3(1+K), n) of the
+    lanes base .. base + n - 1, each keyed by its id on pixel min(lane,
+    npix - 1) (vpt's make_raw). `stats`, if given, gains the lockstep
+    loop's thread-iterations and its shading and medium events."""
     with torch.no_grad():
-        return _geom_body(gp, theta, seed, stats)
+        return _geom_body(gp, theta, seed, stats, base, n)
 
 
 # ---------------------------------------------------------------------------
 # kernel wrapper
 # ---------------------------------------------------------------------------
 
-def geom_fwd(gp: GeomPacked, theta: torch.Tensor,
-             seed: torch.Tensor) -> torch.Tensor:
-    """K4 on theta.device: the planes of geom_fwd_plain. A CUDA tensor
+def geom_fwd(gp: GeomPacked, theta: torch.Tensor, seed: torch.Tensor,
+             base: int = 0, n: int | None = None) -> torch.Tensor:
+    """K4 on theta.device: the planes of geom_fwd_plain, for the frame or,
+    with n, for the lanes base .. base + n - 1. A CUDA tensor
     launches K4 on the current stream without synchronising (in a
     homogeneous medium the default estimator csrc/geom_k<K>.cu, any other
     csrc/geom_ext_k<K>.cu; in a density field csrc/geom_field_k<K>.cu, a
@@ -712,8 +723,13 @@ def geom_fwd(gp: GeomPacked, theta: torch.Tensor,
                          "(1,)")
     if theta.device != seed.device:
         raise ValueError(f"theta on {theta.device}, seed on {seed.device}")
+    if n is None and base != 0:
+        raise ValueError("a lane range from base != 0 needs its count n")
+    n_out = gp.npix if n is None else n
+    if base < 0 or n_out < 1 or base + n_out > 2**31 - 1:
+        raise ValueError(f"lanes {base} .. {base} + {n_out} out of range")
     if theta.device.type == "cpu":
-        return geom_fwd_plain(gp, theta, seed)
+        return geom_fwd_plain(gp, theta, seed, base=base, n=n)
     if theta.device.type != "cuda":
         raise ValueError(f"no geom kernel for device {theta.device}")
     from . import _build
@@ -724,7 +740,7 @@ def geom_fwd(gp: GeomPacked, theta: torch.Tensor,
         raise RuntimeError(
             f"GeomParams layout mismatch: python packs {words.size} words, "
             f"the kernel expects {lib.vpt_geom_params_words()}")
-    out = torch.empty((gp.planes, gp.npix), dtype=torch.float32,
+    out = torch.empty((gp.planes, n_out), dtype=torch.float32,
                       device=theta.device)
     entry = ("vpt_geom_fwd_field" if gp.field else
              "vpt_geom_fwd_ext" if gp.ext else "vpt_geom_fwd")
@@ -735,20 +751,24 @@ def geom_fwd(gp: GeomPacked, theta: torch.Tensor,
     with torch.cuda.device(theta.device):
         stream = torch.cuda.current_stream(theta.device).cuda_stream
         err = getattr(lib, entry)(words.ctypes.data, theta.data_ptr(),
-                                  seed.data_ptr(), 0, gp.npix, *tab,
+                                  seed.data_ptr(), int(base), n_out, *tab,
                                   out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: "
                            f"{_build.error_string(err)} ({err})")
     LAUNCHES += 1
-    LAUNCHES_BY[gp.entry] = LAUNCHES_BY.get(gp.entry, 0) + 1
+    key = gp.entry + ("" if n is None else "_raw")
+    LAUNCHES_BY[key] = LAUNCHES_BY.get(key, 0) + 1
     return out
 
 
-def _split(planes: torch.Tensor, K: int, inv_spp: float):
-    """(3(1+K), npix) sums -> (img (npix, 3), tang (K, npix, 3)), each
-    scaled by a multiply by f32(1/spp) as vpt's run does."""
-    p = planes.reshape(3, 1 + K, -1) * inv_spp
+def _split(planes: torch.Tensor, K: int, inv_spp: float | None):
+    """(3(1+K), n) sums -> (img (n, 3), tang (K, n, 3)), each scaled by a
+    multiply by f32(1/spp) as vpt's run does (inv_spp None: the sums, as
+    vpt's make_raw returns them)."""
+    p = planes.reshape(3, 1 + K, -1)
+    if inv_spp is not None:
+        p = p * inv_spp
     return p[:, 0].T.contiguous(), p[:, 1:].permute(1, 2, 0).contiguous()
 
 
@@ -781,7 +801,7 @@ def make_geom_renderer(scene: Scene, camera: Camera, width: int, height: int,
                        continue_prob: float = 0.6, max_bounces: int = 32,
                        jitter: bool = True, sampler: str = "random",
                        primal_only: bool = False, physical: bool = False,
-                       device="cuda"):
+                       tile_rows: int = 8, device="cuda"):
     """Build render(theta, seed) -> (img (npix, 3), tang (K, npix, 3)) on
     `device` ("cuda": K4 or raise; "cpu": its plain version). theta is a
     pack_theta dict; tang[k] is d(img)/d(theta_k) for the basis
@@ -791,7 +811,14 @@ def make_geom_renderer(scene: Scene, camera: Camera, width: int, height: int,
     substrate; primal_only=True gives K = 0. The estimator: `distance`
     "free" or vpt's equi-angular branch (any other value), `nee`,
     `physical`; the scene's HG g and density field are baked (a voxel grid
-    only with primal_only, else NotImplementedError with vpt's reason)."""
+    only with primal_only, else NotImplementedError with vpt's reason).
+
+    render.make_raw(n_tiles) gives raw(theta_vec (12,), seed, base) ->
+    (img_sums (n, 3), tang_sums (K, n, 3)), the radiance SUMS of the n =
+    n_tiles * lanes_per_tile lanes from `base` (vpt's make_raw, the
+    sharded FD step's substrate); lanes past the frame render a clamped
+    duplicate of its last pixel, for the caller to mask. A tile is
+    tile_rows * 128 lanes, vpt's unit of the split."""
     gp = pack_geom(scene, camera, width, height, spp, sphere=sphere,
                    cam_grads=cam_grads, dir_grads=dir_grads,
                    primal_only=primal_only, continue_prob=continue_prob,
@@ -823,10 +850,26 @@ def make_geom_renderer(scene: Scene, camera: Camera, width: int, height: int,
         vec = flatten_theta(theta).to(dev)
         return _GeomRender.apply(vec, _seed(seed), run_vec, slots)
 
+    lanes_per_tile = tile_rows * 128
+
+    def make_raw(n_tiles: int):
+        n = n_tiles * lanes_per_tile
+
+        def raw(theta_vec: torch.Tensor, seed, base: int):
+            vec = theta_vec.detach().to(device=dev,
+                                        dtype=torch.float32).contiguous()
+            planes = geom_fwd(gp, vec, _seed(seed), int(base), n)
+            return _split(planes, K, None)
+
+        return raw
+
     if not primal_only:
         render.grad_render = grad_render
     render.run_vec = run_vec
     render.flatten = flatten_theta
+    render.make_raw = make_raw
+    render.lanes_per_tile = lanes_per_tile
+    render.num_tiles = -(-gp.npix // lanes_per_tile)
     render.K = K
     render.basis_names = (
         tuple(f"center.{a}" for a in "xyz")[:gp.n_center]

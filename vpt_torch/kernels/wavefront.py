@@ -65,7 +65,8 @@ from .prims import BIG, F32EPS, INV_4PI, TWO_PI, f32
 __all__ = ["MAX_SPHERES", "MAX_BLOBS", "KERNEL_INTEGRATORS",
            "LANES_PER_TILE", "Packed",
            "pack_scene", "render_tile_plain", "render_raw_plain",
-           "render_tile", "render_raw", "render_kernel", "LAUNCHES",
+           "render_tile", "render_raw", "make_raw", "render_kernel",
+           "LAUNCHES",
            "LAUNCHES_BY"]
 
 MAX_SPHERES = 16        # VPT_MAX_SPHERES in csrc/path.cuh
@@ -111,9 +112,9 @@ LANES_PER_TILE = 32 * 128
 
 # launches of the CUDA kernel in this process: the wrapper adds one per
 # launch under its instantiation's C entry, with "_scatter" appended for
-# launches from a list of tile bases. LAUNCHES reads their total. Callers
-# that must show the kernel ran read them, and reset them by clearing
-# LAUNCHES_BY.
+# launches from a list of tile bases and "_raw" for make_raw's contiguous
+# range. LAUNCHES reads their total. Callers that must show the kernel ran
+# read them, and reset them by clearing LAUNCHES_BY.
 LAUNCHES_BY: dict = {}
 
 
@@ -873,10 +874,11 @@ def _check_seed(seed: torch.Tensor) -> None:
 
 
 def _launch(pk: Packed, seed: torch.Tensor, bases, n_lanes: int,
-            sums: bool) -> torch.Tensor:
+            sums: bool, tag: str = "_scatter") -> torch.Tensor:
     """One launch of the kernel instantiation for (pk.nee, pk.distance),
     in a density field its field instantiation, in a voxel grid its grid
-    one, on seed.device's current stream, without synchronising."""
+    one, on seed.device's current stream, without synchronising. A launch
+    from tile bases counts under its entry + tag."""
     entries = (KERNEL_ENTRIES if pk.field is None else
                GRID_ENTRIES if pk.grid is not None else FIELD_ENTRIES)
     entry = entries.get((pk.nee, pk.distance))
@@ -904,7 +906,7 @@ def _launch(pk: Packed, seed: torch.Tensor, bases, n_lanes: int,
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: "
                            f"{_build.error_string(err)} ({err})")
-    key = entry if bases is None else entry + "_scatter"
+    key = entry if bases is None else entry + tag
     LAUNCHES_BY[key] = LAUNCHES_BY.get(key, 0) + 1
     return out
 
@@ -943,6 +945,26 @@ def render_raw(pk: Packed, seed: torch.Tensor, bases=None) -> torch.Tensor:
     if seed.device.type == "cpu":
         return render_raw_plain(pk, seed, bases)
     return _launch(pk, seed, bases, n * LANES_PER_TILE, True)
+
+
+def make_raw(pk: Packed, n_tiles: int):
+    """vpt's contiguous make_raw: raw(seed, base) -> (n_tiles *
+    LANES_PER_TILE, 3) per-lane radiance SUMS of the lanes base .. base +
+    n_tiles * LANES_PER_TILE - 1, one launch (render_raw's, from the tile
+    bases base + i * LANES_PER_TILE; counted under the entry + "_raw").
+    Lanes past npix render a clamped duplicate of the last pixel with
+    their own streams; the caller discards them. A CPU seed runs
+    render_raw_plain."""
+    def raw(seed: torch.Tensor, base: int) -> torch.Tensor:
+        _check_seed(seed)
+        bases = int(base) + LANES_PER_TILE * torch.arange(
+            n_tiles, dtype=torch.int32, device=seed.device)
+        if seed.device.type == "cpu":
+            return render_raw_plain(pk, seed, bases)
+        return _launch(pk, seed, bases, n_tiles * LANES_PER_TILE, True,
+                       "_raw")
+
+    return raw
 
 
 def pack_config(scene: Scene, camera: Camera, cfg, spp: int | None = None
