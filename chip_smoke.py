@@ -274,6 +274,16 @@ def median_ms(fn, n: int = 3, warm_up: bool = True) -> tuple[float, list]:
     return statistics.median(times), [round(t, 3) for t in times]
 
 
+def median_ms_out(fn, n: int = 3) -> tuple[float, list, object]:
+    """median_ms, and the output of the last timed run."""
+    box = []
+
+    def run():
+        box[:] = [fn()]
+    ms, times = median_ms(run, n)
+    return ms, times, box[0]
+
+
 def reset_counts() -> None:
     wf.LAUNCHES_BY.clear()
     df.LAUNCHES_BY.clear()
@@ -3871,12 +3881,13 @@ def fd_start(scene, camera, dev) -> dict:
 
 def run_kernel_steps(make_step, wrong, target, dev) -> tuple:
     """SHARD_STEPS steps of make_step(optimizer) from pack_params(wrong):
-    (losses, the leaves flattened after each step, each step's seconds)."""
+    (losses, the leaves flattened after each step, the gradient the step
+    applied flattened, each step's seconds)."""
     from vpt_torch.dist.train_fast import adam
     params = {k: v.to(dev).requires_grad_()
               for k, v in df.pack_params(wrong).items()}
     step = make_step(adam(params, 1.5e-3))
-    losses, flats, secs = [], [], []
+    losses, flats, grads, secs = [], [], [], []
     for i in range(SHARD_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3886,7 +3897,9 @@ def run_kernel_steps(make_step, wrong, target, dev) -> tuple:
         losses.append(float(loss))
         flats.append(torch.cat([v.detach().reshape(-1)
                                 for v in params.values()]).cpu())
-    return losses, torch.stack(flats), secs
+        grads.append(torch.cat([v.grad.reshape(-1)
+                                for v in params.values()]).cpu())
+    return losses, torch.stack(flats), torch.stack(grads), secs
 
 
 def run_fd_step(make_step, scene, camera, fd_target, dev) -> tuple:
@@ -3906,10 +3919,11 @@ def sharded_steps(scene, camera, mesh, wrong, target, fd_target) -> dict:
     w, h, spp, mb = SHARD_FD
     out = {}
     reset_counts()
-    out["losses"], out["params"], out["secs"] = run_kernel_steps(
-        lambda opt: make_sharded_kernel_train_step(
-            wrong, camera, MAIN_CFG["width"], MAIN_CFG["height"], 16, opt,
-            mesh, max_bounces=16), wrong, target, mesh.device)
+    out["losses"], out["params"], out["grads"], out["secs"] = \
+        run_kernel_steps(
+            lambda opt: make_sharded_kernel_train_step(
+                wrong, camera, MAIN_CFG["width"], MAIN_CFG["height"], 16,
+                opt, mesh, max_bounces=16), wrong, target, mesh.device)
     out["step_launches"] = dict(df.LAUNCHES_BY)
     reset_counts()
     out["fd_loss"], out["fd_theta"] = run_fd_step(
@@ -3949,7 +3963,7 @@ def sharded_rank(rank: int, port: int, tmp: str) -> None:
                         torch.from_numpy(inp["fd_target"]).to(dev))
     np.savez(Path(tmp) / f"rank{rank}.npz", img=img.cpu().numpy(),
              losses=np.asarray(res["losses"]), params=res["params"].numpy(),
-             secs=np.asarray(res["secs"]), fd_loss=res["fd_loss"],
+             grads=res["grads"].numpy(), secs=np.asarray(res["secs"]), fd_loss=res["fd_loss"],
              fd_theta=res["fd_theta"].numpy(), di=mesh.di)
     dist.destroy_process_group()
 
@@ -4100,7 +4114,7 @@ def _sharded_phase(card, dev, camera, bounds, scene, tmp, ranks,
     wrong = wrong_medium(scene)
     target, fd_target = shard_targets(scene, camera, dev)
     d1 = sharded_steps(scene, camera, mesh, wrong, target, fd_target)
-    ref_losses, ref_params, ref_secs = run_kernel_steps(
+    ref_losses, ref_params, ref_grads, ref_secs = run_kernel_steps(
         lambda opt: make_kernel_train_step(
             wrong, camera, cfg.width, cfg.height, 16, opt, max_bounces=16,
             device=dev), wrong, target, dev)
@@ -4109,57 +4123,90 @@ def _sharded_phase(card, dev, camera, bounds, scene, tmp, ranks,
         lambda opt: make_fd_geom_train_step(
             scene, camera, w, h, spp, opt, sphere=8, cam_grads=False,
             max_bounces=mb, device=dev), scene, camera, fd_target, dev)
-    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(d1["losses"],
-                                                         ref_losses))
-    par_rel = float(((d1["params"] - ref_params).abs()
-                     / ref_params.abs().clamp_min(1e-30)).max())
-    fd_rel = abs(d1["fd_loss"] - ref_fd_loss) / abs(ref_fd_loss)
-    th_err = float((d1["fd_theta"] - ref_fd_theta).abs().max())
+    # D = 1 renders the frame's lanes in one shard, with the whole frame's
+    # blocks and sums: its steps are the unsharded ones bit for bit
+    equal = {"losses": d1["losses"] == ref_losses,
+             "grads": bool(torch.equal(d1["grads"], ref_grads)),
+             "params": bool(torch.equal(d1["params"], ref_params)),
+             "fd_loss": d1["fd_loss"] == ref_fd_loss,
+             "fd_theta": bool(torch.equal(d1["fd_theta"], ref_fd_theta))}
     sl = d1["step_launches"]
     print(f"phase 20 {SHARD_STEPS} make_sharded_kernel_train_step steps "
           f"{cfg.width}x{cfg.height}, 16 spp on the NCCL mesh: losses "
           f"{d1['losses']}, {[round(t, 4) for t in d1['secs']]} s; "
           f"make_kernel_train_step {ref_losses}, "
-          f"{[round(t, 4) for t in ref_secs]} s; losses within {loss_rel:.3e}"
-          f" relative, params within {par_rel:.3e}; launches {sl}; the FD "
+          f"{[round(t, 4) for t in ref_secs]} s; launches {sl}; the FD "
           f"step {SHARD_FD}: loss {d1['fd_loss']:.6g} against "
-          f"{ref_fd_loss:.6g} ({fd_rel:.3e}), theta within {th_err:.3e}, "
-          f"launches {d1['fd_launches']}", flush=True)
-    if not (loss_rel < 1e-5 and par_rel < 1e-5 and fd_rel < 1e-5
-            and th_err < 1e-4 and sl.get("vpt_diff_fwd_shard") == 2 *
+          f"{ref_fd_loss:.6g}, launches {d1['fd_launches']}; bit-equal to "
+          f"the unsharded steps: {equal}", flush=True)
+    if not (all(equal.values()) and sl.get("vpt_diff_fwd_shard") == 2 *
             SHARD_STEPS and sl.get("vpt_diff_bwd_shard") == 2 * SHARD_STEPS
             and d1["fd_launches"].get("geom_k0_raw") == 12):
         raise AssertionError("the sharded steps on the NCCL mesh disagree "
                              "with the single-device steps")
 
-    # -- the half-frame launches at the main frame (one rank of two)
+    # -- the half-frame launches at the main frame (one rank of two); each
+    # timed launch's output is held bit for bit against its rows of the
+    # whole-frame launch on the same inputs, K3 by its per-lane rows and
+    # its sum within GVEC_TOL of sum |G| of those rows
     npix = cfg.width * cfg.height
     half = npix // 2
     seed_t = torch.tensor([cfg.seed], dtype=torch.int32, device=dev)
     dp = df.pack_diff(scene, camera, cfg.width, cfg.height, cfg.spp,
                       max_bounces=cfg.max_bounces, sampler=cfg.sampler)
     pvec = df._flatten(df.pack_params(scene), scene.count).to(dev)
-    gmean = torch.full((half, 3), 1.0 / (3 * npix), device=dev)
-    k2_ms, k2_t = median_ms(lambda: df.diff_fwd(dp, pvec, seed_t, None,
-                                                half, half))
-    k3_ms, k3_t = median_ms(lambda: df.diff_bwd(dp, pvec, seed_t, gmean,
-                                                False, None, half, half))
+    gfull = torch.full((npix, 3), 1.0 / (3 * npix), device=dev)
+    gmean = gfull[half:].clone()
+    k2_ms, k2_t, k2_hi = median_ms_out(lambda: df.diff_fwd(
+        dp, pvec, seed_t, None, half, half))
+    k3_ms, k3_t, k3_hi = median_ms_out(lambda: df.diff_bwd(
+        dp, pvec, seed_t, gmean, False, None, half, half))
     gp0 = gm.pack_geom(scene, camera, cfg.width, cfg.height, cfg.spp,
                        sphere=8, primal_only=True,
                        max_bounces=cfg.max_bounces)
     th = gm.flatten_theta(gm.pack_theta(scene, camera, 8)).to(dev)
-    k4_ms, k4_t = median_ms(lambda: gm.geom_fwd(gp0, th, seed_t, half, half))
+    k4_ms, k4_t, k4_hi = median_ms_out(lambda: gm.geom_fwd(
+        gp0, th, seed_t, half, half))
     pk = wf.pack_scene(scene, camera, cfg.width, cfg.height, cfg.spp,
                        max_bounces=cfg.max_bounces, sampler=cfg.sampler)
     k1_raw = wf.make_raw(pk, pk.num_tiles // 2)
-    k1_ms, k1_t = median_ms(lambda: k1_raw(seed_t, half))
+    k1_ms, k1_t, k1_hi = median_ms_out(lambda: k1_raw(seed_t, half))
+    k2_lo = df.diff_fwd(dp, pvec, seed_t, None, 0, half)
+    k2_full = df.diff_fwd(dp, pvec, seed_t)
+    G = _rows_gg(df.diff_bwd(dp, pvec, seed_t, gfull, True))[0]
+    G_hi = _rows_gg(df.diff_bwd(dp, pvec, seed_t, gmean, True, None, half,
+                                half))[0]
+    G_lo = _rows_gg(df.diff_bwd(dp, pvec, seed_t, gfull[:half].clone(),
+                                True, None, 0, half))[0]
+    k3_lo = df.diff_bwd(dp, pvec, seed_t, gfull[:half].clone(), False, None,
+                        0, half)
+    k3_full = df.diff_bwd(dp, pvec, seed_t, gfull)
+    k4_full = gm.geom_fwd(gp0, th, seed_t)
+    k1_full = wf.render_raw(pk, seed_t)
+    torch.cuda.synchronize()
+    main = {"k2": bool(torch.equal(k2_hi, k2_full[half:])
+                       and torch.equal(k2_lo, k2_full[:half])),
+            "k3_rows": bool(torch.equal(G_hi, G[half:])
+                            and torch.equal(G_lo, G[:half])),
+            "k3_half_over": int(((k3_hi - G[half:].sum(0)).abs()
+                                 > GVEC_TOL * G[half:].abs().sum(0)).sum()),
+            "k3_sum_over": int(((k3_lo + k3_hi - k3_full).abs()
+                                > GVEC_TOL * G.abs().sum(0)).sum()),
+            "k4": bool(torch.equal(k4_hi, k4_full[:, half:])),
+            "k1": bool(torch.equal(k1_hi, k1_full[half:npix]))}
+    del G, G_hi, G_lo
     if bounds is None:
         bounds = shard_bounds_alone(scene, camera, dev)
     print(f"phase 20 half-frame launches at {cfg.width}x{cfg.height}x"
           f"{cfg.spp} (lanes {half}..{npix - 1}): K2 shard {k2_ms:.3f} ms "
           f"({k2_t}), K3 shard {k3_ms:.3f} ms ({k3_t}), K4 raw K=0 "
           f"{k4_ms:.3f} ms ({k4_t}; \"random\"), K1 raw {k1_ms:.3f} ms "
-          f"({k1_t}); whole-frame bounds {bounds}", flush=True)
+          f"({k1_t}); whole-frame bounds {bounds}; against the whole-frame "
+          f"launches (K2 and K3's rows at base 0 too): {main}", flush=True)
+    if not (main["k2"] and main["k3_rows"] and main["k3_half_over"] == 0
+            and main["k3_sum_over"] == 0 and main["k4"] and main["k1"]):
+        raise AssertionError(f"the half-frame launches disagree with the "
+                             f"whole-frame launches: {main}")
 
     # -- two gloo ranks on the one card, (2, 1): their inputs now
     tmp_in = os.path.join(tmp, "inputs.tmp.npz")
@@ -4180,6 +4227,7 @@ def _sharded_phase(card, dev, camera, bounds, scene, tmp, ranks,
     a, b = outs
     img_np = img.reshape(-1, 3).cpu().numpy()
     replicas = bool(np.array_equal(a["params"], b["params"])
+                    and np.array_equal(a["grads"], b["grads"])
                     and np.array_equal(a["losses"], b["losses"])
                     and np.array_equal(a["fd_theta"], b["fd_theta"])
                     and a["fd_loss"] == b["fd_loss"])
@@ -4192,15 +4240,25 @@ def _sharded_phase(card, dev, camera, bounds, scene, tmp, ranks,
                           / np.maximum(np.abs(p1), 1e-30)))
     d2_fd = abs(float(a["fd_loss"]) - d1["fd_loss"]) / abs(d1["fd_loss"])
     d2_th = float(np.abs(a["fd_theta"] - d1["fd_theta"].numpy()).max())
+    # the first step's gradient (both from the same params): a sum of two
+    # ranks' partial sums against one sum, held as tests/test_torch_dist.py
+    # holds it on the CPU
+    g1, g2 = d1["grads"][0].numpy(), a["grads"][0]
+    d2_grad = float(np.abs(g2 - g1).max() / np.abs(g1).max())
+    grads_ok = bool(np.all(np.abs(g2 - g1) <= 1e-5 * np.abs(g1).max()
+                           + 1e-6 * np.abs(g1)))
     print(f"phase 20 two gloo ranks on the one card, (2, 1) mesh: frames "
           f"bit-equal to render {frames}, replicas bitwise equal {replicas}; "
           f"D = 2 against D = 1: step losses {a['losses'].tolist()} within "
-          f"{d2_loss:.3e} relative, params within {d2_par:.3e}, step "
+          f"{d2_loss:.3e} relative, the first gradient within 1e-5 of its "
+          f"largest entry + 1e-6 of its own {grads_ok} (largest error "
+          f"{d2_grad:.3e} of the largest entry), params within {d2_par:.3e}, "
+          f"step "
           f"seconds {a['secs'].tolist()}; FD loss within {d2_fd:.3e}, theta "
           f"within {d2_th:.3e}; {time.perf_counter() - t_ranks:.1f} s after "
           f"their inputs", flush=True)
-    if not (frames and replicas and d2_loss < 1e-5 and d2_par < 1e-5
-            and d2_fd < 1e-5 and d2_th < 1e-4):
+    if not (frames and replicas and grads_ok and d2_loss < 1e-5
+            and d2_par < 1e-5 and d2_fd < 1e-5 and d2_th < 1e-4):
         raise AssertionError("the two-rank run disagrees with one rank")
 
     common = {"route": "cuda", "library_ms": None, "card": card,

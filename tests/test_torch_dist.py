@@ -22,8 +22,10 @@ run beside each other and beside the single-process work of the tests):
     and (1, 2) meshes of the world of two against the single process (a
     (1, 1) mesh, or the unsharded entries).
 
-The single-process steps (the (1, 1) mesh) are the port's own, and the
-unsharded steps they reduce to are held to vpt's single-device steps in
+The single-process kernel steps (the (1, 1) mesh) are held to
+make_kernel_train_step (gradient and updated leaves bit for bit, the loss
+at rtol 1e-6) and the (2, 1) FD step to make_fd_geom_train_step; those
+unsharded steps are held to vpt's single-device steps in
 tests/test_torch_diff.py (test_train_step_matches_vpt) and
 tests/test_torch_geom_fd.py (test_fd_step_matches_vpt): with the
 comparisons here that closes the chain from the sharded steps to vpt.
@@ -329,10 +331,16 @@ def test_render_sharded_1x2_is_the_mean_of_two_seeds(ranks):
         assert np.array_equal(r["r12"], ref)
 
 
-def _check_kernel_step(ranks, key, d1, n_sigma=2):
-    """D = 2 against D = 1: losses rtol 1e-6, sigma rtol 1e-5, replicas
+def _check_kernel_step(ranks, key, d1, unsharded, n_sigma=2):
+    """D = 1 against make_kernel_train_step (the whole frame in one
+    process): the loss rtol 1e-6, the gradient and the updated leaves bit
+    for bit (one shard of the frame's lanes, the lanes past it masked).
+    D = 2 against D = 1: losses rtol 1e-6, sigma rtol 1e-5, replicas
     bitwise equal."""
-    loss1, params1, _ = d1
+    loss1, params1, grad1 = d1
+    np.testing.assert_allclose(loss1, unsharded[0], rtol=1e-6)
+    assert np.array_equal(grad1, unsharded[2])
+    assert np.array_equal(params1, unsharded[1])
     a, b = ranks
     assert np.array_equal(a[f"{key}_params"], b[f"{key}_params"])
     assert np.array_equal(a[f"{key}_loss"], b[f"{key}_loss"])
@@ -347,10 +355,10 @@ def test_sharded_kernel_step_d2_matches_d1_and_stays_replicated(ranks):
     """vpt's test_sharded_kernel_train_step_multi_active_shards_stay_
     replicated: both data ranks hold pixels (the second half past the
     frame); the all-reduced gradient matches the single process' within
-    rounding."""
+    rounding; the single process' step is make_kernel_train_step's."""
     scene = vpt_torch.cornell_vpt()
     d1 = wk.kernel_step(make_mesh(device="cpu"), scene)
-    p2, p1 = _check_kernel_step(ranks, "k", d1)
+    p2, p1 = _check_kernel_step(ranks, "k", d1, wk.kernel_step(None, scene))
     g2, g1 = ranks[0]["k_grad"], d1[2]
     assert np.all(np.abs(g2 - g1) <= 1e-5 * np.abs(g1).max() + 1e-6
                   * np.abs(g1))
@@ -362,10 +370,12 @@ def test_sharded_kernel_step_d2_matches_d1_and_stays_replicated(ranks):
 
 def test_sharded_grid_step_d2_matches_d1(ranks):
     """diff_grid on a 4^3 grid: the voxel table is all-reduced with the
-    rest, moves, and the replicas stay bitwise equal."""
+    rest, moves, and the replicas stay bitwise equal; the single process'
+    step is make_kernel_train_step's."""
     scene = wk.grid_scene()
     d1 = wk.kernel_step(make_mesh(device="cpu"), scene, diff_grid=True)
-    p2, p1 = _check_kernel_step(ranks, "g", d1)
+    p2, p1 = _check_kernel_step(ranks, "g", d1,
+                                wk.kernel_step(None, scene, diff_grid=True))
     init = torch.cat([v.reshape(-1) for v in df.pack_params(
         scene, with_grid=True).values()]).numpy()
     vox = slice(len(init) - 64, len(init))

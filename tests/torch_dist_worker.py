@@ -22,8 +22,8 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import vpt_torch  # noqa: E402
-from vpt_torch.dist import (make_mesh,  # noqa: E402
-                            make_sharded_fd_geom_train_step,
+from vpt_torch.dist import (make_kernel_train_step,  # noqa: E402
+                            make_mesh, make_sharded_fd_geom_train_step,
                             make_sharded_kernel_train_step)
 from vpt_torch.dist.multihost import assemble_image  # noqa: E402
 from vpt_torch.dist.sharded_pallas import render_pallas_sharded  # noqa: E402
@@ -65,15 +65,22 @@ def grid_scene():
 
 
 def kernel_step(mesh, scene, diff_grid=False):
-    """One sharded kernel step on `mesh` from pack_params(scene): (loss,
+    """One sharded kernel step on `mesh` from pack_params(scene) (mesh
+    None: make_kernel_train_step's, the whole frame on the CPU): (loss,
     the updated leaves flattened, the all-reduced gradient flattened). A
     rank that applied its own shard's gradient would leave the replicas
     apart after it."""
     params = {k: v.requires_grad_() for k, v in df.pack_params(
         scene, with_grid=diff_grid).items()}
-    step = make_sharded_kernel_train_step(
-        scene, vpt_torch.default_camera(), W, H, SPP, adam(params, LR), mesh,
-        max_bounces=MB, tile_rows=TILE_ROWS, diff_grid=diff_grid)
+    cam, opt = vpt_torch.default_camera(), adam(params, LR)
+    if mesh is None:
+        step = make_kernel_train_step(scene, cam, W, H, SPP, opt,
+                                      max_bounces=MB, diff_grid=diff_grid,
+                                      device="cpu")
+    else:
+        step = make_sharded_kernel_train_step(
+            scene, cam, W, H, SPP, opt, mesh, max_bounces=MB,
+            tile_rows=TILE_ROWS, diff_grid=diff_grid)
     loss = float(step(params, step_target(), STEP_SEED))
     grad = torch.cat([v.grad.reshape(-1) for v in params.values()])
     flat = torch.cat([v.detach().reshape(-1) for v in params.values()])

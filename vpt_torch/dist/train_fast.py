@@ -471,6 +471,34 @@ def _phys_probe(v: torch.Tensor) -> torch.Tensor:
     return v
 
 
+def _fd_update(theta: dict, probes: list, dims: list, hs: list,
+               optimizer: torch.optim.Optimizer, sigma: bool):
+    """The FD steps' update from their probe losses, one (l+, l-) pair for
+    each enabled dimension: g_k = (l+ - l-) / (2 h_k) into the .grad of the
+    THETA_KEYS leaves, the optimizer's step, and with sigma=True sigma_a
+    and sigma_s clamped to >= 1e-6. Returns the loss, (l+ + l-) / 2 of the
+    first dimension."""
+    dev = probes[0][0].device
+    with torch.no_grad():
+        g = torch.zeros(12, dtype=torch.float32, device=dev)
+        for k, (lp, lm) in zip(dims, probes):
+            # a device scalar: CUDA divides by a host scalar as a multiply
+            # by its reciprocal
+            g[k] = (lp - lm) / torch.tensor(2.0 * hs[k], device=dev)
+        loss = 0.5 * (probes[0][0] + probes[0][1])
+    optimizer.zero_grad(set_to_none=True)
+    off = 0
+    for key, n in THETA_KEYS:
+        theta[key].grad = g[off:off + n].reshape(theta[key].shape).clone()
+        off += n
+    _optimizer_step(optimizer)
+    if sigma:
+        with torch.no_grad():
+            for key in ("sigma_a", "sigma_s"):
+                theta[key].clamp_(min=1e-6)
+    return loss
+
+
 def make_fd_geom_train_step(scene: Scene, camera: Camera, width: int,
                             height: int, spp: int,
                             optimizer: torch.optim.Optimizer, *,
@@ -508,31 +536,13 @@ def make_fd_geom_train_step(scene: Scene, camera: Camera, width: int,
         probes = []
         with torch.no_grad():
             vec = flatten_theta(theta).to(dev)
-            g = torch.zeros(12, dtype=torch.float32, device=dev)
-            loss = None
             for k in dims:
                 e = torch.zeros(12, dtype=torch.float32, device=dev)
                 e[k] = hs[k]
-                lp = loss_of(vec + e, seed, target_flat)
-                lm = loss_of(vec - e, seed, target_flat)
-                probes.append((lp, lm))
-                # a device scalar: CUDA divides by a host scalar as a
-                # multiply by its reciprocal
-                g[k] = (lp - lm) / torch.tensor(2.0 * hs[k], device=dev)
-                if loss is None:
-                    loss = 0.5 * (lp + lm)
-        optimizer.zero_grad(set_to_none=True)
-        off = 0
-        for key, n in THETA_KEYS:
-            theta[key].grad = g[off:off + n].reshape(theta[key].shape).clone()
-            off += n
-        _optimizer_step(optimizer)
-        if sigma:
-            with torch.no_grad():
-                for key in ("sigma_a", "sigma_s"):
-                    theta[key].clamp_(min=1e-6)
+                probes.append((loss_of(vec + e, seed, target_flat),
+                               loss_of(vec - e, seed, target_flat)))
         step.probe_losses = probes
-        return loss
+        return _fd_update(theta, probes, dims, hs, optimizer, sigma)
 
     return step
 
@@ -600,25 +610,10 @@ def make_sharded_fd_geom_train_step(scene: Scene, camera: Camera,
             losses = mesh.all_reduce(torch.stack(parts), DATA_AXIS) / n_terms
             if mesh.n_sample > 1:
                 losses = mesh.all_reduce(losses, SAMPLE_AXIS) / mesh.n_sample
-            g = torch.zeros(12, dtype=torch.float32, device=dev)
-            probes = []
-            for i, k in enumerate(dims):
-                lp, lm = losses[2 * i], losses[2 * i + 1]
-                probes.append((lp, lm))
-                g[k] = (lp - lm) / torch.tensor(2.0 * hs[k], device=dev)
-            loss = 0.5 * (losses[0] + losses[1])
-        optimizer.zero_grad(set_to_none=True)
-        off = 0
-        for key, n in THETA_KEYS:
-            theta[key].grad = g[off:off + n].reshape(theta[key].shape).clone()
-            off += n
-        _optimizer_step(optimizer)
-        if sigma:
-            with torch.no_grad():
-                for key in ("sigma_a", "sigma_s"):
-                    theta[key].clamp_(min=1e-6)
+        probes = [(losses[2 * i], losses[2 * i + 1])
+                  for i in range(len(dims))]
         step.probe_losses = probes
-        return loss
+        return _fd_update(theta, probes, dims, hs, optimizer, sigma)
 
     return step
 
